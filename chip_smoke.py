@@ -11,25 +11,32 @@ the checkout (into ``build/``), then
      off: every comparison below is in full float32);
   2. builds the CUDA kernels (one nvcc per source, started together);
   3. holds each kernel — topk_wire, dist_ce forward and backward, emb_dist
-     forward and backward — against its plain PyTorch version on the card,
-     at the main path's shapes, at one larger shape and on a ties case,
-     and times kernel, plain version and one library yardstick with CUDA
-     events (median of repeated calls);
-  4. checks the fused wire encode on the card byte for byte against the
-     numpy host path, and the Eq. 1 loss with its gradients on the
-     kernels against the plain path on the CPU;
-  5. drives the main path through the user's entry points: K=3 ResNet-18
-     clients (width 64, 1000 classes, 4 aux heads) exchanging top-k
-     predictions, 12 steps and one evaluate(), with every kernel's launch
-     count set to 0 just before and read just after;
-  6. runs one more publish round of the path under torch.profiler: the
-     card's busy share of the wall time and its time by kernel (table in
-     ``chiprun_out/profile.txt``);
+     forward and backward, ssd_scan forward and backward — against its
+     plain PyTorch version on the card, at the main paths' shapes and at
+     edge cases, and times kernel, plain version and one library
+     yardstick with CUDA events (median of repeated calls);
+  4. checks the fused wire encodes on the card byte for byte against the
+     host: the fixed top-k frame at the ResNet path's shape against the
+     numpy host path, the adaptive delta-compressed frame at the LM path's
+     against the same encoder on CPU tensors (the plain topk_wire there;
+     its entropy and budget allocation are held against the JAX package
+     by tests/test_torch_lm_wire.py) — and the Eq. 1 loss with its
+     gradients on the kernels against the plain path on the CPU;
+  5. drives the ResNet path through the user's entry points: K=3
+     ResNet-18 clients (width 64, 1000 classes, 4 aux heads) exchanging
+     top-k predictions, 12 steps and one evaluate(), then one profiled
+     publish round;
+  6. drives the LM path: K=3 full-width, full-depth mamba2-370m clients
+     (48 layers, d_model 1024, vocab 50280, 2 aux heads) exchanging
+     entropy-adaptive, delta-compressed next-token predictions, 12 steps
+     and one evaluate(), then one profiled publish round. Every kernel's
+     launch count is set to 0 just before each path and read just after;
   7. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
-the last line. The full record also goes to ``chiprun_out/chip_smoke.json``.
+the last line. The full record also goes to ``chiprun_out/chip_smoke.json``
+and the profiles' tables to ``chiprun_out/profile_{resnet,lm}.txt``.
 """
 from __future__ import annotations
 
@@ -50,14 +57,17 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.comm import (CommConfig, LoopbackTransport, TopKCodec,  # noqa: E402
-                              frame_overhead_nbytes, topk_frame_nbytes)
-from repro_torch.configs import ARCHS  # noqa: E402
+                              frame_overhead_nbytes, make_codec,
+                              topk_frame_nbytes)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (DecentralizedTrainer, MHDConfig,  # noqa: E402
                               RunConfig, complete_graph, mhd_total_loss)
 from repro_torch import data  # noqa: E402
+from repro_torch import lm  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import dist_ce as DCE  # noqa: E402
 from repro_torch.kernels import emb_dist as EMB  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels import topk_wire as TOPK  # noqa: E402
 from repro_torch.models import build_bundle  # noqa: E402
 from repro_torch.optim import OptimizerConfig, make_optimizer  # noqa: E402
@@ -70,7 +80,7 @@ PEAK_F32 = 67e12
 # the main path's run
 K, NUM_LABELS, STEPS, S_P, POOL, TOPK_K = 3, 1000, 12, 4, 3, 32
 BATCH = 32
-CFG = ARCHS["resnet18-imagenet"]["full"]()  # ResNet-18, 1000 classes, H=5
+CFG = get_config("resnet18-imagenet")  # ResNet-18, 1000 classes, H=5
 H = CFG.num_aux_heads + 1
 E = CFG.embed_dim
 OPTIMIZER = dict(name="sgd_momentum", init_lr=0.1, total_steps=STEPS,
@@ -103,6 +113,57 @@ def path_data(D):
     return ds, part
 
 
+# the LM path: K=3 full-width, full-depth mamba2-370m clients (48 layers,
+# d_model 1024, 32 heads x 64, d_state 128, vocab 50280, 2 aux heads, f32)
+# on lm_hetero's MHD and wire (presets.py:114-145), with S_P and W cut to
+# fit memory, 12 steps
+LM_ARCH = "mamba2-370m"
+LM_CFG = get_config(LM_ARCH)
+LM_K, LM_DOMAINS, LM_STEPS, LM_S_P, LM_POOL = 3, 6, 12, 4, 2
+LM_SEQS, LM_TEST_SEQS, LM_SEQ_LEN, LM_DATA_VOCAB = 64, 8, 512, 512
+LM_BATCH, LM_MAX_POS, LM_POS_SEED = 8, 1024, 17
+LM_H = LM_CFG.num_aux_heads + 1
+LM_VOCAB = LM_CFG.vocab_size
+LM_OPTIMIZER = dict(name="adamw", init_lr=1e-3, warmup_steps=2,
+                    total_steps=LM_STEPS, grad_clip_norm=1.0)
+LM_MHD = dict(nu_emb=0.0, nu_aux=0.5, num_aux_heads=LM_H - 1, delta=1,
+              confidence="max", pool_size=LM_POOL,
+              pool_update_every=LM_S_P)
+LM_RUN = dict(steps=LM_STEPS, batch_size=LM_BATCH,
+              public_batch_size=LM_BATCH, eval_every=0,
+              eval_batch_size=LM_BATCH, seed=0)
+LM_COMM = dict(topk=8, val_dtype="float16", emb_encoding="none",
+               budget_bytes_per_token=24, compression="delta",
+               horizon=LM_S_P)
+LM_PARTITION = dict(labels_per_client=2, skew=100.0, gamma_pub=0.2, seed=0)
+LM_TOPK_ROWS = LM_S_P * LM_H * LM_MAX_POS  # W·H·B' of one LM publish
+LM_CE_ROWS = 2 * LM_MAX_POS  # n_cand·B' of one aux level
+# which client steps distill on the LM path (row = client, column = step).
+# Every client distills in round 0 from its seeded pool; later a pool of
+# N_P = 2 holds the fresh window and a random older one, and a sampled
+# expired window falls back to supervised. Derived on the CPU through the
+# JAX package and the port by tests/test_torch_schedule.py.
+REFERENCE_DISTILLED_LM = [[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+                          [1, 1, 1, 1, 0, 1, 0, 0, 1, 0, 0, 0],
+                          [1, 1, 1, 1, 0, 1, 0, 1, 1, 1, 1, 0]]
+
+
+def lm_path_data(LM, D):
+    """The LM path's train and test token arrays and its partition, built
+    with the lm and data modules ``LM``, ``D`` (this port's, or the JAX
+    package's in a parity test). The test split shares the domain
+    languages (``table_seed``), as the reference's runner builds it."""
+    arrays = LM.make_text_arrays(LM_DOMAINS, LM_SEQS, LM_SEQ_LEN,
+                                 LM_DATA_VOCAB, temperature=0.5, seed=0,
+                                 table_seed=0)
+    test = LM.make_text_arrays(LM_DOMAINS, LM_TEST_SEQS, LM_SEQ_LEN,
+                               LM_DATA_VOCAB, temperature=0.5, seed=991,
+                               table_seed=0)
+    part = D.partition_dataset(arrays["labels"], D.PartitionConfig(
+        num_clients=LM_K, num_labels=LM_DOMAINS, **LM_PARTITION))
+    return arrays, test, part
+
+
 # tolerances: topk values and indices are exact; everything else in f32
 # at the 1e-4 of tests/test_kernels.py (bf16 inputs at its 2e-2); the
 # lse and the backward (entries ~1/V) at tighter absolute bounds. The bf16
@@ -114,6 +175,16 @@ TOL_LSE = 1e-6
 TOL_GRAD_ABS = 1e-6
 TOL_BF16_GRAD_REL = 1e-2
 TOL_BF16_GRAD_ABS = 1e-4
+TOL_SSD = 1e-4
+TOL_SSD_DECAY = 2e-3
+# ssd_scan at the LM path's shape: Bt, T, H, P, N, and mamba2-370m's chunk
+SSD_SHAPE = (8, 512, 32, 64, 128)
+SSD_CHUNK = 256
+# the kernels each path runs, and must have launched
+RESNET_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
+                  "emb_dist_bwd")
+LM_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "ssd_scan_fwd",
+              "ssd_scan_bwd")
 
 RECORD: dict = {}
 
@@ -178,19 +249,38 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build_cuda(["topk_wire"])
+    build.build_cuda(["topk_wire", "ssd_scan"])
     log(f"build: nvcc {time.perf_counter() - t0:.2f} s")
-    for line in (build.BUILD_DIR / "topk_wire.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name in ("topk_wire", "ssd_scan"):
+        for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
+def _topk_timing(x: torch.Tensor, k: int, iters: int) -> dict:
+    B, V = x.shape
+    b_ms, b_by = bound(B * V * 4 + B * k * 8 + B * 4, 3 * B * V)
+    return {"shape": [B, V, k],
+            "ms": time_ms(lambda: TOPK.topk_wire_kernel(x, k), iters=iters),
+            "plain_ms": time_ms(lambda: TOPK.topk_wire_plain(x, k),
+                                iters=iters),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: (torch.topk(x, k, dim=-1),
+                                           torch.logsumexp(x, dim=-1)),
+                                  iters=iters)}
 
 
 def phase_topk(dev) -> dict:
+    """topk_wire against its plain version (values and indices exact, lse
+    within TOL_LSE), at both paths' shapes and at the edges; timed at the
+    LM path's publish shape, with the ResNet path's beside it."""
     g = torch.Generator(device=dev).manual_seed(0)
-    rows = 4 * H * BATCH  # W·H·B of one publish
+    rows = 4 * H * BATCH  # W·H·B of one ResNet publish
     err = 0.0
     cases = [("slice", torch.randn(rows, NUM_LABELS, generator=g,
                                    device=dev) * 3, TOPK_K),
+             ("lm", torch.randn(LM_TOPK_ROWS, LM_VOCAB, generator=g,
+                                device=dev) * 3, LM_COMM["topk"]),
              ("large", torch.randn(rows, 32768, generator=g, device=dev) * 3,
               TOPK_K),
              # either side of where the row stops fitting in shared memory
@@ -212,16 +302,177 @@ def phase_topk(dev) -> dict:
         err = max(err, maxerr(v, pv), maxerr(lse, plse))
         log(f"topk_wire {name} {tuple(x.shape)} k={k}: idx/vals exact, "
             f"lse max|d|={maxerr(lse, plse):.3g}")
-    x = cases[0][1]
-    ms = time_ms(lambda: TOPK.topk_wire_kernel(x, TOPK_K))
-    plain = time_ms(lambda: TOPK.topk_wire_plain(x, TOPK_K))
-    lib = time_ms(lambda: (torch.topk(x, TOPK_K, dim=-1),
-                           torch.logsumexp(x, dim=-1)))
-    B, V = x.shape
-    b_ms, b_by = bound(B * V * 4 + B * TOPK_K * 8 + B * 4, 3 * B * V)
-    return {**TOPK.INFO, "shape": [B, V, TOPK_K], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib}
+    lm = _topk_timing(cases[1][1], LM_COMM["topk"], iters=20)
+    resnet = _topk_timing(cases[0][1], TOPK_K, iters=50)
+    log(f"topk_wire timing: LM shape {lm['ms']:.3f} ms (plain "
+        f"{lm['plain_ms']:.3f}, library {lm['library_ms']:.3f}, bound "
+        f"{lm['bound_ms']:.4f}); ResNet shape {resnet['ms']:.3f} ms")
+    return {**TOPK.INFO, **lm, "max_abs_err": err,
+            "at_resnet_shape": resnet}
+
+def _ssd_inputs(dev, g, Bt, T, H, P, N, kind):
+    """Inputs of one ssd_scan case: the model's A = -(1..H); dt around
+    0.05 (softplus of N(-3, 0.5)); "decay": dt·A = -10 every step, where
+    exp underflows inside a chunk; "s=0": A = 0, no decay at all."""
+    x = torch.randn(Bt, T, H, P, generator=g, device=dev)
+    dt = F.softplus(torch.randn(Bt, T, H, generator=g, device=dev) * 0.5
+                    - 3.0)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    if kind == "decay":
+        dt = (10.0 / -A)[None, None, :].expand(Bt, T, H).contiguous()
+    if kind == "s=0":
+        A = torch.zeros_like(A)
+    B = torch.randn(Bt, T, N, generator=g, device=dev)
+    C = torch.randn(Bt, T, N, generator=g, device=dev)
+    D = torch.ones(H, device=dev)
+    return x, dt, A, B, C, D
+
+
+def _relerr(a, b) -> float:
+    return maxerr(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+def phase_ssd(dev) -> list:
+    """ssd_scan forward and backward kernels against ssd_scan_plain on the
+    card: y, the final state and all six gradients (of a random linear
+    function of y and the final state), each as max|d| over max|plain|.
+    The plain version runs in float64 on the same inputs (the model's
+    chunk, 256, or the sequential recurrence when T is not a multiple):
+    at dt·A = -10 a step a float32 autograd of the chunked math cancels
+    O(1) diagonal gate terms against each other in dA and is itself off by
+    percents. Tolerances: TOL_SSD for float32 sums in another
+    order and chunking; TOL_SSD_DECAY at dt·A = -10, where the kernel's
+    own cumsum over a 64-chunk reaches -640, so s_t - s_u carries ~4e-5
+    of absolute rounding into every e^-10(t-u) term."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    Bt, T, H, P, N = SSD_SHAPE
+    cases = [("path", (Bt, T, H, P, N), "model", SSD_CHUNK),
+             ("T=500", (2, 500, 4, P, N), "model", SSD_CHUNK),
+             ("T=1", (2, 1, 4, P, N), "model", SSD_CHUNK),
+             ("decay", (2, 512, H, P, N), "decay", SSD_CHUNK),
+             ("s=0", (2, 512, 4, P, N), "s=0", SSD_CHUNK)]
+    err_f, err_b = 0.0, 0.0  # max absolute differences, for the record
+    record = []
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    for name, shape, kind, chunk in cases:
+        ins = _ssd_inputs(dev, g, *shape, kind)
+        gy = torch.randn(ins[0].shape, generator=g, device=dev)
+        gf = torch.randn(shape[0], shape[2], shape[3], shape[4],
+                         generator=g, device=dev)
+        res = []
+        for use_kernel in (True, False):
+            if use_kernel:
+                leaves = [t.clone().requires_grad_() for t in ins]
+                y, fin = SSD.SSDScan.apply(*leaves)
+            else:  # the oracle: the plain version in float64
+                leaves = [t.double().requires_grad_() for t in ins]
+                y, fin = SSD.ssd_scan_plain(*leaves, chunk)
+            grads = torch.autograd.grad(
+                (y * gy.to(y.dtype)).sum() + (fin * gf.to(y.dtype)).sum(),
+                leaves)
+            res.append((y.detach(), fin.detach(), grads))
+        torch.cuda.synchronize()
+        tol = TOL_SSD_DECAY if kind == "decay" else TOL_SSD
+        (y1, f1, g1), (y2, f2, g2) = res
+        ey, ef = _relerr(y1, y2), _relerr(f1, f2)
+        check(torch.isfinite(y1).all() and torch.isfinite(f1).all(),
+              f"ssd_scan {name}: finite")
+        check(ey <= tol and ef <= tol,
+              f"ssd_scan {name}: y {ey:.3g}, final state {ef:.3g} > {tol}")
+        errs, abs_errs = [], []
+        scale = max(float(b.abs().max()) for b in g2)
+        for nm, a, b in zip(names, g1, g2):
+            # a gradient that is exactly zero on the plain side (dA at
+            # T = 1: no decay acts within one step) is held absolutely, at
+            # the tolerance times the case's largest gradient entry
+            e = _relerr(a, b) if float(b.abs().max()) > 0 else \
+                maxerr(a, b) / scale
+            errs.append(e)
+            abs_errs.append(maxerr(a, b))
+            check(torch.isfinite(a).all(), f"ssd_scan {name}: {nm} finite")
+            check(e <= tol, f"ssd_scan {name}: {nm} {e:.3g} > {tol}")
+        err_f = max(err_f, maxerr(y1, y2), maxerr(f1, f2))
+        err_b = max(err_b, *abs_errs)
+        log(f"ssd_scan {name} {shape}: y {ey:.3g} state {ef:.3g} | "
+            + " ".join(f"{nm} {e:.3g}" for nm, e in zip(names, errs))
+            + f" (max|d| / max|plain|, tolerance {tol})")
+        log(f"ssd_scan {name}: max|d| y {maxerr(y1, y2):.3g} state "
+            f"{maxerr(f1, f2):.3g} | "
+            + " ".join(f"{nm} {e:.3g}" for nm, e in zip(names, abs_errs))
+            + " | max|plain| "
+            + " ".join(f"{nm} {float(b.abs().max()):.3g}"
+                       for nm, b in zip(names, g2)))
+        record.append({
+            "case": name, "shape": list(shape), "tol": tol,
+            "rel": {"y": ey, "state": ef, **dict(zip(names, errs))},
+            "abs": {"y": maxerr(y1, y2), "state": maxerr(f1, f2),
+                    **dict(zip(names, abs_errs))},
+            "plain_max": {"y": float(y2.abs().max()),
+                          "state": float(f2.abs().max()),
+                          **{nm: float(b.abs().max())
+                             for nm, b in zip(names, g2)}}})
+    RECORD["ssd_scan_cases"] = record
+    x, dt, A, B, C, D = _ssd_inputs(dev, g, Bt, T, H, P, N, "model")
+    L = SSD.kernel_chunk()
+    nc = -(-T // L)
+    _, _, states = SSD.ssd_scan_fwd_kernel(x, dt, A, B, C, D,
+                                           save_states=True)
+    dy = torch.randn_like(x)
+    # bytes: every input read once, every output written once; operations:
+    # the products the function needs at the kernel's chunk length L, per
+    # (row b, chunk): B and C are shared by the heads, so C·Bᵀ (tri·N
+    # multiply-adds) is needed once, not once per head; per head the
+    # masked product with x (tri·P), C·h and the state update (L·N·P
+    # each). Backward: C·Bᵀ again, and dC = dCB·B and dB = dCBᵀ·C once on
+    # the head-summed dCB (its tri·H additions); per head dx and dCB from
+    # the masked product (2·tri·P) and the four state products
+    # (4·L·N·P). What this kernel does beyond that (C·Bᵀ per head, dB and
+    # dC per head) belongs to its design, not to the function.
+    io_in = 4 * (2 * Bt * T * N + Bt * T * H * P + Bt * T * H + 2 * H)
+    state_b = 4 * Bt * H * P * N
+    tri = L * (L + 1) / 2
+    rows, heads = Bt * nc, Bt * nc * H
+    fl_fwd = 2 * rows * tri * N + 2 * heads * (tri * P + 2 * L * N * P)
+    fb, fby = bound(io_in + 4 * Bt * T * H * P + state_b, fl_fwd)
+    fl_bwd = (2 * rows * 3 * tri * N + rows * tri * H
+              + 2 * heads * (2 * tri * P + 4 * L * N * P))
+    # backward: dy and the chunk states (the wrapper's inputs) read; dx,
+    # ddt, dB, dC, dA and dD written
+    bb, bby = bound(io_in + 4 * Bt * T * H * P + nc * state_b
+                    + 4 * (Bt * T * H * P + Bt * T * H + 2 * Bt * T * N
+                           + 2 * H), fl_bwd)
+    fwd = {**SSD.INFO_FWD, "shape": [Bt, T, H, P, N], "max_abs_err": err_f,
+           "ms": time_ms(lambda: SSD.ssd_scan_fwd_kernel(
+               x, dt, A, B, C, D), iters=20),
+           "ms_saving_states": time_ms(lambda: SSD.ssd_scan_fwd_kernel(
+               x, dt, A, B, C, D, save_states=True), iters=20),
+           "plain_ms": time_ms(lambda: SSD.ssd_scan_plain(
+               x, dt, A, B, C, D, SSD_CHUNK), iters=10, warmup=2),
+           "bound_ms": fb, "bound_by": fby,
+           "library_ms": time_ms(lambda: SSD.ssd_chunked_plain(
+               x, dt, A, B, C, D, L), iters=10, warmup=2)}
+
+    # the plain backward alone: autograd through one saved graph of the
+    # plain forward, as the kernel's backward reads its saved states
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, B, C, D)]
+    y_plain, _ = SSD.ssd_scan_plain(*leaves, SSD_CHUNK)
+
+    def plain_bwd():
+        torch.autograd.grad(y_plain, leaves, dy, retain_graph=True)
+
+    bwd = {**SSD.INFO_BWD, "shape": [Bt, T, H, P, N], "max_abs_err": err_b,
+           "ms": time_ms(lambda: SSD.ssd_scan_bwd_kernel(
+               x, dt, A, B, C, D, states, dy), iters=20),
+           "plain_ms": time_ms(plain_bwd, iters=10, warmup=2),
+           "bound_ms": bb, "bound_by": bby, "library_ms": None}
+    del y_plain, leaves
+    log(f"ssd_scan timing: fwd {fwd['ms']:.3f} ms (saving states "
+        f"{fwd['ms_saving_states']:.3f}), bwd {bwd['ms']:.3f} ms; plain fwd "
+        f"{fwd['plain_ms']:.3f}, bwd {bwd['plain_ms']:.3f}; einsum at "
+        f"L={L} {fwd['library_ms']:.3f}; bounds {fb:.4f} ({fby}, "
+        f"{fl_fwd / 1e9:.3f} GFLOP) / {bb:.4f} ({bby}, "
+        f"{fl_bwd / 1e9:.3f} GFLOP) ms")
+    return [fwd, bwd]
 
 
 def _dist_ce_library(s, t):
@@ -230,58 +481,79 @@ def _dist_ce_library(s, t):
     return -(p_t * logp).sum(-1), p_t.amax(-1), logp.amax(-1).exp()
 
 
+def _dist_ce_timing(dev, g, B, V, s_dt, iters: int) -> tuple:
+    s = (torch.randn(B, V, generator=g, device=dev) * 3).to(s_dt)
+    t = torch.randn(B, V, generator=g, device=dev) * 3
+    gce = torch.randn(B, generator=g, device=dev)
+    stats = DCE.dist_ce_fwd_kernel(s, t)[3]
+    sb = s.element_size()
+    fb, fby = bound(B * V * (sb + 4) + 7 * B * 4, 8 * B * V)
+    bb, bby = bound(B * V * (2 * sb + 4) + 5 * B * 4, 6 * B * V)
+    fwd = {"shape": [B, V], "student_dtype": str(s_dt),
+           "ms": time_ms(lambda: DCE.dist_ce_fwd_kernel(s, t), iters=iters),
+           "plain_ms": time_ms(lambda: DCE.dist_ce_fwd_plain(s, t),
+                               iters=iters),
+           "bound_ms": fb, "bound_by": fby,
+           "library_ms": time_ms(lambda: _dist_ce_library(s, t),
+                                 iters=iters)}
+    bwd = {"shape": [B, V], "student_dtype": str(s_dt),
+           "ms": time_ms(lambda: DCE.dist_ce_bwd_kernel(s, t, stats, gce),
+                         iters=iters),
+           "plain_ms": time_ms(
+               lambda: DCE.dist_ce_bwd_plain(s, t, stats, gce), iters=iters),
+           "bound_ms": bb, "bound_by": bby, "library_ms": None}
+    return fwd, bwd
+
+
 def phase_dist_ce(dev) -> list:
+    """dist_ce forward and backward against the plain versions: f32, bf16,
+    ties, a large V, and the LM path's rows (bf16 student logits against
+    f32 decoded teacher rows, V = 50280); timed at the LM path's shape,
+    with the ResNet path's beside it."""
     g = torch.Generator(device=dev).manual_seed(1)
     rows = 2 * BATCH  # n_cand·B of one aux level
     err_f, err_b = 0.0, 0.0
-    cases = [("slice", rows, NUM_LABELS, torch.float32, 3.0),
-             ("large", rows, 32768, torch.float32, 3.0),
-             ("bf16", rows, NUM_LABELS, torch.bfloat16, 3.0),
-             ("ties", rows, NUM_LABELS, torch.float32, 0.0)]
-    for name, B, V, dt, scale in cases:
-        s = (torch.randn(B, V, generator=g, device=dev) * 3).to(dt)
-        t = (torch.randn(B, V, generator=g, device=dev) * scale).to(dt)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("slice", rows, NUM_LABELS, f32, f32, 3.0),
+             ("large", rows, 32768, f32, f32, 3.0),
+             ("bf16", rows, NUM_LABELS, bf16, bf16, 3.0),
+             ("ties", rows, NUM_LABELS, f32, f32, 0.0),
+             ("lm", LM_CE_ROWS, LM_VOCAB, bf16, f32, 3.0)]
+    for name, B, V, s_dt, t_dt, scale in cases:
+        s = (torch.randn(B, V, generator=g, device=dev) * 3).to(s_dt)
+        t = (torch.randn(B, V, generator=g, device=dev) * scale).to(t_dt)
         gce = torch.randn(B, generator=g, device=dev)
         out = DCE.dist_ce_fwd_kernel(s, t)
         ref = DCE.dist_ce_fwd_plain(s, t)
         gs = DCE.dist_ce_bwd_kernel(s, t, out[3], gce)
         gs_ref = DCE.dist_ce_bwd_plain(s, t, ref[3], gce)
         torch.cuda.synchronize()
-        tol = TOL_F32 if dt == torch.float32 else TOL_BF16
+        both_f32 = s_dt == f32 and t_dt == f32
+        tol = TOL_F32 if both_f32 else TOL_BF16
         for a, b, nm in zip(out[:3], ref[:3], ("ce", "t_conf", "s_conf")):
             check(close(a, b, tol, tol), f"dist_ce {name}: {nm}")
-            if dt == torch.float32:
+            if both_f32:
                 err_f = max(err_f, maxerr(a, b))
-        if dt == torch.float32:
+        if s_dt == f32:
             check(close(gs, gs_ref, TOL_F32, TOL_GRAD_ABS),
                   f"dist_ce bwd {name}")
+            err_b = max(err_b, maxerr(gs, gs_ref))
         else:
             check(close(gs, gs_ref, TOL_BF16_GRAD_REL, TOL_BF16_GRAD_ABS),
                   f"dist_ce bwd {name}")
-        if dt == torch.float32:
-            err_b = max(err_b, maxerr(gs, gs_ref))
-        log(f"dist_ce {name} ({B}, {V}) {dt}: fwd max|d|="
+        log(f"dist_ce {name} ({B}, {V}) {s_dt}/{t_dt}: fwd max|d|="
             f"{max(maxerr(a, b) for a, b in zip(out[:3], ref[:3])):.3g} "
             f"bwd max|d|={maxerr(gs, gs_ref):.3g}")
-    B, V = rows, NUM_LABELS
-    s = torch.randn(B, V, generator=g, device=dev) * 3
-    t = torch.randn(B, V, generator=g, device=dev) * 3
-    gce = torch.randn(B, generator=g, device=dev)
-    stats = DCE.dist_ce_fwd_kernel(s, t)[3]
-    fb, fby = bound(2 * B * V * 4 + 7 * B * 4, 8 * B * V)
-    bb, bby = bound(3 * B * V * 4 + 5 * B * 4, 6 * B * V)
-    fwd = {**DCE.INFO_FWD, "shape": [B, V], "max_abs_err": err_f,
-           "ms": time_ms(lambda: DCE.dist_ce_fwd_kernel(s, t)),
-           "plain_ms": time_ms(lambda: DCE.dist_ce_fwd_plain(s, t)),
-           "bound_ms": fb, "bound_by": fby,
-           "library_ms": time_ms(lambda: _dist_ce_library(s, t))}
-    bwd = {**DCE.INFO_BWD, "shape": [B, V], "max_abs_err": err_b,
-           "ms": time_ms(lambda: DCE.dist_ce_bwd_kernel(s, t, stats, gce)),
-           "plain_ms": time_ms(
-               lambda: DCE.dist_ce_bwd_plain(s, t, stats, gce)),
-           "bound_ms": bb, "bound_by": bby, "library_ms": None}
-    return [fwd, bwd]
-
+    lm_f, lm_b = _dist_ce_timing(dev, g, LM_CE_ROWS, LM_VOCAB, bf16, 20)
+    rn_f, rn_b = _dist_ce_timing(dev, g, rows, NUM_LABELS, f32, 50)
+    log(f"dist_ce timing: LM shape fwd {lm_f['ms']:.3f} ms bwd "
+        f"{lm_b['ms']:.3f} ms (plain {lm_f['plain_ms']:.3f} / "
+        f"{lm_b['plain_ms']:.3f}); ResNet shape fwd {rn_f['ms']:.3f} bwd "
+        f"{rn_b['ms']:.3f}")
+    return [{**DCE.INFO_FWD, **lm_f, "max_abs_err": err_f,
+             "at_resnet_shape": rn_f},
+            {**DCE.INFO_BWD, **lm_b, "max_abs_err": err_b,
+             "at_resnet_shape": rn_b}]
 
 def _emb_library(s, t):
     return (F.normalize(s, dim=-1) - F.normalize(t, dim=-1)).square().sum(-1)
@@ -409,7 +681,7 @@ class RecordingTransport(LoopbackTransport):
         super().send(src, dst, payload, step)
 
 
-def phase_path(dev) -> dict:
+def phase_resnet_path(dev) -> tuple:
     t0 = time.perf_counter()
     ds, part = path_data(data)
     test = data.make_synthetic_vision(
@@ -425,7 +697,7 @@ def phase_path(dev) -> dict:
         exchange="prediction_topk", comm=CommConfig(**COMM),
         transport=transport)
     torch.cuda.synchronize()
-    log(f"path: data + {K} x {CFG.name} init + seed publish "
+    log(f"resnet path: data + {K} x {CFG.name} init + seed publish "
         f"{time.perf_counter() - t0:.2f} s")
     step_s, history = [], []
     for t in range(STEPS):
@@ -442,39 +714,41 @@ def phase_path(dev) -> dict:
                  for i in range(K)]
     for t, mt in enumerate(history):
         for i in range(K):
-            check(math.isfinite(mt[f"c{i}/loss"]), f"path: c{i} loss at {t}")
+            check(math.isfinite(mt[f"c{i}/loss"]),
+                  f"resnet path: c{i} loss at {t}")
     check(distilled == REFERENCE_DISTILLED,
-          f"path: distilled {distilled} != the reference's schedule "
+          f"resnet path: distilled {distilled} != the reference's schedule "
           f"{REFERENCE_DISTILLED}")
-    for name, n in counts.items():
-        check(n > 0, f"path: kernel {name} launched ({n})")
+    for name in RESNET_KERNELS:
+        check(counts[name] > 0, f"resnet path: kernel {name} launched "
+                                f"({counts[name]})")
     W = S_P
     expect = W * topk_frame_nbytes(
         BATCH, TOPK_K, num_heads=H, emb_dim=E, val_bytes=2, idx_bytes=2,
         lse_bytes=4, emb_bytes_per_dim=1, emb_scale_bytes=4, hash_bytes=8) \
         + frame_overhead_nbytes({"sample_ids": 2, "vals": 4, "idx": 4,
                                  "lse": 3, "emb_q": 3, "emb_scale": 2})
-    check(len(transport.frames) > 0, "path: frames published")
+    check(len(transport.frames) > 0, "resnet path: frames published")
     for payload in transport.frames:
         msg = trainer.codec.decode(payload)
-        check(len(payload) == expect, f"path: frame {len(payload)} B "
-                                      f"!= {expect} B")
+        check(len(payload) == expect,
+              f"resnet path: frame {len(payload)} B != {expect} B")
         check(msg.arrays["vals"].shape == (W, H, BATCH, TOPK_K),
-              "path: frame shape")
+              "resnet path: frame shape")
     meter = trainer.meter
     check(dict(meter.by_edge) == dict(meter.by_edge_delivered),
-          "path: delivered == offered on every edge")
+          "resnet path: delivered == offered on every edge")
     for k, v in ev.items():
-        check(math.isfinite(v), f"path: {k} finite")
+        check(math.isfinite(v), f"resnet path: {k} finite")
     med = statistics.median(step_s[1:])
-    log(f"path: {STEPS} steps, step time median {med * 1e3:.1f} ms "
+    log(f"resnet path: {STEPS} steps, step time median {med * 1e3:.1f} ms "
         f"(first {step_s[0] * 1e3:.1f} ms; publish steps "
         f"{[round(step_s[t] * 1e3, 1) for t in range(S_P - 1, STEPS, S_P)]}"
         f" ms), evaluate {eval_s:.2f} s")
-    log(f"path: distill_active per client and step {distilled}")
-    log(f"path: {len(transport.frames)} frames of {expect} B; "
+    log(f"resnet path: distill_active per client and step {distilled}")
+    log(f"resnet path: {len(transport.frames)} frames of {expect} B; "
         f"launches {counts}")
-    log(f"path: mean/main/beta_sh={ev['mean/main/beta_sh']:.4f} "
+    log(f"resnet path: mean/main/beta_sh={ev['mean/main/beta_sh']:.4f} "
         f"mean/aux4/beta_sh={ev['mean/aux4/beta_sh']:.4f} final loss "
         f"{[round(history[-1][f'c{i}/loss'], 4) for i in range(K)]}")
     return trainer, {"counts": counts, "step_s": step_s, "eval_s": eval_s,
@@ -484,28 +758,42 @@ def phase_path(dev) -> dict:
             "final_loss": [history[-1][f"c{i}/loss"] for i in range(K)]}
 
 
-def phase_profile(trainer) -> dict:
-    """One more publish round (S_P steps) of the path under
-    torch.profiler — device busy share of the wall time and device time by
-    kernel. The table goes to chiprun_out/profile.txt."""
+def phase_profile(trainer, first: int, steps: int, name: str) -> dict:
+    """One more publish round (``steps`` steps from ``first``) of a path
+    under torch.profiler — device busy share of the wall time and device
+    time by kernel — and under the port's tracer, whose spans give the
+    host's time by span name (``wire/decode`` includes the host densify and
+    the copy of the dense window to the card; spans nest, and the forward
+    spans end when the work is queued, not done). The table goes to
+    chiprun_out/profile_<name>.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.obs import tracer
+
     torch.cuda.synchronize()
+    spans = tracer.enable()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(STEPS, STEPS + S_P):
+        for t in range(first, first + steps):
             trainer.step(t)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    tracer.disable()
+    host: dict = {}
+    for ev in spans.events():
+        if ev["ph"] == "X":
+            row = host.setdefault(ev["name"], {"count": 0, "ms": 0.0})
+            row["count"] += 1
+            row["ms"] += ev["dur"] * 1e3
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile.txt").write_text(prof.key_averages().table(
+    (out / f"profile_{name}.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=60))
     top = [{"kernel": e.key[:90], "calls": e.count,
             "device_us": e.self_device_time_total} for e in kernels[:15]]
@@ -516,16 +804,160 @@ def phase_profile(trainer) -> dict:
         total = sum(e.self_device_time_total for e in rows)
         ours[info["name"]] = {"calls": n, "device_us": total,
                               "us_per_call": total / n if n else None}
-    log(f"profile: {S_P} steps, wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f} %), "
+    log(f"profile {name}: {steps} steps, wall {wall_us / 1e3:.1f} ms, "
+        f"device busy {busy_us / 1e3:.1f} ms "
+        f"({100 * busy_us / wall_us:.1f} %), "
         f"{sum(e.count for e in kernels)} kernel launches")
     for row in top:
         log(f"  {row['device_us'] / 1e3:8.2f} ms {row['calls']:6d}x "
             f"{row['kernel']}")
-    log(f"profile: the port's kernels on the card {ours}")
+    log(f"profile {name}: the port's kernels on the card {ours}")
+    log(f"profile {name}: host spans " + ", ".join(
+        f"{k} {v['count']}x {v['ms']:.1f} ms"
+        for k, v in sorted(host.items(), key=lambda kv: -kv[1]["ms"])))
     return {"wall_us": wall_us, "busy_us": busy_us, "top": top,
-            "ours_us_per_call": ours,
+            "ours_us_per_call": ours, "host_spans": host,
             "launches": sum(e.count for e in kernels)}
+
+
+def phase_adaptive_wire(dev) -> None:
+    """The adaptive, delta-compressed wire at the LM path's frame shape
+    (W=4 windows, H=3 heads, 1024 positions, V=50280): the frame encoded
+    on the card against the same encoder on CPU tensors, where topk_wire
+    takes its plain version. Both sides share the entropy and budget
+    allocation code, so this holds the kernel and the card's float32
+    arithmetic against the CPU's; that allocation is held against the JAX
+    package on the CPU (tests/test_torch_lm_wire.py). The decoded arrays
+    are byte-identical outside the lse lane (lse within TOL_LSE: the order
+    of the sum), k_per_token identical, and the (val, idx) entry streams
+    stay within budget·N."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    W, N = LM_S_P, LM_MAX_POS
+    heads = torch.randn(W, LM_H, N, LM_VOCAB, generator=g, device=dev) * 2
+    heads[:, :, :N // 4, 7] += 25.0  # a quarter of the tokens near-certain
+    outs = {"logits": heads[:, 0], "aux_logits": heads[:, 1:]}
+    ids = np.arange(W * LM_BATCH, dtype=np.uint64).reshape(W, LM_BATCH)
+    codec = make_codec("prediction_adaptive", CommConfig(**LM_COMM))
+    t0 = time.perf_counter()
+    on_card = codec.encode(0, 0, 0, ids, outs)
+    t_card = time.perf_counter() - t0
+    outs_np = {k: v.cpu().numpy() for k, v in outs.items()}
+    del heads, outs
+    t0 = time.perf_counter()
+    on_cpu = codec.encode(0, 0, 0, ids, outs_np)
+    t_cpu = time.perf_counter() - t0
+    a, b = codec.decode(on_cpu).arrays, codec.decode(on_card).arrays
+    check(list(a) == list(b), "adaptive wire: array order")
+    for name, x in a.items():
+        y = b[name]
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f"adaptive wire: {name} shape")
+        if name == "lse":
+            check(np.allclose(x, y, rtol=TOL_LSE, atol=TOL_LSE),
+                  "adaptive wire: lse")
+        else:
+            check(x.tobytes() == y.tobytes(), f"adaptive wire: {name} bytes")
+    kt = b["k_per_token"].astype(np.int64)
+    entry_bytes = b["vals"].nbytes + b["idx"].nbytes
+    budget = LM_COMM["budget_bytes_per_token"] * W * N
+    check(entry_bytes <= budget,
+          f"adaptive wire: entries {entry_bytes} B > budget {budget} B")
+    log(f"adaptive wire: device frame ({len(on_card)} B, {t_card:.2f} s) "
+        f"identical to the same encoder on CPU tensors ({t_cpu:.2f} s) "
+        f"outside the lse lane "
+        f"(lse max|d|={np.abs(a['lse'] - b['lse']).max():.3g}); k per token "
+        f"{kt.min()}..{kt.max()}, mean {kt.mean():.3f}; entries "
+        f"{entry_bytes} B <= budget {budget} B")
+    RECORD["adaptive_wire"] = {"frame_bytes": len(on_card),
+                               "entry_bytes": entry_bytes,
+                               "budget_bytes": budget, "card_s": t_card,
+                               "cpu_tensors_s": t_cpu}
+
+
+def phase_lm_path(dev) -> tuple:
+    """The LM slice through the user's entry points: three full-width,
+    full-depth mamba2-370m clients, MHD over the adaptive delta-compressed
+    wire, 12 steps and one evaluate(), with every kernel's launch count set
+    to 0 just before (by the caller) and read just after."""
+    t0 = time.perf_counter()
+    arrays, test, part = lm_path_data(lm, data)
+    transport = RecordingTransport()
+    trainer = DecentralizedTrainer(
+        [lm.lm_client_bundle(build_bundle(LM_CFG), LM_MAX_POS, LM_POS_SEED)
+         for _ in range(LM_K)],
+        make_optimizer(OptimizerConfig(**LM_OPTIMIZER)),
+        MHDConfig(**LM_MHD), RunConfig(**LM_RUN), arrays,
+        part.client_indices, part.public_indices, complete_graph(LM_K),
+        LM_DOMAINS, exchange="prediction_adaptive",
+        comm=CommConfig(**LM_COMM), transport=transport)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in trainer.clients[0].params.values())
+    log(f"lm path: data + {LM_K} x {LM_CFG.name} ({n_params / 1e6:.1f} M "
+        f"params each) init + seed publish {time.perf_counter() - t0:.2f} s;"
+        f" card memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    step_s, history = [], []
+    for t in range(LM_STEPS):
+        a = time.perf_counter()
+        history.append(trainer.step(t))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - a)
+    a = time.perf_counter()
+    ev = trainer.evaluate(test)
+    eval_s = time.perf_counter() - a
+    counts = ops.launch_counts()
+
+    distilled = [[int(mt[f"c{i}/distill_active"]) for mt in history]
+                 for i in range(LM_K)]
+    for t, mt in enumerate(history):
+        for i in range(LM_K):
+            check(math.isfinite(mt[f"c{i}/loss"]),
+                  f"lm path: c{i} loss at {t}")
+    check(distilled == REFERENCE_DISTILLED_LM,
+          f"lm path: distilled {distilled} != the reference's schedule "
+          f"{REFERENCE_DISTILLED_LM}")
+    for name in LM_KERNELS:
+        check(counts[name] > 0, f"lm path: kernel {name} launched "
+                                f"({counts[name]})")
+    check(len(transport.frames) > 0, "lm path: frames published")
+    W, N = LM_S_P, LM_MAX_POS
+    budget = LM_COMM["budget_bytes_per_token"] * W * N
+    entry_bytes = []
+    for payload in transport.frames:
+        arr = trainer.codec.decode(payload).arrays
+        check(arr["k_per_token"].shape == (W, N), "lm path: frame plan")
+        entry_bytes.append(arr["vals"].nbytes + arr["idx"].nbytes)
+        check(entry_bytes[-1] <= budget, "lm path: frame within budget")
+    meter = trainer.meter
+    check(dict(meter.by_edge) == dict(meter.by_edge_delivered),
+          "lm path: delivered == offered on every edge")
+    for k, v in ev.items():
+        check(math.isfinite(v), f"lm path: {k} finite")
+    med = statistics.median(step_s[1:])
+    publish = [round(step_s[t] * 1e3, 1)
+               for t in range(LM_S_P - 1, LM_STEPS, LM_S_P)]
+    log(f"lm path: {LM_STEPS} steps, step time median {med * 1e3:.1f} ms "
+        f"(first {step_s[0] * 1e3:.1f} ms; publish steps {publish} ms), "
+        f"evaluate {eval_s:.2f} s; card memory peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"lm path: distill_active per client and step {distilled}")
+    log(f"lm path: {len(transport.frames)} frames, "
+        f"{statistics.mean(len(p) for p in transport.frames):.0f} B mean "
+        f"({statistics.mean(entry_bytes) / (W * N):.2f} entry B/token, "
+        f"budget {LM_COMM['budget_bytes_per_token']}); launches {counts}")
+    ends = [[round(mt[f"c{i}/loss"], 4) for i in range(LM_K)]
+            for mt in (history[0], history[-1])]
+    log(f"lm path: mean/main/beta_sh={ev['mean/main/beta_sh']:.4f} "
+        f"mean/aux2/beta_sh={ev['mean/aux2/beta_sh']:.4f} first and last "
+        f"losses {ends}")
+    return trainer, {
+        "counts": counts, "step_s": step_s, "eval_s": eval_s,
+        "frames": len(transport.frames),
+        "frame_bytes_mean": statistics.mean(len(p) for p in transport.frames),
+        "entry_bytes_per_token": statistics.mean(entry_bytes) / (W * N),
+        "distilled": distilled, "params_per_client": n_params,
+        "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "beta": {k: v for k, v in ev.items() if k.startswith("mean/")},
+        "loss": [[mt[f"c{i}/loss"] for i in range(LM_K)] for mt in history]}
 
 
 def main() -> int:
@@ -537,21 +969,34 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     RECORD["device"] = phase_device()
     phase_build()
-    kernels = [phase_topk(dev), *phase_dist_ce(dev), *phase_emb_dist(dev)]
+    kernels = [phase_topk(dev), *phase_dist_ce(dev), *phase_emb_dist(dev),
+               *phase_ssd(dev)]
     phase_wire(dev)
+    phase_adaptive_wire(dev)
     phase_loss(dev)
+    torch.cuda.empty_cache()
+    # each path: every count set to 0 just before it, read just after
     ops.reset_launch_counts()
-    trainer, path = phase_path(dev)
-    RECORD["profile"] = phase_profile(trainer)
+    trainer, resnet = phase_resnet_path(dev)
+    RECORD["profile_resnet"] = phase_profile(trainer, STEPS, S_P, "resnet")
+    del trainer
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    trainer, lm_path = phase_lm_path(dev)
+    RECORD["profile_lm"] = phase_profile(trainer, LM_STEPS, LM_S_P, "lm")
+    del trainer
     for k in kernels:
-        k["launches"] = path["counts"][k["name"]]
-    RECORD.update(kernels=kernels, path=path,
+        k["launches_by_path"] = {"resnet": resnet["counts"][k["name"]],
+                                 "lm": lm_path["counts"][k["name"]]}
+        k["launches"] = sum(k["launches_by_path"].values())
+    RECORD.update(kernels=kernels, resnet_path=resnet, lm_path=lm_path,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "launches_by_path")
     print(json.dumps({"kernels": [{k: x[k] for k in keys}
                                   for x in kernels]}))
     log(RECORD["device"]["nvidia_smi"])

@@ -3,11 +3,15 @@ carried across from the JAX package.
 
 Parameters in the port are flat dicts ``{"/"-joined path: tensor}`` whose
 keys are exactly the reference's `flatten_with_paths` keys (``stem``,
-``s0b1/gn2/scale``, ``aux_heads`` ...), so a checkpoint written by either
-package names its leaves the same way. Layouts differ in one place only:
-convolution kernels are HWIO in JAX and OIHW here. Every 4-D leaf of a
-parameter or optimizer-state tree is a convolution kernel, and the two
-converters below transpose exactly those.
+``s0b1/gn2/scale``, ``aux_heads``, ``stage0/layer0/attn/in_proj`` ...), so
+a checkpoint written by either package names its leaves the same way.
+Layouts differ in one place only: ResNet convolution kernels are HWIO in
+JAX and OIHW here. Every 4-D leaf of a parameter or optimizer-state tree
+the port has is such a kernel, and the two converters below transpose
+exactly those. An LM tree (the Mamba2 family) has no 4-D leaf and crosses
+unchanged: stage leaves keep their leading repeats axis, dense weights
+stay (in, out) as the port applies them (``x @ w``), and the causal-conv
+weight stays (width, channels).
 """
 from __future__ import annotations
 

@@ -12,8 +12,8 @@ port of ``repro.comm``.
                 `PredictionPool`, the prediction twin of the param pool.
   metering.py   the bytes-per-edge-per-step ledger.
 
-The socket transport and the adaptive / delta-compressed codecs are later
-slices of the port.
+The entropy-adaptive and the delta-compressed codecs of the LM wire live
+in `repro_torch.lm`; the socket transport is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -53,25 +53,47 @@ class CommConfig:
     horizon: how many upcoming public batches one publish covers (W).
       0 = auto: S_P (`pool_update_every`). Set ≥ pool_size·S_P to emulate
       the param pool's full staleness range.
-
-    The reference's ``budget_bytes_per_token`` and ``compression`` (the LM
-    path's adaptive and delta-compressed wires) are a later slice.
+    budget_bytes_per_token: the entropy-adaptive wire's per-token byte
+      budget for the (val, idx) entry streams
+      (``exchange="prediction_adaptive"``; `repro_torch.lm.adaptive_wire`).
+      0 = unbounded — byte-identical to the fixed TopKCodec.
+    compression: "none" | "delta" — "delta" wraps the codec in
+      `repro_torch.lm.compress.CompressedCodec` (XOR-delta + bit-packed
+      index streams); "none" leaves the frames as they are.
     """
     topk: int = 32
     val_dtype: str = "float16"  # "float16" | "float32"
     emb_encoding: str = "int8"  # "int8" | "float32" | "none"
     tail: str = "uniform"  # truncated-mass handling, see wire.densify_topk
     horizon: int = 0
+    budget_bytes_per_token: int = 0
+    compression: str = "none"  # "none" | "delta"
 
 
 def make_codec(exchange: str, cfg: CommConfig) -> Codec:
     if exchange == "prediction_topk":
-        return TopKCodec(cfg.topk, val_dtype=cfg.val_dtype,
-                         emb_encoding=cfg.emb_encoding, tail=cfg.tail)
-    if exchange == "prediction_dense":
-        return DenseCodec(logit_dtype="float32",
-                          emb_encoding=cfg.emb_encoding)
-    raise ValueError(f"unknown prediction exchange mode: {exchange!r}")
+        codec: Codec = TopKCodec(cfg.topk, val_dtype=cfg.val_dtype,
+                                 emb_encoding=cfg.emb_encoding,
+                                 tail=cfg.tail)
+    elif exchange == "prediction_adaptive":
+        from repro_torch.lm.adaptive_wire import AdaptiveTopKCodec
+
+        codec = AdaptiveTopKCodec(
+            cfg.topk, budget_bytes_per_token=cfg.budget_bytes_per_token,
+            val_dtype=cfg.val_dtype, emb_encoding=cfg.emb_encoding,
+            tail=cfg.tail)
+    elif exchange == "prediction_dense":
+        codec = DenseCodec(logit_dtype="float32",
+                           emb_encoding=cfg.emb_encoding)
+    else:
+        raise ValueError(f"unknown prediction exchange mode: {exchange!r}")
+    if cfg.compression == "delta":
+        from repro_torch.lm.compress import CompressedCodec
+
+        codec = CompressedCodec(codec)
+    elif cfg.compression != "none":
+        raise ValueError(f"unknown wire compression: {cfg.compression!r}")
+    return codec
 
 
 __all__ = [

@@ -1,3 +1,35 @@
-from repro_torch.configs.resnet import ARCHS
+"""Architecture config registry (``repro/configs/__init__.py``), over the
+architectures the port runs so far: the paper's ResNets and mamba2-370m.
 
-__all__ = ["ARCHS"]
+Every entry exposes ``full()`` (the exact configuration) and ``reduced()``
+(the CPU-scale variant the parity tests use); ``get_config(name)`` /
+``get_reduced(name)`` look them up.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.common.registry import Registry
+
+ARCHS = Registry("architecture")
+
+_MODULES = ["mamba2_370m", "resnet"]
+
+
+def _load():
+    for m in _MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+
+
+_load()
+
+
+def get_config(name: str):
+    return ARCHS.get(name)["full"]()
+
+
+def get_reduced(name: str):
+    return ARCHS.get(name)["reduced"]()
+
+
+__all__ = ["ARCHS", "get_config", "get_reduced"]

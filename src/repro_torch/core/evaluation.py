@@ -42,12 +42,20 @@ def per_label_head_accuracy(
                  .to(device) for k, v in arrays.items() if k != "labels"}
         o = apply_fn(params, batch)
         lab = labels[s:s + batch_size]
+        if "labels" in o:
+            # positions-as-samples outputs (repro_torch.lm): the target is
+            # the model-carried next token; the bucket stays the data's
+            # label (domain), through the position → sequence map
+            targets = o["labels"].cpu().numpy()
+            lab = lab[o["sample_rows"].cpu().numpy()]
+        else:
+            targets = lab
         heads = [o["logits"]] + [o["aux_logits"][h]
                                  for h in range(num_aux_heads)]
         preds = torch.stack([h.argmax(-1) for h in heads]).cpu().numpy()
         np.add.at(count, lab, 1)
         for hi, p in enumerate(preds):
-            np.add.at(correct[hi], lab[p == lab], 1)
+            np.add.at(correct[hi], lab[p == targets], 1)
     per_label = correct / np.maximum(count, 1)[None]
     return per_label, count > 0
 

@@ -111,7 +111,10 @@ def _level_loss_kernel(student_head: Tensor, cand: Tensor, cfg: MHDConfig,
     """One ``dist_ce`` launch over every (candidate, sample) row.
     Returns (per_sample, winner, win_conf, own_conf)."""
     n, B, C = cand.shape
-    s = student_head.float().unsqueeze(0).expand(n, B, C).reshape(n * B, C)
+    # the student rows keep their dtype: an LM's bf16 logits run on the
+    # kernel's bf16 path (the gradient comes back in bf16, as the
+    # reference's f32 upcast returns it)
+    s = student_head.unsqueeze(0).expand(n, B, C).reshape(n * B, C)
     ce, t_conf, s_conf = ops.dist_ce(s, cand.float().reshape(n * B, C))
     conf = t_conf.view(n, B)
     if cfg.confidence == "random":

@@ -52,6 +52,24 @@ from repro_torch.optim.optimizers import Optimizer
 Tensor = torch.Tensor
 
 
+def client_loss(bundle: ModelBundle, params, private_batch, public_batch,
+                teachers, mhd_cfg: MHDConfig,
+                rng: Optional[torch.Generator] = None
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Eq. (1) for one client: (loss, metrics). Positions-as-samples
+    bundles (`repro_torch.lm.lm_client_bundle`) carry their own CE targets
+    (next tokens) and an auxiliary loss (MoE router balancing)."""
+    out_priv = bundle.apply(params, private_batch)
+    out_pub = bundle.apply(params, public_batch)
+    labels = out_priv["labels"] if "labels" in out_priv \
+        else private_batch["labels"]
+    loss, metrics = mhd_total_loss(out_priv, labels, out_pub, teachers,
+                                   mhd_cfg, rng)
+    if out_priv.get("aux_loss") is not None:
+        loss = loss + out_priv["aux_loss"]
+    return loss, metrics
+
+
 @dataclasses.dataclass
 class RunConfig:
     steps: int = 1000
@@ -167,8 +185,15 @@ class DecentralizedTrainer:
         @torch.no_grad()
         def apply_fn(params, batch):
             out = bundle.apply(params, batch)
-            return {"embedding": out["embedding"], "logits": out["logits"],
+            keep = {"embedding": out["embedding"], "logits": out["logits"],
                     "aux_logits": out["aux_logits"]}
+            # positions-as-samples bundles (repro_torch.lm) carry their own
+            # targets and a position → sequence map: never on the wire
+            # (the publish path names its keys), read by the evaluator
+            for k in ("labels", "sample_rows"):
+                if k in out:
+                    keep[k] = out[k]
+            return keep
 
         return apply_fn
 
@@ -176,10 +201,8 @@ class DecentralizedTrainer:
                         teachers, step: int,
                         rng: Optional[torch.Generator]) -> Dict[str, Tensor]:
         params = {k: v.detach().requires_grad_() for k, v in c.params.items()}
-        out_priv = c.bundle.apply(params, private_batch)
-        out_pub = c.bundle.apply(params, public_batch)
-        loss, metrics = mhd_total_loss(out_priv, private_batch["labels"],
-                                       out_pub, teachers, self.mhd_cfg, rng)
+        loss, metrics = client_loss(c.bundle, params, private_batch,
+                                    public_batch, teachers, self.mhd_cfg, rng)
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True, materialize_grads=True)
         c.params, c.opt_state = self.optimizer.update(
@@ -193,13 +216,18 @@ class DecentralizedTrainer:
         both distillation terms zero — plain supervised CE."""
         params = {k: v.detach().requires_grad_() for k, v in c.params.items()}
         out = c.bundle.apply(params, private_batch)
-        ce = torch.nn.functional.cross_entropy(
-            out["logits"].float(), private_batch["labels"].long())
-        grads = torch.autograd.grad(ce, list(params.values()),
+        labels = out["labels"] if "labels" in out \
+            else private_batch["labels"]
+        ce = torch.nn.functional.cross_entropy(out["logits"].float(),
+                                               labels.long())
+        loss = ce
+        if out.get("aux_loss") is not None:
+            loss = loss + out["aux_loss"]
+        grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True, materialize_grads=True)
         c.params, c.opt_state = self.optimizer.update(
             dict(zip(params, grads)), c.opt_state, c.params, step)
-        return {"ce": ce, "loss": ce}
+        return {"ce": ce, "loss": loss}
 
     # -- pool mechanics -----------------------------------------------------
 

@@ -1,3 +1,9 @@
+from repro_torch.models.config import (
+    LayerSpec,
+    MambaConfig,
+    ModelConfig,
+    Stage,
+)
 from repro_torch.models.resnet import (
     ResNetConfig,
     apply_resnet,
@@ -10,7 +16,10 @@ from repro_torch.models.resnet import (
 from repro_torch.models.zoo import ModelBundle, build_bundle
 
 __all__ = [
+    "LayerSpec",
+    "MambaConfig",
     "ModelBundle",
+    "ModelConfig",
     "ResNetConfig",
     "apply_resnet",
     "build_bundle",
@@ -19,4 +28,5 @@ __all__ = [
     "resnet34",
     "resnet_tiny",
     "resnet_tiny34",
+    "Stage",
 ]

@@ -1,19 +1,22 @@
-"""Model zoo: the uniform bundle interface the trainer sees (ResNet half of
-``repro/models/zoo.py``; the LM half is a later slice of the port)."""
+"""Model zoo: the uniform bundle interface the trainer sees (port of
+``repro/models/zoo.py``), over the ResNets and the LM skeleton. Decode
+entry points (``init_cache``, ``decode_step``) come with serving."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Union
 
 import torch
 
 from repro_torch.models import resnet as RN
+from repro_torch.models import transformer as TF
+from repro_torch.models.config import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     name: str
-    config: Any  # ResNetConfig
+    config: Any  # ModelConfig | ResNetConfig
     # torch.Generator -> flat param dict on the CPU; the trainer moves it
     # to its device. (The JAX init draws from jax.random, which torch
     # cannot replay: parity tests hand in bundles whose init returns the
@@ -21,18 +24,37 @@ class ModelBundle:
     init: Callable[[torch.Generator], Dict[str, torch.Tensor]]
     apply: Callable[..., Dict[str, Any]]  # (params, batch) -> outputs
 
+    @property
+    def is_lm(self) -> bool:
+        return isinstance(self.config, ModelConfig)
 
-def build_bundle(cfg: RN.ResNetConfig,
+
+def build_bundle(cfg: Union[ModelConfig, RN.ResNetConfig],
                  dtype: torch.dtype = torch.float32) -> ModelBundle:
-    if not isinstance(cfg, RN.ResNetConfig):
-        raise NotImplementedError(
-            "the port has the ResNet family only; LM bundles are a later "
-            "slice")
+    if isinstance(cfg, RN.ResNetConfig):
+        return _resnet_bundle(cfg, dtype)
+    if isinstance(cfg, ModelConfig):
+        return _lm_bundle(cfg, dtype)
+    raise TypeError(f"no bundle for config {type(cfg).__name__}")
 
+
+def _resnet_bundle(cfg: RN.ResNetConfig, dtype) -> ModelBundle:
     def init(gen: torch.Generator):
         return RN.init_resnet(gen, cfg, dtype=dtype, device="cpu")
 
     def apply(params, batch):
         return RN.apply_resnet(params, cfg, batch["images"])
+
+    return ModelBundle(name=cfg.name, config=cfg, init=init, apply=apply)
+
+
+def _lm_bundle(cfg: ModelConfig, dtype) -> ModelBundle:
+    cfg.validate()
+
+    def init(gen: torch.Generator):
+        return TF.init_lm(gen, cfg, dtype=dtype, device="cpu")
+
+    def apply(params, batch):
+        return TF.apply_lm(params, cfg, batch)
 
     return ModelBundle(name=cfg.name, config=cfg, init=init, apply=apply)

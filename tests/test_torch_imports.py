@@ -29,7 +29,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         [sys.executable, "-c", PROBE, os.path.join(ROOT, "chip_smoke.py")],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 30, out.stdout
+    assert int(n) >= 46, out.stdout
     assert bad == "[]", bad
 
 

@@ -186,7 +186,7 @@ def test_cpu_tensor_takes_plain_version_and_counts_nothing():
     assert set(ops.launch_counts().values()) == {0}
     assert [i["name"] for i, _ in ops.KERNELS] == [
         "topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
-        "emb_dist_bwd"]
+        "emb_dist_bwd", "ssd_scan_fwd", "ssd_scan_bwd"]
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():

@@ -54,3 +54,60 @@ def test_smoke_teacher_schedule_is_the_references():
     assert jax_sched == CS.REFERENCE_DISTILLED
     # every client distills in round 0, from its freshly seeded pool
     assert np.all(np.asarray(jax_sched)[:, :CS.S_P] == 1)
+
+
+# ---------------------------------------------------------------------------
+# the LM path
+# ---------------------------------------------------------------------------
+
+LM_TOKENS = 16  # columns of the smoke's sequences the stand-in model reads
+
+
+def _run_lm(pkg):
+    """chip_smoke.py's LM path (K, N_P, S_P, W, Δ, batch, steps, the data,
+    partition and position seeds, the adaptive delta-compressed wire) with
+    the reduced mamba2-370m on the first 16 tokens of each sequence in
+    place of the full model on 512: the schedule is a function of the numpy
+    draws alone."""
+    if pkg == "jax":
+        from repro import data as D
+        from repro import lm as LM
+        from repro.comm import CommConfig
+        from repro.configs import get_reduced
+        from repro.core import DecentralizedTrainer, MHDConfig, RunConfig
+        from repro.core.graph import complete_graph
+        from repro.models.zoo import build_bundle
+        from repro.optim.optimizers import OptimizerConfig, make_optimizer
+        extra = {}
+    else:
+        from repro_torch import data as D
+        from repro_torch import lm as LM
+        from repro_torch.comm import CommConfig
+        from repro_torch.configs import get_reduced
+        from repro_torch.core import (DecentralizedTrainer, MHDConfig,
+                                      RunConfig, complete_graph)
+        from repro_torch.models import build_bundle
+        from repro_torch.optim import OptimizerConfig, make_optimizer
+        extra = {"device": "cpu"}
+    arrays, _, part = CS.lm_path_data(LM, D)
+    arrays = {"tokens": np.ascontiguousarray(arrays["tokens"][:, :LM_TOKENS]),
+              "labels": arrays["labels"]}
+    bundles = [LM.lm_client_bundle(build_bundle(get_reduced(CS.LM_ARCH)),
+                                   CS.LM_MAX_POS, CS.LM_POS_SEED)
+               for _ in range(CS.LM_K)]
+    trainer = DecentralizedTrainer(
+        bundles, make_optimizer(OptimizerConfig(**CS.LM_OPTIMIZER)),
+        MHDConfig(**CS.LM_MHD), RunConfig(**CS.LM_RUN), arrays,
+        part.client_indices, part.public_indices, complete_graph(CS.LM_K),
+        CS.LM_DOMAINS, exchange="prediction_adaptive",
+        comm=CommConfig(**CS.LM_COMM), **extra)
+    history = [trainer.step(t) for t in range(CS.LM_STEPS)]
+    return [[int(mt[f"c{i}/distill_active"]) for mt in history]
+            for i in range(CS.LM_K)]
+
+
+def test_smoke_lm_teacher_schedule_is_the_references():
+    jax_sched = _run_lm("jax")
+    assert _run_lm("torch") == jax_sched
+    assert jax_sched == CS.REFERENCE_DISTILLED_LM
+    assert np.all(np.asarray(jax_sched)[:, :CS.LM_S_P] == 1)
