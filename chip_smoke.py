@@ -11,10 +11,11 @@ the checkout (into ``build/``), then
      off: every comparison below is in full float32);
   2. builds the CUDA kernels (one nvcc per source, started together);
   3. holds each kernel — topk_wire, dist_ce forward and backward, emb_dist
-     forward and backward, ssd_scan forward and backward — against its
-     plain PyTorch version on the card, at the main paths' shapes and at
-     edge cases, and times kernel, plain version and one library
-     yardstick with CUDA events (median of repeated calls);
+     forward and backward, ssd_scan forward and backward, flash_attention
+     forward and backward — against its plain PyTorch version on the card,
+     at the main paths' shapes and at edge cases, and times kernel, plain
+     version and one library yardstick with CUDA events (median of
+     repeated calls);
   4. checks the fused wire encodes on the card byte for byte against the
      host: the fixed top-k frame at the ResNet path's shape against the
      numpy host path, the adaptive delta-compressed frame at the LM path's
@@ -29,20 +30,24 @@ the checkout (into ``build/``), then
   6. drives the LM path: K=3 full-width, full-depth mamba2-370m clients
      (48 layers, d_model 1024, vocab 50280, 2 aux heads) exchanging
      entropy-adaptive, delta-compressed next-token predictions, 12 steps
-     and one evaluate(), then one profiled publish round. Every kernel's
-     launch count is set to 0 just before each path and read just after;
-  7. prints one ``{"kernels": [...]}`` line and, last, the device line
+     and one evaluate(), then one profiled publish round;
+  7. drives the hybrid path the same way: K=3 full-width zamba2-7b
+     clients (d_model 3584, Mamba2 with the shared attention block and the
+     dense FFN every 6th layer, vocab 32000) cut in depth to one period of
+     six layers. Every kernel's launch count is set to 0 just before each
+     path and read just after;
+  8. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line. The full record also goes to ``chiprun_out/chip_smoke.json``
-and the profiles' tables to ``chiprun_out/profile_{resnet,lm}.txt``.
+and the profiles' tables to ``chiprun_out/profile_{resnet,lm,zamba2}.txt``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
-import os
 import statistics
 import subprocess
 import sys
@@ -67,9 +72,11 @@ from repro_torch import lm  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import dist_ce as DCE  # noqa: E402
 from repro_torch.kernels import emb_dist as EMB  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels import topk_wire as TOPK  # noqa: E402
 from repro_torch.models import build_bundle  # noqa: E402
+from repro_torch.models.config import patterned_stages  # noqa: E402
 from repro_torch.optim import OptimizerConfig, make_optimizer  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 (no
@@ -148,6 +155,20 @@ REFERENCE_DISTILLED_LM = [[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
                           [1, 1, 1, 1, 0, 1, 0, 1, 1, 1, 1, 0]]
 
 
+# the hybrid path: K=3 full-width zamba2-7b clients (d_model 3584; Mamba2
+# d_inner 7168 = 112 heads x 64, d_state 64, chunk 256; the shared
+# attention block, 32 heads x 112, and the dense SwiGLU FFN, d_ff 14336,
+# every 6th layer; vocab 32000 tied, 2 aux heads, f32, remat per unit) cut
+# in depth from 81 layers to one period of the 5:1 pattern, so the shared
+# block is applied once; the LM path's fleet, data, wire and training
+ZAMBA_ARCH = "zamba2-7b"
+_ZAMBA_FULL = get_config(ZAMBA_ARCH)
+ZAMBA_CFG = dataclasses.replace(
+    _ZAMBA_FULL, name=f"{ZAMBA_ARCH}-one-period", num_layers=6,
+    stages=patterned_stages(6, _ZAMBA_FULL.stages[0].block)).validate()
+ZAMBA_VOCAB = ZAMBA_CFG.vocab_size
+
+
 def lm_path_data(LM, D):
     """The LM path's train and test token arrays and its partition, built
     with the lm and data modules ``LM``, ``D`` (this port's, or the JAX
@@ -178,13 +199,42 @@ TOL_BF16_GRAD_ABS = 1e-4
 TOL_SSD = 1e-4
 TOL_SSD_DECAY = 2e-3
 # ssd_scan at the LM path's shape: Bt, T, H, P, N, and mamba2-370m's chunk
+# (zamba2-7b's is the same); and at the hybrid path's, where N = 64 < 128
+# takes the kernel's masking of the state's columns
 SSD_SHAPE = (8, 512, 32, 64, 128)
+SSD_ZAMBA_SHAPE = (8, 512, 112, 64, 64)
 SSD_CHUNK = 256
+# flash_attention against its plain version in float64, as max|d| /
+# max|plain| per array: f32 kernels sum products of f32 inputs in another
+# order (the error grows with d and the band, ~1e-6 at T = 4096); bf16
+# inputs differ by the output's rounding to bf16 (2^-9 relative) and, in
+# the backward, by O and dO in bf16 entering D = rowsum(dO o O)
+TOL_FLASH = 1e-4
+TOL_FLASH_BF16 = 2e-2
+# the shared attention block at the hybrid path's shape: B, T, H, d, MHA,
+# causal; and at zamba2's context length
+FLASH_SHAPE = (8, 512, 32, 112)
+FLASH_LONG = (1, 4096, 32, 112)
+# flash_attention's cases: name, (B, T, S, H, KV, d), causal, window, dtype
+FLASH_CASES = [
+    ("path", (8, 512, 512, 32, 32, 112), True, 0, "float32"),
+    ("T=500", (2, 500, 500, 32, 32, 112), True, 0, "float32"),
+    ("T=1", (2, 1, 1, 32, 32, 112), True, 0, "float32"),
+    # gemma3 / qwen2.5 widths: GQA G = 2 with a 1024 sliding window
+    ("GQA d=128 window", (1, 4096, 4096, 16, 8, 128), True, 1024, "float32"),
+    ("d=256 window", (1, 4096, 4096, 16, 8, 256), True, 1024, "float32"),
+    ("non-causal S!=T", (2, 300, 200, 8, 4, 64), False, 0, "float32"),
+    # T > S + window: rows t >= S + window - 1 have no key in their band
+    # and take the mean of v (masked scores -1e30, as the TPU kernel)
+    ("keyless rows", (1, 300, 100, 8, 4, 64), False, 64, "float32"),
+    ("keyless rows causal", (1, 260, 100, 4, 2, 128), True, 32, "float32"),
+    ("bf16", (8, 512, 512, 32, 32, 112), True, 0, "bfloat16")]
 # the kernels each path runs, and must have launched
 RESNET_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
                   "emb_dist_bwd")
 LM_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "ssd_scan_fwd",
               "ssd_scan_bwd")
+ZAMBA_KERNELS = LM_KERNELS + ("flash_attention_fwd", "flash_attention_bwd")
 
 RECORD: dict = {}
 
@@ -249,9 +299,10 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build_cuda(["topk_wire", "ssd_scan"])
-    log(f"build: nvcc {time.perf_counter() - t0:.2f} s")
-    for name in ("topk_wire", "ssd_scan"):
+    build.build_cuda(["topk_wire", "ssd_scan", "flash_attention"])
+    RECORD["build_s"] = time.perf_counter() - t0
+    log(f"build: nvcc {RECORD['build_s']:.2f} s")
+    for name in ("topk_wire", "ssd_scan", "flash_attention"):
         for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -281,6 +332,10 @@ def phase_topk(dev) -> dict:
                                    device=dev) * 3, TOPK_K),
              ("lm", torch.randn(LM_TOPK_ROWS, LM_VOCAB, generator=g,
                                 device=dev) * 3, LM_COMM["topk"]),
+             # the hybrid path's publish: a 128 KB row, staged in shared
+             # memory beside the kernel's scratch
+             ("zamba2", torch.randn(LM_TOPK_ROWS, ZAMBA_VOCAB, generator=g,
+                                    device=dev) * 3, LM_COMM["topk"]),
              ("large", torch.randn(rows, 32768, generator=g, device=dev) * 3,
               TOPK_K),
              # either side of where the row stops fitting in shared memory
@@ -303,12 +358,15 @@ def phase_topk(dev) -> dict:
         log(f"topk_wire {name} {tuple(x.shape)} k={k}: idx/vals exact, "
             f"lse max|d|={maxerr(lse, plse):.3g}")
     lm = _topk_timing(cases[1][1], LM_COMM["topk"], iters=20)
+    zamba = _topk_timing(cases[2][1], LM_COMM["topk"], iters=20)
     resnet = _topk_timing(cases[0][1], TOPK_K, iters=50)
     log(f"topk_wire timing: LM shape {lm['ms']:.3f} ms (plain "
         f"{lm['plain_ms']:.3f}, library {lm['library_ms']:.3f}, bound "
-        f"{lm['bound_ms']:.4f}); ResNet shape {resnet['ms']:.3f} ms")
+        f"{lm['bound_ms']:.4f}); zamba2 shape {zamba['ms']:.3f} ms (plain "
+        f"{zamba['plain_ms']:.3f}, library {zamba['library_ms']:.3f}, bound "
+        f"{zamba['bound_ms']:.4f}); ResNet shape {resnet['ms']:.3f} ms")
     return {**TOPK.INFO, **lm, "max_abs_err": err,
-            "at_resnet_shape": resnet}
+            "at_zamba2_shape": zamba, "at_resnet_shape": resnet}
 
 def _ssd_inputs(dev, g, Bt, T, H, P, N, kind):
     """Inputs of one ssd_scan case: the model's A = -(1..H); dt around
@@ -343,10 +401,13 @@ def phase_ssd(dev) -> list:
     percents. Tolerances: TOL_SSD for float32 sums in another
     order and chunking; TOL_SSD_DECAY at dt·A = -10, where the kernel's
     own cumsum over a 64-chunk reaches -640, so s_t - s_u carries ~4e-5
-    of absolute rounding into every e^-10(t-u) term."""
+    of absolute rounding into every e^-10(t-u) term. The cases: both LM
+    paths' shapes (N = 128, and the hybrid path's N = 64, where the kernel
+    masks the state's upper columns), ragged T, strong decay, no decay."""
     g = torch.Generator(device=dev).manual_seed(5)
     Bt, T, H, P, N = SSD_SHAPE
     cases = [("path", (Bt, T, H, P, N), "model", SSD_CHUNK),
+             ("zamba2 N=64", SSD_ZAMBA_SHAPE, "model", SSD_CHUNK),
              ("T=500", (2, 500, 4, P, N), "model", SSD_CHUNK),
              ("T=1", (2, 1, 4, P, N), "model", SSD_CHUNK),
              ("decay", (2, 512, H, P, N), "decay", SSD_CHUNK),
@@ -412,6 +473,26 @@ def phase_ssd(dev) -> list:
                           **{nm: float(b.abs().max())
                              for nm, b in zip(names, g2)}}})
     RECORD["ssd_scan_cases"] = record
+    fwd, bwd = _ssd_timing(dev, g, SSD_SHAPE)
+    fwd_z, bwd_z = _ssd_timing(dev, g, SSD_ZAMBA_SHAPE)
+    for nm, x, y in (("fwd", fwd, fwd_z), ("bwd", bwd, bwd_z)):
+        log(f"ssd_scan timing {nm}: LM shape {x['ms']:.3f} ms (plain "
+            f"{x['plain_ms']:.3f}, bound {x['bound_ms']:.4f} "
+            f"{x['bound_by']}, {x['gflop']:.3f} GFLOP); zamba2 shape "
+            f"{y['ms']:.3f} ms (plain {y['plain_ms']:.3f}, bound "
+            f"{y['bound_ms']:.4f}, {y['gflop']:.3f} GFLOP)")
+    log(f"ssd_scan timing: fwd saving states {fwd['ms_saving_states']:.3f}"
+        f" ms; einsum at L={SSD.kernel_chunk()} {fwd['library_ms']:.3f} ms")
+    return [{**SSD.INFO_FWD, **fwd, "max_abs_err": err_f,
+             "at_zamba2_shape": fwd_z},
+            {**SSD.INFO_BWD, **bwd, "max_abs_err": err_b,
+             "at_zamba2_shape": bwd_z}]
+
+
+def _ssd_timing(dev, g, shape) -> tuple:
+    """Kernel, plain and library times of the forward and of the backward
+    alone at ``shape`` = (Bt, T, H, P, N), with the function's bounds."""
+    Bt, T, H, P, N = shape
     x, dt, A, B, C, D = _ssd_inputs(dev, g, Bt, T, H, P, N, "model")
     L = SSD.kernel_chunk()
     nc = -(-T // L)
@@ -441,7 +522,7 @@ def phase_ssd(dev) -> list:
     bb, bby = bound(io_in + 4 * Bt * T * H * P + nc * state_b
                     + 4 * (Bt * T * H * P + Bt * T * H + 2 * Bt * T * N
                            + 2 * H), fl_bwd)
-    fwd = {**SSD.INFO_FWD, "shape": [Bt, T, H, P, N], "max_abs_err": err_f,
+    fwd = {"shape": [Bt, T, H, P, N], "gflop": fl_fwd / 1e9,
            "ms": time_ms(lambda: SSD.ssd_scan_fwd_kernel(
                x, dt, A, B, C, D), iters=20),
            "ms_saving_states": time_ms(lambda: SSD.ssd_scan_fwd_kernel(
@@ -460,19 +541,175 @@ def phase_ssd(dev) -> list:
     def plain_bwd():
         torch.autograd.grad(y_plain, leaves, dy, retain_graph=True)
 
-    bwd = {**SSD.INFO_BWD, "shape": [Bt, T, H, P, N], "max_abs_err": err_b,
+    bwd = {"shape": [Bt, T, H, P, N], "gflop": fl_bwd / 1e9,
            "ms": time_ms(lambda: SSD.ssd_scan_bwd_kernel(
                x, dt, A, B, C, D, states, dy), iters=20),
            "plain_ms": time_ms(plain_bwd, iters=10, warmup=2),
            "bound_ms": bb, "bound_by": bby, "library_ms": None}
     del y_plain, leaves
-    log(f"ssd_scan timing: fwd {fwd['ms']:.3f} ms (saving states "
-        f"{fwd['ms_saving_states']:.3f}), bwd {bwd['ms']:.3f} ms; plain fwd "
-        f"{fwd['plain_ms']:.3f}, bwd {bwd['plain_ms']:.3f}; einsum at "
-        f"L={L} {fwd['library_ms']:.3f}; bounds {fb:.4f} ({fby}, "
-        f"{fl_fwd / 1e9:.3f} GFLOP) / {bb:.4f} ({bby}, "
-        f"{fl_bwd / 1e9:.3f} GFLOP) ms")
-    return [fwd, bwd]
+    return fwd, bwd
+
+
+def attn_pairs(T: int, S: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs inside the mask: the work of one (b, h)."""
+    t = np.arange(T)
+    hi = np.minimum(t + 1, S) if causal else np.full(T, S)
+    lo = np.maximum(t - window + 1, 0) if window else np.zeros(T, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _flash_bounds(B, T, S, H, KV, d, causal, window, elem):
+    """(forward, backward) bounds: bytes with every input read once and
+    every output written once, over 3.35 TB/s; f32 operations over 67
+    TFLOP/s, counting the pairs inside the mask only — 2 d multiply-adds a
+    pair forward (q·k, p·v), 5 backward (s again, dP, dV, dS·K, dSᵀ·Q)."""
+    pairs = attn_pairs(T, S, causal, window) * B * H
+    qo, kv, rows = B * T * H * d * elem, B * S * KV * d * elem, B * H * T * 4
+    fwd = bound(2 * qo + 2 * kv + rows, 4 * pairs * d)
+    bwd = bound(3 * qo + 2 * kv + rows + qo + 2 * kv, 10 * pairs * d)
+    return fwd, bwd, 4 * pairs * d, 10 * pairs * d
+
+
+def _sdpa(q, k, v):
+    """The library yardstick: one causal scaled_dot_product_attention call
+    on the same tensors, viewed (B, H, T, d)."""
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True)
+
+
+def _flash_timing(dev, g, B, T, H, d, iters: int) -> tuple:
+    """Kernel, plain and library times of the forward and of the backward
+    alone at (B, T, H, d), MHA, causal, f32."""
+    q, k, v, do = (torch.randn(B, T, H, d, generator=g, device=dev)
+                   for _ in range(4))
+    o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=True)
+    (fb, fby), (bb, bby), fl_f, fl_b = _flash_bounds(B, T, T, H, H, d, True,
+                                                     0, 4)
+    # the plain and library backward alone: autograd on one saved graph
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_plain = FA.flash_attention_plain(*leaves, causal=True)
+    o_lib = _sdpa(*leaves)
+
+    def plain_bwd():
+        torch.autograd.grad(o_plain, leaves, do, retain_graph=True)
+
+    def lib_bwd():
+        torch.autograd.grad(o_lib, leaves, do.transpose(1, 2),
+                            retain_graph=True)
+
+    fwd = {"shape": [B, T, H, d], "gflop": fl_f / 1e9,
+           "ms": time_ms(lambda: FA.flash_attention_fwd_kernel(
+               q, k, v, causal=True), iters=iters),
+           "plain_ms": time_ms(lambda: FA.flash_attention_plain(
+               q, k, v, causal=True), iters=iters, warmup=2),
+           "bound_ms": fb, "bound_by": fby,
+           "library_ms": time_ms(lambda: _sdpa(q, k, v), iters=iters)}
+    bwd = {"shape": [B, T, H, d], "gflop": fl_b / 1e9,
+           "ms": time_ms(lambda: FA.flash_attention_bwd_kernel(
+               q, k, v, o, lse, do, causal=True, window=0), iters=iters),
+           "plain_ms": time_ms(plain_bwd, iters=iters, warmup=2),
+           "bound_ms": bb, "bound_by": bby,
+           "library_ms": time_ms(lib_bwd, iters=iters)}
+    del leaves, o_plain, o_lib
+    return fwd, bwd
+
+
+def _flash_lse_plain(q, k, causal: bool, window: int) -> torch.Tensor:
+    """Each row's logsumexp of the masked scaled scores, (B, H, T): the
+    oracle of the forward kernel's second output. Masked scores are -1e30,
+    so a row with no key in its band has lse -1e30."""
+    B, T, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    s = torch.einsum("btkgd,bskd->bkgts", q.reshape(B, T, KV, H // KV, d),
+                     k) / math.sqrt(d)
+    t = torch.arange(T, device=q.device)[:, None]
+    u = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= u <= t
+    if window:
+        mask &= u > t - window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    return torch.logsumexp(s, dim=-1).reshape(B, H, T)
+
+
+def phase_flash(dev) -> list:
+    """flash_attention forward and backward kernels against
+    flash_attention_plain on the card: o, each row's logsumexp and dq, dk,
+    dv (of a random linear function of o), each as max|d| over
+    max|plain|, with the plain version in float64 on the same inputs. A
+    gradient that is zero but for rounding (dq and dk at T = S = 1: one
+    key, so dS = P(dP - D) = 0) is held absolutely, at the tolerance times
+    the case's largest gradient entry. The logsumexp is compared on the
+    rows with a key in their band; a row with none must give -1e30 (or
+    below). Cases: the hybrid path's shared block, ragged T, GQA with a
+    sliding window at gemma3 / qwen2.5 widths and T = 4096, d = 256,
+    non-causal S != T, rows with no key in their band (T > S + window),
+    bf16 inputs. Timed at the path's shape and at zamba2's context,
+    T = 4096."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    names = ("o", "lse", "dq", "dk", "dv")
+    record, err_f, err_b = [], 0.0, 0.0
+    for name, (b, t, s_, h, kv, dd), causal, window, dt_name in FLASH_CASES:
+        dt = getattr(torch, dt_name)
+        q = torch.randn(b, t, h, dd, generator=g, device=dev).to(dt)
+        k = torch.randn(b, s_, kv, dd, generator=g, device=dev).to(dt)
+        v = torch.randn(b, s_, kv, dd, generator=g, device=dev).to(dt)
+        do = torch.randn(b, t, h, dd, generator=g, device=dev).to(dt)
+        o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=causal,
+                                               window=window)
+        grads = FA.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                              causal=causal, window=window)
+        torch.cuda.synchronize()
+        leaves = [x.double().requires_grad_() for x in (q, k, v)]
+        o2 = FA.flash_attention_plain(*leaves, causal=causal, window=window)
+        grads2 = torch.autograd.grad(o2, leaves, do.double())
+        lse2 = _flash_lse_plain(leaves[0].detach(), leaves[1].detach(),
+                                causal, window)
+        live = lse2 > -1e29
+        check(bool((lse[~live] <= -1e29).all()),
+              f"flash {name}: lse of the rows with no key")
+        tol = TOL_FLASH if dt == torch.float32 else TOL_FLASH_BF16
+        scale = max(float(x.abs().max()) for x in grads2)
+        # one key: dS = P(dP - D) = 0, so dq = dk = 0 up to rounding
+        zero = ("dq", "dk") if s_ == 1 else ()
+        errs, abs_errs = [], []
+        for nm, a, r in zip(names, (o, lse[live], *grads),
+                            (o2.detach(), lse2[live], *grads2)):
+            e = maxerr(a, r) / scale if nm in zero else _relerr(a, r)
+            check(bool(torch.isfinite(a).all()), f"flash {name}: {nm} finite")
+            check(e <= tol, f"flash {name}: {nm} {e:.3g} > {tol}")
+            errs.append(e)
+            abs_errs.append(maxerr(a, r))
+        if dt == torch.float32:
+            err_f = max(err_f, *abs_errs[:2])
+            err_b = max(err_b, *abs_errs[2:])
+        log(f"flash_attention {name} (B, T, S, H, KV, d) = "
+            f"{(b, t, s_, h, kv, dd)} causal={causal} window={window} {dt}: "
+            + " ".join(f"{nm} {e:.3g}" for nm, e in zip(names, errs))
+            + f" (max|d| / max|plain|, tolerance {tol})")
+        record.append({"case": name, "shape": [b, t, s_, h, kv, dd],
+                       "causal": causal, "window": window, "dtype": str(dt),
+                       "tol": tol, "rel": dict(zip(names, errs)),
+                       "abs": dict(zip(names, abs_errs))})
+        del q, k, v, do, o, lse, grads, leaves, o2, lse2, grads2
+        torch.cuda.empty_cache()
+    RECORD["flash_attention_cases"] = record
+    fwd, bwd = _flash_timing(dev, g, *FLASH_SHAPE, iters=20)
+    fwd_l, bwd_l = _flash_timing(dev, g, *FLASH_LONG, iters=10)
+    torch.cuda.empty_cache()
+    for nm, x, y in (("fwd", fwd, fwd_l), ("bwd", bwd, bwd_l)):
+        log(f"flash_attention timing {nm}: path shape {x['ms']:.3f} ms "
+            f"(plain {x['plain_ms']:.3f}, library {x['library_ms']:.3f}, "
+            f"bound {x['bound_ms']:.4f} {x['bound_by']}, "
+            f"{x['gflop']:.2f} GFLOP); T={FLASH_LONG[1]} {y['ms']:.3f} ms "
+            f"(plain {y['plain_ms']:.3f}, library {y['library_ms']:.3f}, "
+            f"bound {y['bound_ms']:.4f})")
+    return [{**FA.INFO_FWD, **fwd, "max_abs_err": err_f,
+             "at_T4096": fwd_l},
+            {**FA.INFO_BWD, **bwd, "max_abs_err": err_b,
+             "at_T4096": bwd_l}]
 
 
 def _dist_ce_library(s, t):
@@ -799,8 +1036,10 @@ def phase_profile(trainer, first: int, steps: int, name: str) -> dict:
             "device_us": e.self_device_time_total} for e in kernels[:15]]
     ours = {}
     for info, _ in ops.KERNELS:
-        rows = [e for e in kernels if f"{info['name']}_kernel" in e.key]
-        n = sum(e.count for e in rows)
+        # a wrapper's call launches its CUDA kernel (<name>_kernel) or each
+        # of its kernels (<name>_<part>_kernel) once
+        rows = [e for e in kernels if f"{info['name']}_" in e.key]
+        n = max((e.count for e in rows), default=0)
         total = sum(e.self_device_time_total for e in rows)
         ours[info["name"]] = {"calls": n, "device_us": total,
                               "us_per_call": total / n if n else None}
@@ -874,16 +1113,18 @@ def phase_adaptive_wire(dev) -> None:
                                "cpu_tensors_s": t_cpu}
 
 
-def phase_lm_path(dev) -> tuple:
-    """The LM slice through the user's entry points: three full-width,
-    full-depth mamba2-370m clients, MHD over the adaptive delta-compressed
-    wire, 12 steps and one evaluate(), with every kernel's launch count set
-    to 0 just before (by the caller) and read just after."""
+def phase_lm_path(dev, cfg, label: str, kernels) -> tuple:
+    """An LM slice through the user's entry points: three clients of
+    ``cfg`` (full-width, full-depth mamba2-370m on the LM path; full-width
+    zamba2-7b cut to one period on the hybrid path), MHD over the adaptive
+    delta-compressed wire, 12 steps and one evaluate(), with every
+    kernel's launch count set to 0 just before (by the caller) and read
+    just after; each of ``kernels`` must have launched."""
     t0 = time.perf_counter()
     arrays, test, part = lm_path_data(lm, data)
     transport = RecordingTransport()
     trainer = DecentralizedTrainer(
-        [lm.lm_client_bundle(build_bundle(LM_CFG), LM_MAX_POS, LM_POS_SEED)
+        [lm.lm_client_bundle(build_bundle(cfg), LM_MAX_POS, LM_POS_SEED)
          for _ in range(LM_K)],
         make_optimizer(OptimizerConfig(**LM_OPTIMIZER)),
         MHDConfig(**LM_MHD), RunConfig(**LM_RUN), arrays,
@@ -892,7 +1133,7 @@ def phase_lm_path(dev) -> tuple:
         comm=CommConfig(**LM_COMM), transport=transport)
     torch.cuda.synchronize()
     n_params = sum(v.numel() for v in trainer.clients[0].params.values())
-    log(f"lm path: data + {LM_K} x {LM_CFG.name} ({n_params / 1e6:.1f} M "
+    log(f"{label} path: data + {LM_K} x {cfg.name} ({n_params / 1e6:.1f} M "
         f"params each) init + seed publish {time.perf_counter() - t0:.2f} s;"
         f" card memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     step_s, history = [], []
@@ -911,42 +1152,42 @@ def phase_lm_path(dev) -> tuple:
     for t, mt in enumerate(history):
         for i in range(LM_K):
             check(math.isfinite(mt[f"c{i}/loss"]),
-                  f"lm path: c{i} loss at {t}")
+                  f"{label} path: c{i} loss at {t}")
     check(distilled == REFERENCE_DISTILLED_LM,
-          f"lm path: distilled {distilled} != the reference's schedule "
+          f"{label} path: distilled {distilled} != the reference's schedule "
           f"{REFERENCE_DISTILLED_LM}")
-    for name in LM_KERNELS:
-        check(counts[name] > 0, f"lm path: kernel {name} launched "
+    for name in kernels:
+        check(counts[name] > 0, f"{label} path: kernel {name} launched "
                                 f"({counts[name]})")
-    check(len(transport.frames) > 0, "lm path: frames published")
+    check(len(transport.frames) > 0, f"{label} path: frames published")
     W, N = LM_S_P, LM_MAX_POS
     budget = LM_COMM["budget_bytes_per_token"] * W * N
     entry_bytes = []
     for payload in transport.frames:
         arr = trainer.codec.decode(payload).arrays
-        check(arr["k_per_token"].shape == (W, N), "lm path: frame plan")
+        check(arr["k_per_token"].shape == (W, N), f"{label} path: frame plan")
         entry_bytes.append(arr["vals"].nbytes + arr["idx"].nbytes)
-        check(entry_bytes[-1] <= budget, "lm path: frame within budget")
+        check(entry_bytes[-1] <= budget, f"{label} path: frame within budget")
     meter = trainer.meter
     check(dict(meter.by_edge) == dict(meter.by_edge_delivered),
-          "lm path: delivered == offered on every edge")
+          f"{label} path: delivered == offered on every edge")
     for k, v in ev.items():
-        check(math.isfinite(v), f"lm path: {k} finite")
+        check(math.isfinite(v), f"{label} path: {k} finite")
     med = statistics.median(step_s[1:])
     publish = [round(step_s[t] * 1e3, 1)
                for t in range(LM_S_P - 1, LM_STEPS, LM_S_P)]
-    log(f"lm path: {LM_STEPS} steps, step time median {med * 1e3:.1f} ms "
+    log(f"{label} path: {LM_STEPS} steps, step time median {med * 1e3:.1f} ms "
         f"(first {step_s[0] * 1e3:.1f} ms; publish steps {publish} ms), "
         f"evaluate {eval_s:.2f} s; card memory peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    log(f"lm path: distill_active per client and step {distilled}")
-    log(f"lm path: {len(transport.frames)} frames, "
+    log(f"{label} path: distill_active per client and step {distilled}")
+    log(f"{label} path: {len(transport.frames)} frames, "
         f"{statistics.mean(len(p) for p in transport.frames):.0f} B mean "
         f"({statistics.mean(entry_bytes) / (W * N):.2f} entry B/token, "
         f"budget {LM_COMM['budget_bytes_per_token']}); launches {counts}")
     ends = [[round(mt[f"c{i}/loss"], 4) for i in range(LM_K)]
             for mt in (history[0], history[-1])]
-    log(f"lm path: mean/main/beta_sh={ev['mean/main/beta_sh']:.4f} "
+    log(f"{label} path: mean/main/beta_sh={ev['mean/main/beta_sh']:.4f} "
         f"mean/aux2/beta_sh={ev['mean/aux2/beta_sh']:.4f} first and last "
         f"losses {ends}")
     return trainer, {
@@ -970,7 +1211,7 @@ def main() -> int:
     RECORD["device"] = phase_device()
     phase_build()
     kernels = [phase_topk(dev), *phase_dist_ce(dev), *phase_emb_dist(dev),
-               *phase_ssd(dev)]
+               *phase_ssd(dev), *phase_flash(dev)]
     phase_wire(dev)
     phase_adaptive_wire(dev)
     phase_loss(dev)
@@ -982,14 +1223,29 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    trainer, lm_path = phase_lm_path(dev)
+    trainer, lm_path = phase_lm_path(dev, LM_CFG, "lm", LM_KERNELS)
     RECORD["profile_lm"] = phase_profile(trainer, LM_STEPS, LM_S_P, "lm")
     del trainer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    block = ZAMBA_CFG.stages[0].block
+    log(f"zamba2 path: {ZAMBA_ARCH} at full width, cut in depth from "
+        f"{_ZAMBA_FULL.num_layers} to {ZAMBA_CFG.num_layers} layers (one "
+        f"period: {[(sp.attn, sp.ffn, sp.shared_attn) for sp in block]}), "
+        f"d_model {ZAMBA_CFG.d_model}, vocab {ZAMBA_VOCAB}")
+    ops.reset_launch_counts()
+    trainer, zamba_path = phase_lm_path(dev, ZAMBA_CFG, "zamba2",
+                                        ZAMBA_KERNELS)
+    RECORD["profile_zamba2"] = phase_profile(trainer, LM_STEPS, LM_S_P,
+                                             "zamba2")
+    del trainer
+    paths = {"resnet": resnet, "lm": lm_path, "zamba2": zamba_path}
     for k in kernels:
-        k["launches_by_path"] = {"resnet": resnet["counts"][k["name"]],
-                                 "lm": lm_path["counts"][k["name"]]}
+        k["launches_by_path"] = {p: r["counts"][k["name"]]
+                                 for p, r in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     RECORD.update(kernels=kernels, resnet_path=resnet, lm_path=lm_path,
+                  zamba2_path=zamba_path,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -6,12 +6,13 @@ keys are exactly the reference's `flatten_with_paths` keys (``stem``,
 ``s0b1/gn2/scale``, ``aux_heads``, ``stage0/layer0/attn/in_proj`` ...), so
 a checkpoint written by either package names its leaves the same way.
 Layouts differ in one place only: ResNet convolution kernels are HWIO in
-JAX and OIHW here. Every 4-D leaf of a parameter or optimizer-state tree
-the port has is such a kernel, and the two converters below transpose
-exactly those. An LM tree (the Mamba2 family) has no 4-D leaf and crosses
-unchanged: stage leaves keep their leading repeats axis, dense weights
-stay (in, out) as the port applies them (``x @ w``), and the causal-conv
-weight stays (width, channels).
+JAX and OIHW here. Those leaves are the ones `resnet.CONV_KERNELS` names
+(``stem``, ``*/conv1``, ``*/conv2``, ``*/proj``), in a parameter tree or
+under an optimizer state's prefix, and the two converters below transpose
+exactly those. Every other leaf crosses unchanged, whatever its rank: LM
+stage leaves keep their leading repeats axis (a MoE expert weight is
+(R, E, D, F)), dense weights stay (in, out) as the port applies them
+(``x @ w``), and the causal-conv weight stays (width, channels).
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
+
+from repro_torch.models.resnet import is_conv_kernel
 
 Tensor = torch.Tensor
 
@@ -53,7 +56,7 @@ def params_from_jax(flat: Mapping[str, np.ndarray],
     out: Dict[str, Tensor] = {}
     for k, v in flat.items():
         a = np.array(v)
-        if a.ndim == 4:
+        if is_conv_kernel(k, a.ndim):
             a = a.transpose(3, 2, 0, 1)
         out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
     return out
@@ -64,7 +67,7 @@ def params_to_jax(params: Mapping[str, Tensor]) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for k, v in params.items():
         a = v.detach().cpu().numpy()
-        if a.ndim == 4:
+        if is_conv_kernel(k, a.ndim):
             a = a.transpose(2, 3, 1, 0)
         out[k] = np.ascontiguousarray(a)
     return out

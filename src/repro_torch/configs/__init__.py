@@ -1,5 +1,6 @@
 """Architecture config registry (``repro/configs/__init__.py``), over the
-architectures the port runs so far: the paper's ResNets and mamba2-370m.
+architectures the port runs so far: the paper's ResNets, mamba2-370m,
+zamba2-7b and gemma3-12b.
 
 Every entry exposes ``full()`` (the exact configuration) and ``reduced()``
 (the CPU-scale variant the parity tests use); ``get_config(name)`` /
@@ -13,7 +14,7 @@ from repro_torch.common.registry import Registry
 
 ARCHS = Registry("architecture")
 
-_MODULES = ["mamba2_370m", "resnet"]
+_MODULES = ["gemma3_12b", "mamba2_370m", "resnet", "zamba2_7b"]
 
 
 def _load():

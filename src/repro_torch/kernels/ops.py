@@ -6,6 +6,7 @@ cannot build or launch; a CPU tensor takes the plain PyTorch version.
 
   dist_ce          Triton (csrc/dist_ce_triton.py), forward + backward
   emb_dist         Triton (csrc/emb_dist_triton.py), forward + backward
+  flash_attention  CUDA C++ (csrc/flash_attention.cu), forward + backward
   ssd_scan         CUDA C++ (csrc/ssd_scan.cu), forward + backward
   topk_wire        CUDA C++ (csrc/topk_wire.cu)
   topk_wire_frame  topk_wire plus the wire epilogue in PyTorch ops
@@ -24,10 +25,12 @@ import torch
 
 from repro_torch.kernels import dist_ce as _dce
 from repro_torch.kernels import emb_dist as _emb
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import topk_wire as _topk
 from repro_torch.kernels.dist_ce import dist_ce
 from repro_torch.kernels.emb_dist import emb_dist
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.topk_wire import topk_wire
 
@@ -42,6 +45,8 @@ KERNELS = (
     (_emb.INFO_BWD, _emb.BWD_COUNTER),
     (_ssd.INFO_FWD, _ssd.FWD_COUNTER),
     (_ssd.INFO_BWD, _ssd.BWD_COUNTER),
+    (_fa.INFO_FWD, _fa.FWD_COUNTER),
+    (_fa.INFO_BWD, _fa.BWD_COUNTER),
 )
 
 
@@ -166,5 +171,5 @@ def adaptive_topk_wire_frame(heads: Tensor, emb: Optional[Tensor], k: int,
 
 
 __all__ = ["KERNELS", "adaptive_topk_wire_frame", "dist_ce", "emb_dist",
-           "launch_counts", "reset_launch_counts", "ssd_scan", "topk_wire",
-           "topk_wire_frame"]
+           "flash_attention", "launch_counts", "reset_launch_counts",
+           "ssd_scan", "topk_wire", "topk_wire_frame"]

@@ -1,21 +1,31 @@
 """Core neural layers for the LM path (port of ``repro/models/layers.py``):
-initializers, norms and the Mamba2 causal conv.
+initializers, norms, RoPE, the MLP, self-attention and the Mamba2 causal
+conv.
 
 Parameters are flat dicts of tensors keyed as the reference's pytrees
-flatten (``"scale"``, ``"w"`` ...). Dense weights keep the reference's
-(in, out) layout and are applied as ``x @ w``; the conv weight is
-(width, channels). Matmuls run in the parameters' dtype (float32 on the
-LM path, with TF32 off on the card), as the reference accumulates in f32.
+flatten (``"scale"``, ``"w"``, ``"wq"``, ``"q_norm/scale"`` ...). Dense
+weights keep the reference's (in, out) layout and are applied as
+``x @ w``; the conv weight is (width, channels). Matmuls run in the
+parameters' dtype (float32 on the LM path, with TF32 off on the card), as
+the reference accumulates in f32.
 
-Attention, RoPE and the MLP come with the transformer slice of the port.
+Attention runs through `kernels.ops.flash_attention` at every length: the
+reference picks between a dense score matrix and a query-block scan by
+size (``attention_scores`` / ``_blockwise_attention``), a memory lever of
+the same value that the kernel replaces. Cross attention and
+``logit_softcap`` raise NotImplementedError naming the ROADMAP item that
+ports them; decode comes with serving.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -63,6 +73,142 @@ def norm_apply(params: Params, x: Tensor, kind: str = "rmsnorm",
         y = y * params["scale"].float() + params["bias"].float()
         return y.to(x.dtype)
     raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float = 10_000.0
+               ) -> Tensor:
+    """x: (..., T, H, hd); positions: broadcastable to (..., T). Rotates
+    the split halves (not interleaved pairs), in f32."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)
+    ang = positions[..., :, None].float() * inv  # (..., T, hd/2)
+    cos = torch.cos(ang)[..., None, :]  # (..., T, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+             act: str = "silu", dtype=torch.float32) -> Params:
+    params = {"w_up": dense_init(gen, d_model, d_ff, dtype),
+              "w_down": dense_init(gen, d_ff, d_model, dtype)}
+    if act == "silu":  # gated (SwiGLU) variant
+        params["w_gate"] = dense_init(gen, d_model, d_ff, dtype)
+    return params
+
+
+def mlp_apply(params: Params, x: Tensor, act: str = "silu") -> Tensor:
+    up = x @ params["w_up"]
+    if act == "silu":
+        h = F.silu(x @ params["w_gate"]) * up
+    elif act == "gelu":
+        h = F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
+    elif act == "relu2":  # squared ReLU (nemotron/minitron)
+        h = torch.square(F.relu(up))
+    else:
+        raise ValueError(act)
+    return (h.to(x.dtype) @ params["w_down"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA; full and sliding-window self-attention)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+
+
+_CROSS = "ROADMAP Queue 1 item 13 (cross attention, with the modality " \
+         "front ends)"
+_SOFTCAP = "ROADMAP Queue 2 item 2.5 (logit_softcap: no configuration " \
+           "sets it, and the flash_attention kernel does not apply it)"
+
+
+def init_attention(gen: torch.Generator, dims: AttnDims,
+                   dtype=torch.float32) -> Params:
+    H, KV, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    params = {"wq": dense_init(gen, dims.d_model, H * hd, dtype),
+              "wk": dense_init(gen, dims.d_model, KV * hd, dtype),
+              "wv": dense_init(gen, dims.d_model, KV * hd, dtype),
+              "wo": dense_init(gen, H * hd, dims.d_model, dtype)}
+    if dims.qkv_bias:
+        params["bq"] = torch.zeros(H * hd, dtype=dtype)
+        params["bk"] = torch.zeros(KV * hd, dtype=dtype)
+        params["bv"] = torch.zeros(KV * hd, dtype=dtype)
+    if dims.qk_norm:
+        params["q_norm/scale"] = torch.ones(hd, dtype=dtype)
+        params["k_norm/scale"] = torch.ones(hd, dtype=dtype)
+    return params
+
+
+def _project_qkv(params: Params, dims: AttnDims, x: Tensor,
+                 positions: Tensor, rope_theta: Optional[float]):
+    """q (B, T, H, hd), k and v (B, T, KV, hd) from x (B, T, D): bias,
+    per-head RMSNorm of q and k, then RoPE on both."""
+    H, KV, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    q = (x @ params["wq"]).to(x.dtype)
+    k = (x @ params["wk"]).to(x.dtype)
+    v = (x @ params["wv"]).to(x.dtype)
+    if dims.qkv_bias:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    q = q.reshape(q.shape[:-1] + (H, hd))
+    k = k.reshape(k.shape[:-1] + (KV, hd))
+    v = v.reshape(v.shape[:-1] + (KV, hd))
+    if dims.qk_norm:
+        q = norm_apply({"scale": params["q_norm/scale"]}, q, "rmsnorm")
+        k = norm_apply({"scale": params["k_norm/scale"]}, k, "rmsnorm")
+    if rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def attention_apply(params: Params, dims: AttnDims, x: Tensor, *,
+                    mask_kind: str = "causal", window: int = 0,
+                    rope_theta: Optional[float] = 10_000.0,
+                    kv_src: Optional[Tensor] = None,
+                    logit_softcap: Optional[float] = None) -> Tensor:
+    """Causal self-attention over full sequences (training / prefill) at
+    positions 0..T−1, through the ``flash_attention`` kernel. mask_kind:
+    causal | swa (keys within ``window`` of the query)."""
+    if kv_src is not None:
+        raise NotImplementedError(f"cross attention is not ported yet: "
+                                  f"{_CROSS}")
+    if logit_softcap is not None:
+        raise NotImplementedError(f"attention logit_softcap is not ported "
+                                  f"yet: {_SOFTCAP}")
+    if mask_kind not in ("causal", "swa"):
+        raise ValueError(mask_kind)
+    B, T = x.shape[0], x.shape[1]
+    positions = torch.arange(T, device=x.device)[None]
+    q, k, v = _project_qkv(params, dims, x, positions, rope_theta)
+    out = ops.flash_attention(q, k, v, causal=True,
+                              window=window if mask_kind == "swa" else 0)
+    out = out.reshape(B, T, dims.num_heads * dims.head_dim)
+    return (out @ params["wo"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

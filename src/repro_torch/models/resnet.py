@@ -78,6 +78,17 @@ def resnet_tiny34(num_classes: int, num_aux_heads: int = 0, width: int = 8):
 # init
 # ---------------------------------------------------------------------------
 
+# the leaves that are convolution kernels: OIHW here, HWIO in the JAX
+# package (`checkpoint.io` converts exactly these)
+CONV_KERNELS = ("stem", "conv1", "conv2", "proj")
+
+
+def is_conv_kernel(key: str, ndim: int) -> bool:
+    """Whether the leaf at path ``key`` of a ResNet tree, or of an
+    optimizer state over one, is a 4-D convolution kernel."""
+    return ndim == 4 and key.rsplit("/", 1)[-1] in CONV_KERNELS
+
+
 def _normal(gen: torch.Generator, shape, std: float) -> Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32) * std
 

@@ -1,6 +1,11 @@
 """The decoder LM skeleton, in PyTorch (port of the full-sequence half of
 ``repro/models/transformer.py``), for the layer kinds the port has so far:
-Mamba2 blocks (``attn="mamba2"``, ``ffn="none"``).
+Mamba2 blocks (``attn="mamba2"``), full and sliding-window self-attention
+(``attn="full"`` / ``"swa"``, GQA, RoPE, ``qk_norm``, bias) on the
+``flash_attention`` kernel, the dense FFN (``ffn="dense"``), and zamba2's
+*shared* attention block (``shared_attn=True``: one parameter set,
+``shared_attn/*`` and ``shared_attn_norm/*`` at the top of the tree,
+applied after the layer's own mixer wherever a layer asks for it).
 
 Depth is organized as the reference's *stages* of repeat-units. Each leaf
 of a stage keeps the reference's stacked layout, with a leading
@@ -10,7 +15,8 @@ updates one tensor per leaf, not one per layer. The forward unbinds each
 leaf once and loops over the units in Python; with ``cfg.remat != "none"``
 each unit runs under ``torch.utils.checkpoint`` (non-reentrant), as
 ``jax.checkpoint`` wraps the reference's unit: the same numbers for less
-memory.
+memory. The shared block's weights are closure constants of every unit,
+as in the reference: each use adds its part to their one gradient.
 
 Public API (pure functions over a flat path-keyed param dict):
   init_lm(gen, cfg, device=None)     -> params (on the card by default)
@@ -18,9 +24,10 @@ Public API (pure functions over a flat path-keyed param dict):
                                          "aux_loss"}
   lm_loss(params, cfg, batch)        -> (loss, metrics)
 
-Attention (full, sliding-window, cross, shared), the dense FFN, MoE, MLA,
-the encoder, learned and sinusoidal positions and MTP raise NotImplementedError naming
-the ROADMAP item that ports them; decode comes with serving (item 14).
+MoE, MLA, cross attention, the vision and audio front ends, MTP, learned
+and sinusoidal positions and ``attn_logit_softcap`` raise
+NotImplementedError naming the ROADMAP item that ports them; decode comes
+with serving (item 14).
 """
 from __future__ import annotations
 
@@ -39,14 +46,16 @@ Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
 _LATER = {
-    "attention": "ROADMAP Queue 1 item 13 (the transformer slice, with "
-                 "flash_attention, Queue 2 item 2.5)",
-    "ffn": "ROADMAP Queue 1 item 13 (the dense FFN with the transformer "
-           "slice, MoE after it)",
-    "moe": "ROADMAP Queue 1 item 13 (MoE, after the transformer slice)",
-    "mla": "ROADMAP Queue 1 item 13 (MLA, after the transformer slice)",
+    "moe": "ROADMAP Queue 1 item 13 (MoE, after the hybrid slice)",
+    "mla": "ROADMAP Queue 1 item 13 (MLA, after MoE)",
+    "cross": "ROADMAP Queue 1 item 13 (cross attention, with the vision "
+             "and audio front ends)",
     "modality": "ROADMAP Queue 1 item 13 (the vision and audio front ends)",
     "mtp": "ROADMAP Queue 1 item 13 (DeepSeek MTP)",
+    "positions": "ROADMAP Queue 1 item 13 (learned and sinusoidal "
+                 "positions, with the audio encoder)",
+    "softcap": "ROADMAP Queue 2 item 2.5 (logit_softcap: no configuration "
+               "sets it, and the flash_attention kernel does not apply it)",
 }
 
 
@@ -57,13 +66,10 @@ def _not_yet(what: str, key: str):
 def _check_supported(cfg: ModelConfig) -> None:
     for stage in cfg.stages:
         for spec in stage.block:
-            if spec.attn != "mamba2" and spec.attn != "none":
-                _not_yet(f"attention kind {spec.attn!r}", "attention")
-            if spec.shared_attn or spec.cross_attn:
-                _not_yet("shared/cross attention", "attention")
-            if spec.ffn != "none":
-                _not_yet(f"ffn kind {spec.ffn!r}",
-                         "ffn" if spec.ffn == "dense" else "moe")
+            if spec.attn == "cross" or spec.cross_attn:
+                _not_yet("cross attention", "cross")
+            if spec.ffn in ("moe", "moe_dense_parallel"):
+                _not_yet(f"ffn kind {spec.ffn!r}", "moe")
     if cfg.mla is not None:
         _not_yet("MLA", "mla")
     if cfg.vision is not None or cfg.audio is not None or \
@@ -72,7 +78,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.mtp:
         _not_yet("MTP", "mtp")
     if cfg.pos_embed in ("learned", "sinusoidal"):
-        _not_yet(f"{cfg.pos_embed} positions", "attention")
+        _not_yet(f"{cfg.pos_embed} positions", "positions")
+    if cfg.attn_logit_softcap is not None:
+        _not_yet("attn_logit_softcap", "softcap")
 
 
 def _with_prefix(prefix: str, tree: Params) -> Params:
@@ -89,14 +97,34 @@ def _sub(params: Params, prefix: str) -> Params:
 # parameter init
 # ---------------------------------------------------------------------------
 
+def _attn_dims(cfg: ModelConfig) -> L.AttnDims:
+    return L.AttnDims(d_model=cfg.d_model, num_heads=cfg.num_heads,
+                      num_kv_heads=cfg.num_kv_heads,
+                      head_dim=cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+                      qk_norm=cfg.qk_norm)
+
+
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                 dtype) -> Params:
     p: Params = {}
-    if spec.attn == "mamba2":
+    if spec.attn in ("full", "swa"):
+        p.update(_with_prefix("attn", L.init_attention(gen, _attn_dims(cfg),
+                                                       dtype)))
+    elif spec.attn == "mamba2":
         p.update(_with_prefix("attn", SSM.init_mamba2(gen, cfg.d_model,
                                                       cfg.mamba, dtype)))
+    elif spec.attn != "none":
+        raise ValueError(spec.attn)
+    if spec.attn != "none":
         p.update(_with_prefix("attn_norm", L.init_norm(cfg.d_model, cfg.norm,
                                                        dtype)))
+    if spec.ffn == "dense":
+        p.update(_with_prefix("ffn", L.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                                cfg.act, dtype)))
+        p.update(_with_prefix("ffn_norm", L.init_norm(cfg.d_model, cfg.norm,
+                                                      dtype)))
+    elif spec.ffn != "none":
+        raise ValueError(spec.ffn)
     return p
 
 
@@ -129,6 +157,11 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
         params["aux_heads"] = (torch.randn(
             cfg.num_aux_heads, cfg.d_model, cfg.vocab_size, generator=gen)
             * (1.0 / math.sqrt(cfg.d_model))).to(dtype)
+    if any(s.shared_attn for st in cfg.stages for s in st.block):
+        params.update(_with_prefix("shared_attn", L.init_attention(
+            gen, _attn_dims(cfg), dtype)))
+        params.update(_with_prefix("shared_attn_norm", L.init_norm(
+            cfg.d_model, cfg.norm, dtype)))
     return {k: v.to(device) for k, v in params.items()}
 
 
@@ -137,20 +170,40 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def _layer_forward(lp: Params, cfg: ModelConfig, spec: LayerSpec,
-                   x: Tensor) -> Tuple[Tensor, Tensor]:
+                   x: Tensor, shared: Params) -> Tuple[Tensor, Tensor]:
     """One layer (full-sequence path) of a kind `_check_supported`
-    admits. Returns (x, aux_loss)."""
+    admits: its mixer, the shared attention block if it asks for it, then
+    its FFN. Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if spec.attn == "mamba2":
+    rope = cfg.rope_theta if cfg.pos_embed == "rope" else None
+    if spec.attn in ("full", "swa"):
+        h = L.norm_apply(_sub(lp, "attn_norm"), x, cfg.norm)
+        x = x + L.attention_apply(
+            _sub(lp, "attn"), _attn_dims(cfg), h,
+            mask_kind="swa" if spec.attn == "swa" else "causal",
+            window=cfg.window_size, rope_theta=rope)
+    elif spec.attn == "mamba2":
         h = L.norm_apply(_sub(lp, "attn_norm"), x, cfg.norm)
         x = x + SSM.mamba2_apply(_sub(lp, "attn"), h, cfg.mamba)
+    if spec.shared_attn:
+        h = L.norm_apply(_sub(shared, "shared_attn_norm"), x, cfg.norm)
+        x = x + L.attention_apply(_sub(shared, "shared_attn"),
+                                  _attn_dims(cfg), h, mask_kind="causal",
+                                  rope_theta=rope)
+    if spec.ffn == "dense":
+        h = L.norm_apply(_sub(lp, "ffn_norm"), x, cfg.norm)
+        x = x + L.mlp_apply(_sub(lp, "ffn"), h, cfg.act)
     return x, aux
 
 
 def _run_stages(params: Params, cfg: ModelConfig, x: Tensor
                 ) -> Tuple[Tensor, Tensor]:
-    """Every stage's units, in order, over x. Returns (x, total_aux)."""
+    """Every stage's units, in order, over x. Returns (x, total_aux). The
+    shared block's weights go into every unit as they are (one leaf each,
+    not stacked), so autograd sums their gradient over the units."""
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = {k: v for k, v in params.items()
+              if k.startswith(("shared_attn/", "shared_attn_norm/"))}
     for si, stage in enumerate(cfg.stages):
         # one unbind per leaf: its backward stacks the units' gradients
         # into one tensor, where indexing would add a full-size zero
@@ -161,7 +214,7 @@ def _run_stages(params: Params, cfg: ModelConfig, x: Tensor
         def unit_fn(h, aux_acc, unit_params, _stage=stage):
             for li, spec in enumerate(_stage.block):
                 h, aux = _layer_forward(_sub(unit_params, f"layer{li}"), cfg,
-                                        spec, h)
+                                        spec, h, shared)
                 aux_acc = aux_acc + aux
             return h, aux_acc
 

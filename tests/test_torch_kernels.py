@@ -25,7 +25,11 @@ from repro.kernels.topk_wire import topk_wire as jax_topk_wire
 from repro_torch.kernels import ops
 from repro_torch.kernels import dist_ce as DCE
 from repro_torch.kernels import emb_dist as EMB
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import topk_wire as TOPK
+import test_torch_threads
+
+test_torch_threads.share_cores()
 
 # PyTorch's CPU build picks each vectorized math kernel at its first call,
 # and a first call spread over several threads was seen to compute
@@ -186,7 +190,8 @@ def test_cpu_tensor_takes_plain_version_and_counts_nothing():
     assert set(ops.launch_counts().values()) == {0}
     assert [i["name"] for i, _ in ops.KERNELS] == [
         "topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
-        "emb_dist_bwd", "ssd_scan_fwd", "ssd_scan_bwd"]
+        "emb_dist_bwd", "ssd_scan_fwd", "ssd_scan_bwd", "flash_attention_fwd",
+        "flash_attention_bwd"]
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():
@@ -230,3 +235,30 @@ def test_triton_kernels_match_plain(cuda):
     torch.testing.assert_close(EMB.emb_dist_fwd_kernel(e_s, e_t),
                                EMB.emb_dist_plain(e_s, e_t), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,H,KV,d,causal,window", [
+    (2, 200, 200, 8, 8, 112, True, 0), (1, 300, 300, 8, 4, 256, True, 64),
+    (2, 70, 50, 4, 2, 64, False, 0), (1, 300, 100, 8, 4, 64, False, 64),
+    (1, 260, 100, 4, 2, 128, True, 32)])
+def test_flash_attention_kernels_match_plain(cuda, B, T, S, H, KV, d, causal,
+                                             window):
+    """The forward and the three gradients against the plain version in
+    float64, as max|d| / max|plain| (f32 sums in another order); the last
+    two cases have rows with no key in their band (T > S + window)."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q = torch.randn(B, T, H, d, generator=g, device=cuda)
+    k, v = (torch.randn(B, S, KV, d, generator=g, device=cuda)
+            for _ in range(2))
+    do = torch.randn(B, T, H, d, generator=g, device=cuda)
+    o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=causal,
+                                           window=window)
+    grads = FA.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                          causal=causal, window=window)
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    o2 = FA.flash_attention_plain(*leaves, causal=causal, window=window)
+    grads2 = torch.autograd.grad(o2, leaves, do.double())
+    for a, b in zip((o, *grads), (o2, *grads2)):
+        b = b.detach()
+        assert float((a.double() - b).abs().max() / b.abs().max()) < 1e-4

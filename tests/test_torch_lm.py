@@ -30,6 +30,9 @@ from repro_torch.core.lm_adapter import jax_permutation, lm_mhd_outputs
 from repro_torch.models import build_bundle
 from repro_torch.models import transformer as TTF
 from repro_torch.models.config import LayerSpec, uniform_stages
+import test_torch_threads
+
+test_torch_threads.share_cores()
 
 for _op in (torch.exp, torch.log, torch.sqrt):
     _op(torch.ones(1))
@@ -105,10 +108,12 @@ def test_lm_loss_gradients_match_jax_and_remat_changes_nothing(model):
                                    atol=1e-7)
 
 
-@pytest.mark.parametrize("attn,ffn", [("full", "dense"), ("full", "none"),
-                                      ("mamba2", "dense"), ("mamba2", "moe")])
+@pytest.mark.parametrize("attn,ffn", [("cross", "none"), ("full", "moe"),
+                                      ("mamba2", "moe"),
+                                      ("swa", "moe_dense_parallel")])
 def test_unported_layer_kinds_raise(attn, ffn):
-    """Attention and every FFN kind wait for later slices and say which."""
+    """Cross attention and the MoE FFN kinds wait for later slices and say
+    which."""
     cfg = dataclasses.replace(
         get_reduced(NAME), name=f"{attn}-{ffn}",
         stages=uniform_stages(2, LayerSpec(attn=attn, ffn=ffn)))
@@ -210,3 +215,27 @@ def test_lm_params_npz_round_trip(model, tmp_path):
     for x, y in zip(jax.tree_util.tree_leaves(again),
                     jax.tree_util.tree_leaves(jp)):
         assert np.array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_stacked_4d_lm_leaf_crosses_unchanged(tmp_path):
+    """Only the ResNet's conv kernels change layout between the packages:
+    a 4-D LM leaf — a MoE expert weight, stacked (R, E, D, F) — loads as
+    the same array and saves back as the same array, beside a conv kernel
+    that still goes HWIO -> OIHW and back."""
+    rng = np.random.default_rng(8)
+    flat = {"stage0/layer0/ffn/w_gate": rng.standard_normal((2, 4, 8, 16)),
+            "stage0/layer0/ffn/w_down": rng.standard_normal((2, 4, 16, 8)),
+            "stem": rng.standard_normal((3, 3, 3, 8)),
+            "mu/s0b0/conv1": rng.standard_normal((3, 3, 8, 8))}
+    flat = {k: v.astype(np.float32) for k, v in flat.items()}
+    params = TIO.params_from_jax(flat, device="cpu")
+    for k in ("stage0/layer0/ffn/w_gate", "stage0/layer0/ffn/w_down"):
+        assert np.array_equal(params[k].numpy(), flat[k]), k
+    assert params["stem"].shape == (8, 3, 3, 3)
+    assert params["mu/s0b0/conv1"].shape == (8, 8, 3, 3)
+    path = os.path.join(tmp_path, "port.npz")
+    TIO.save_pytree(path, TIO.params_to_jax(params))
+    back = TIO.load_pytree(path)
+    assert set(back) == set(flat)
+    for k, v in flat.items():
+        assert back[k].dtype == v.dtype and np.array_equal(back[k], v), k

@@ -1,8 +1,11 @@
-"""The LM slice as a whole: a K=3 fleet of reduced mamba2-370m clients
-(2 layers, d_model 128, vocab 512, 2 aux heads) distilling next-token
-predictions over ``prediction_adaptive`` with ``compression="delta"``, in
-the JAX package's DecentralizedTrainer and in the port's, with the
-reference's init params carried across.
+"""The LM slices as a whole: a K=3 fleet of reduced mamba2-370m clients
+(2 layers, d_model 128, vocab 512, 2 aux heads), and one of reduced
+zamba2-7b clients cut to one period of their pattern as on the card (6
+layers: five Mamba2 layers, then one with the shared attention block and
+the dense FFN), distilling next-token predictions over
+``prediction_adaptive`` with ``compression="delta"``, in the JAX
+package's DecentralizedTrainer and in the port's, with the reference's
+init params carried across.
 
 Both draw the same numpy streams in the same order, and the seeded
 position subset is the same (`core.lm_adapter.jax_permutation`), so the
@@ -18,8 +21,28 @@ import dataclasses
 import numpy as np
 import pytest
 
+import test_torch_threads
+
+test_torch_threads.share_cores()
+
 STEPS, K, DOMAINS, SEQ, VOCAB, M = 6, 3, 6, 16, 512, 2
 MAX_POS, POS_SEED = 24, 17
+PERIOD = 6  # zamba2-7b's 5:1 pattern
+
+
+def _config(pkg, arch):
+    """The reduced config of ``arch``; zamba2-7b's cut to one period."""
+    if pkg == "jax":
+        from repro.configs import get_reduced
+        from repro.models.config import patterned_stages
+    else:
+        from repro_torch.configs import get_reduced
+        from repro_torch.models.config import patterned_stages
+    cfg = get_reduced(arch)
+    if arch == "zamba2-7b":
+        cfg = dataclasses.replace(cfg, num_layers=PERIOD, stages=(
+            patterned_stages(PERIOD, cfg.stages[0].block))).validate()
+    return cfg
 
 
 def _data(D_lm):
@@ -30,12 +53,11 @@ def _data(D_lm):
     return arrays, test
 
 
-def _trainer(pkg, bundles=None):
+def _trainer(pkg, arch, bundles=None):
     if pkg == "jax":
         from repro import data as D
         from repro import lm as LM
         from repro.comm import CommConfig
-        from repro.configs import get_reduced
         from repro.core import DecentralizedTrainer, MHDConfig, RunConfig
         from repro.core.graph import complete_graph
         from repro.models.zoo import build_bundle
@@ -45,7 +67,6 @@ def _trainer(pkg, bundles=None):
         from repro_torch import data as D
         from repro_torch import lm as LM
         from repro_torch.comm import CommConfig
-        from repro_torch.configs import get_reduced
         from repro_torch.core import (DecentralizedTrainer, MHDConfig,
                                       RunConfig, complete_graph)
         from repro_torch.models import build_bundle
@@ -56,8 +77,8 @@ def _trainer(pkg, bundles=None):
         num_clients=K, num_labels=DOMAINS, labels_per_client=2, skew=100.0,
         gamma_pub=0.2, seed=0))
     if bundles is None:
-        bundles = [LM.lm_client_bundle(build_bundle(get_reduced(
-            "mamba2-370m")), MAX_POS, POS_SEED) for _ in range(K)]
+        bundles = [LM.lm_client_bundle(build_bundle(_config(pkg, arch)),
+                                       MAX_POS, POS_SEED) for _ in range(K)]
     trainer = DecentralizedTrainer(
         bundles,
         make_optimizer(OptimizerConfig(name="adamw", init_lr=1e-3,
@@ -75,10 +96,9 @@ def _trainer(pkg, bundles=None):
     return trainer, test
 
 
-def _port_bundles(jax_trainer):
+def _port_bundles(jax_trainer, arch):
     from repro.common.pytree import flatten_with_paths
     from repro_torch.checkpoint.io import params_from_jax
-    from repro_torch.configs import get_reduced
     from repro_torch.lm import lm_client_bundle
     from repro_torch.models import build_bundle
 
@@ -86,17 +106,18 @@ def _port_bundles(jax_trainer):
     for c in jax_trainer.clients:
         flat = {k: np.asarray(v)
                 for k, v in flatten_with_paths(c.params).items()}
-        b = lm_client_bundle(build_bundle(get_reduced("mamba2-370m")),
-                             MAX_POS, POS_SEED)
+        b = lm_client_bundle(build_bundle(_config("torch", arch)), MAX_POS,
+                             POS_SEED)
         out.append(dataclasses.replace(
             b, init=lambda gen, flat=flat: params_from_jax(flat,
                                                            device="cpu")))
     return out
 
 
-def test_lm_fleet_tracks_reference():
-    tj, test = _trainer("jax")
-    tp, _ = _trainer("torch", _port_bundles(tj))
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_lm_fleet_tracks_reference(arch):
+    tj, test = _trainer("jax", arch)
+    tp, _ = _trainer("torch", arch, _port_bundles(tj, arch))
     sched_j, sched_p = [], []
     for t in range(STEPS):
         mj, mp = tj.step(t), tp.step(t)

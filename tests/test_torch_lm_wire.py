@@ -26,6 +26,9 @@ from repro_torch.lm import (
     pack_bits,
     unpack_bits,
 )
+import test_torch_threads
+
+test_torch_threads.share_cores()
 
 for _op in (torch.exp, torch.log, torch.sqrt):
     _op(torch.ones(1))

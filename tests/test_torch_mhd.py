@@ -20,6 +20,9 @@ import torch
 
 from repro.core import mhd as JM
 from repro_torch.core import mhd as TM
+import test_torch_threads
+
+test_torch_threads.share_cores()
 
 B, C, E, M, D = 12, 9, 16, 3, 2
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -13,6 +13,9 @@ from repro.optim import optimizers as JO
 from repro.optim import schedules as JS
 from repro_torch.optim import optimizers as TO
 from repro_torch.optim import schedules as TS
+import test_torch_threads
+
+test_torch_threads.share_cores()
 
 STEPS = 12
 

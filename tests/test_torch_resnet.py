@@ -20,6 +20,9 @@ from repro.common.pytree import flatten_with_paths
 from repro.models import resnet as JR
 from repro_torch.checkpoint import io as TIO
 from repro_torch.models import resnet as TR
+import test_torch_threads
+
+test_torch_threads.share_cores()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -16,6 +16,10 @@ import dataclasses
 import numpy as np
 import pytest
 
+import test_torch_threads
+
+test_torch_threads.share_cores()
+
 STEPS, K, LABELS, M = 10, 3, 8, 2
 
 

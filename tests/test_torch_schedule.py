@@ -7,10 +7,20 @@ function of the numpy draws alone (pulls, pool inserts and samples, window
 expiry), not of the model or the pixels: so the same run with resnet_tiny
 in place of ResNet-18, on the smoke's images subsampled to 8x8, gives it
 on the CPU, through the JAX package and through the port. Both must equal the constant, step for step and client for client.
+The LM path (mamba2-370m) and the hybrid path (zamba2-7b) share one fleet
+and so one schedule, `chip_smoke.REFERENCE_DISTILLED_LM`: each is derived
+here with its own architecture's reduced config, zamba2-7b's cut to one
+period of its pattern (6 layers) as on the card.
 """
+import dataclasses
+
 import numpy as np
+import pytest
 
 import chip_smoke as CS
+import test_torch_threads
+
+test_torch_threads.share_cores()
 
 
 def _run(pkg):
@@ -63,12 +73,13 @@ def test_smoke_teacher_schedule_is_the_references():
 LM_TOKENS = 16  # columns of the smoke's sequences the stand-in model reads
 
 
-def _run_lm(pkg):
+def _run_lm(pkg, arch):
     """chip_smoke.py's LM path (K, N_P, S_P, W, Δ, batch, steps, the data,
     partition and position seeds, the adaptive delta-compressed wire) with
-    the reduced mamba2-370m on the first 16 tokens of each sequence in
-    place of the full model on 512: the schedule is a function of the numpy
-    draws alone."""
+    the reduced config of ``arch`` (zamba2-7b's cut to the card's one
+    period) on the first 16 tokens of each sequence in place of the full
+    model on 512: the schedule is a function of the numpy draws alone. The
+    hybrid path (zamba2-7b) runs the same fleet."""
     if pkg == "jax":
         from repro import data as D
         from repro import lm as LM
@@ -76,6 +87,7 @@ def _run_lm(pkg):
         from repro.configs import get_reduced
         from repro.core import DecentralizedTrainer, MHDConfig, RunConfig
         from repro.core.graph import complete_graph
+        from repro.models.config import patterned_stages
         from repro.models.zoo import build_bundle
         from repro.optim.optimizers import OptimizerConfig, make_optimizer
         extra = {}
@@ -87,13 +99,19 @@ def _run_lm(pkg):
         from repro_torch.core import (DecentralizedTrainer, MHDConfig,
                                       RunConfig, complete_graph)
         from repro_torch.models import build_bundle
+        from repro_torch.models.config import patterned_stages
         from repro_torch.optim import OptimizerConfig, make_optimizer
         extra = {"device": "cpu"}
+    cfg = get_reduced(arch)
+    if arch == CS.ZAMBA_ARCH:
+        n = CS.ZAMBA_CFG.num_layers
+        cfg = dataclasses.replace(cfg, num_layers=n, stages=patterned_stages(
+            n, cfg.stages[0].block)).validate()
     arrays, _, part = CS.lm_path_data(LM, D)
     arrays = {"tokens": np.ascontiguousarray(arrays["tokens"][:, :LM_TOKENS]),
               "labels": arrays["labels"]}
-    bundles = [LM.lm_client_bundle(build_bundle(get_reduced(CS.LM_ARCH)),
-                                   CS.LM_MAX_POS, CS.LM_POS_SEED)
+    bundles = [LM.lm_client_bundle(build_bundle(cfg), CS.LM_MAX_POS,
+                                   CS.LM_POS_SEED)
                for _ in range(CS.LM_K)]
     trainer = DecentralizedTrainer(
         bundles, make_optimizer(OptimizerConfig(**CS.LM_OPTIMIZER)),
@@ -106,8 +124,9 @@ def _run_lm(pkg):
             for i in range(CS.LM_K)]
 
 
-def test_smoke_lm_teacher_schedule_is_the_references():
-    jax_sched = _run_lm("jax")
-    assert _run_lm("torch") == jax_sched
+@pytest.mark.parametrize("arch", [CS.LM_ARCH, CS.ZAMBA_ARCH])
+def test_smoke_lm_teacher_schedule_is_the_references(arch):
+    jax_sched = _run_lm("jax", arch)
+    assert _run_lm("torch", arch) == jax_sched
     assert jax_sched == CS.REFERENCE_DISTILLED_LM
     assert np.all(np.asarray(jax_sched)[:, :CS.LM_S_P] == 1)

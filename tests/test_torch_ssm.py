@@ -29,6 +29,9 @@ from repro_torch.checkpoint.io import flatten_with_paths, params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.models import ssm as TSSM
+import test_torch_threads
+
+test_torch_threads.share_cores()
 
 for _op in (torch.exp, torch.log, torch.sqrt):
     _op(torch.ones(1))

@@ -16,6 +16,9 @@ import torch
 import repro.comm as RC
 import repro_torch.comm as TC
 from repro_torch.comm import wire as TW
+import test_torch_threads
+
+test_torch_threads.share_cores()
 
 # PyTorch's CPU build picks each vectorized math kernel at its first call,
 # and a first call spread over several threads was seen to compute
