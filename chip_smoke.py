@@ -48,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -80,9 +81,10 @@ from repro_torch.models.config import patterned_stages  # noqa: E402
 from repro_torch.optim import OptimizerConfig, make_optimizer  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 (no
-# tensor cores) flop/s
+# tensor cores) flop/s, TF32 tensor-core flop/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 
 # the main path's run
 K, NUM_LABELS, STEPS, S_P, POOL, TOPK_K = 3, 1000, 12, 4, 3, 32
@@ -303,9 +305,14 @@ def phase_build() -> None:
     RECORD["build_s"] = time.perf_counter() - t0
     log(f"build: nvcc {RECORD['build_s']:.2f} s")
     for name in ("topk_wire", "ssd_scan", "flash_attention"):
+        fn = name
         for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            # the kernel's name and template arguments, still mangled
+            entry = re.search(r"_cu_\w{8}\d+(\w+?_kernel)(I\w+?E)?E", line)
+            if "entry function" in line and entry:
+                fn = entry.group(1) + (entry.group(2) or "")
             if "registers" in line or "spill" in line or "error" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+                log(f"  ptxas {fn}: {line.strip()}")
 
 
 def _topk_timing(x: torch.Tensor, k: int, iters: int) -> dict:
@@ -605,7 +612,9 @@ def _flash_timing(dev, g, B, T, H, d, iters: int) -> tuple:
                q, k, v, causal=True), iters=iters, warmup=2),
            "bound_ms": fb, "bound_by": fby,
            "library_ms": time_ms(lambda: _sdpa(q, k, v), iters=iters)}
+    # the backward's products run as three TF32 tensor-core products each
     bwd = {"shape": [B, T, H, d], "gflop": fl_b / 1e9,
+           "tf32x3_bound_ms": 3 * fl_b / PEAK_TF32 * 1e3,
            "ms": time_ms(lambda: FA.flash_attention_bwd_kernel(
                q, k, v, o, lse, do, causal=True, window=0), iters=iters),
            "plain_ms": time_ms(plain_bwd, iters=iters, warmup=2),
@@ -700,9 +709,11 @@ def phase_flash(dev) -> list:
     fwd_l, bwd_l = _flash_timing(dev, g, *FLASH_LONG, iters=10)
     torch.cuda.empty_cache()
     for nm, x, y in (("fwd", fwd, fwd_l), ("bwd", bwd, bwd_l)):
+        tc = (f", 3xTF32 bound {x['tf32x3_bound_ms']:.4f}"
+              if "tf32x3_bound_ms" in x else "")
         log(f"flash_attention timing {nm}: path shape {x['ms']:.3f} ms "
             f"(plain {x['plain_ms']:.3f}, library {x['library_ms']:.3f}, "
-            f"bound {x['bound_ms']:.4f} {x['bound_by']}, "
+            f"bound {x['bound_ms']:.4f} {x['bound_by']}{tc}, "
             f"{x['gflop']:.2f} GFLOP); T={FLASH_LONG[1]} {y['ms']:.3f} ms "
             f"(plain {y['plain_ms']:.3f}, library {y['library_ms']:.3f}, "
             f"bound {y['bound_ms']:.4f})")

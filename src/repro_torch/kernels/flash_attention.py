@@ -154,14 +154,16 @@ def flash_attention_fwd_kernel(q: Tensor, k: Tensor, v: Tensor, *,
 def flash_attention_bwd_kernel(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
                                lse: Tensor, do: Tensor, *, causal: bool,
                                window: int) -> Tuple[Tensor, Tensor, Tensor]:
-    """Launch the backward kernels (D, then dK/dV, then dQ). Returns
-    (dq, dk, dv) in the inputs' dtype."""
+    """Launch the backward kernels (D, then one fused kernel for dK, dV and
+    dQ, which adds dQ into a zeroed f32 buffer with atomics). Returns (dq,
+    dk, dv) in the inputs' dtype."""
     B, T, S, H, KV, d = _check(q, k, v)
     q, k, v, o = (t.contiguous() for t in (q, k, v, o))
     do = do.to(q.dtype).contiguous()
     lse = lse.float().contiguous()
     dev = q.device
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq = torch.zeros((B, T, H, d), dtype=torch.float32, device=dev)
     Dv = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().flash_attention_bwd(
@@ -173,7 +175,7 @@ def flash_attention_bwd_kernel(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
         raise RuntimeError(
             f"flash_attention backward launch failed: cudaError {err}")
     BWD_COUNTER.bump()
-    return dq, dk, dv
+    return dq.to(q.dtype), dk, dv
 
 
 class FlashAttention(torch.autograd.Function):

@@ -241,12 +241,16 @@ def test_triton_kernels_match_plain(cuda):
 @pytest.mark.parametrize("B,T,S,H,KV,d,causal,window", [
     (2, 200, 200, 8, 8, 112, True, 0), (1, 300, 300, 8, 4, 256, True, 64),
     (2, 70, 50, 4, 2, 64, False, 0), (1, 300, 100, 8, 4, 64, False, 64),
-    (1, 260, 100, 4, 2, 128, True, 32)])
+    (1, 260, 100, 4, 2, 128, True, 32), (1, 1024, 1024, 16, 4, 128, True, 0),
+    (2, 513, 513, 8, 8, 112, True, 0)])
 def test_flash_attention_kernels_match_plain(cuda, B, T, S, H, KV, d, causal,
                                              window):
     """The forward and the three gradients against the plain version in
-    float64, as max|d| / max|plain| (f32 sums in another order); the last
-    two cases have rows with no key in their band (T > S + window)."""
+    float64, as max|d| / max|plain| (f32 sums in another order); the fourth
+    and fifth cases have rows with no key in their band (T > S + window).
+    The backward adds dQ into one f32 buffer from every key tile's block,
+    for each of the G query heads of its kv head: the last two cases take
+    16 key tiles with G = 4, and a ragged last tile at T = 513, d = 112."""
     g = torch.Generator(device=cuda).manual_seed(14)
     q = torch.randn(B, T, H, d, generator=g, device=cuda)
     k, v = (torch.randn(B, S, KV, d, generator=g, device=cuda)
@@ -262,3 +266,22 @@ def test_flash_attention_kernels_match_plain(cuda, B, T, S, H, KV, d, causal,
     for a, b in zip((o, *grads), (o2, *grads2)):
         b = b.detach()
         assert float((a.double() - b).abs().max() / b.abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_repeats(cuda):
+    """dK and dV are summed by one block each in a fixed order, so two runs
+    on one input agree bitwise; dQ is summed by f32 atomics in the order
+    the blocks run, so it may differ in its last bits, within 1e-4 of its
+    largest entry."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q, k, v, do = (torch.randn(1, 1024, 16, 128, generator=g, device=cuda)
+                   for _ in range(4))
+    k, v = k[:, :, :4].contiguous(), v[:, :, :4].contiguous()
+    o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=True)
+    dq1, dk1, dv1 = FA.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                                  causal=True, window=0)
+    dq2, dk2, dv2 = FA.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                                  causal=True, window=0)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    assert float((dq1 - dq2).abs().max() / dq1.abs().max()) <= 1e-4
