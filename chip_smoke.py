@@ -85,6 +85,12 @@ from repro_torch.optim import OptimizerConfig, make_optimizer  # noqa: E402
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
+# what mma.sync m16n8k8 reaches of TF32 on the H100 SXM at 700 W: 308.7-317.3
+# TFLOP/s in scripts/flash_bwd_ablation.py's loop of independent products
+MMA_SYNC_TF32 = 310e12
+# flash_attention's forward tiles: query rows a block, keys a tile at
+# d <= 128 and at d > 128 (csrc/flash_attention.cu, kFwdBT and Tiles::kBS)
+FLASH_FWD_TILES = (128, 64, 32)
 
 # the main path's run
 K, NUM_LABELS, STEPS, S_P, POOL, TOPK_K = 3, 1000, 12, 4, 3, 32
@@ -230,6 +236,9 @@ FLASH_CASES = [
     # and take the mean of v (masked scores -1e30, as the TPU kernel)
     ("keyless rows", (1, 300, 100, 8, 4, 64), False, 64, "float32"),
     ("keyless rows causal", (1, 260, 100, 4, 2, 128), True, 32, "float32"),
+    # d % 8 != 0: a ragged last slice of the head dim, rows staged by the
+    # scalar loop (d % 4 != 0), T not a multiple of the query tile
+    ("d=50", (1, 130, 130, 4, 2, 50), True, 0, "float32"),
     ("bf16", (8, 512, 512, 32, 32, 112), True, 0, "bfloat16")]
 # the kernels each path runs, and must have launched
 RESNET_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
@@ -577,6 +586,22 @@ def _flash_bounds(B, T, S, H, KV, d, causal, window, elem):
     return fwd, bwd, 4 * pairs * d, 10 * pairs * d
 
 
+def fwd_tile_pairs(T: int, S: int, causal: bool, window: int, d: int) -> int:
+    """The (query, key) pairs of the whole tiles the forward kernel computes
+    for one (b, h): each query tile of FLASH_FWD_TILES[0] rows times the
+    key tiles its band reaches (all of them if a row has no key)."""
+    rows, keys = FLASH_FWD_TILES[0], FLASH_FWD_TILES[1 if d <= 128 else 2]
+    pairs = 0
+    for t0 in range(0, T, rows):
+        if window and t0 + rows - 1 >= S + window - 1:
+            lo, hi = 0, S
+        else:
+            lo = max(0, t0 - window + 1) if window else 0
+            hi = min(S, t0 + rows) if causal else S
+        pairs += rows * keys * -(-(hi - lo // keys * keys) // keys)
+    return pairs
+
+
 def _sdpa(q, k, v):
     """The library yardstick: one causal scaled_dot_product_attention call
     on the same tensors, viewed (B, H, T, d)."""
@@ -605,7 +630,12 @@ def _flash_timing(dev, g, B, T, H, d, iters: int) -> tuple:
         torch.autograd.grad(o_lib, leaves, do.transpose(1, 2),
                             retain_graph=True)
 
+    # the forward's two products run as three TF32 products each; the
+    # kernel computes whole tiles, at mma.sync's rate at best
+    tiles = 4 * B * H * d * fwd_tile_pairs(T, T, True, 0, d)
     fwd = {"shape": [B, T, H, d], "gflop": fl_f / 1e9,
+           "tf32x3_bound_ms": 3 * fl_f / PEAK_TF32 * 1e3,
+           "mma_sync_floor_ms": 3 * tiles / MMA_SYNC_TF32 * 1e3,
            "ms": time_ms(lambda: FA.flash_attention_fwd_kernel(
                q, k, v, causal=True), iters=iters),
            "plain_ms": time_ms(lambda: FA.flash_attention_plain(
@@ -622,6 +652,23 @@ def _flash_timing(dev, g, B, T, H, d, iters: int) -> tuple:
            "library_ms": time_ms(lib_bwd, iters=iters)}
     del leaves, o_plain, o_lib
     return fwd, bwd
+
+
+def _sdpa_kernels(dev, g) -> list:
+    """The names of the device kernels that one _sdpa call runs at the
+    path's shape, from a profiler pass: what the library yardstick is."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = (torch.randn(*FLASH_SHAPE, generator=g, device=dev)
+               for _ in range(3))
+    _sdpa(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _sdpa(q, k, v)
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
 
 
 def _flash_lse_plain(q, k, causal: bool, window: int) -> torch.Tensor:
@@ -709,14 +756,19 @@ def phase_flash(dev) -> list:
     fwd_l, bwd_l = _flash_timing(dev, g, *FLASH_LONG, iters=10)
     torch.cuda.empty_cache()
     for nm, x, y in (("fwd", fwd, fwd_l), ("bwd", bwd, bwd_l)):
-        tc = (f", 3xTF32 bound {x['tf32x3_bound_ms']:.4f}"
-              if "tf32x3_bound_ms" in x else "")
+        tc = f", 3xTF32 bound {x['tf32x3_bound_ms']:.4f}"
+        if "mma_sync_floor_ms" in x:
+            tc += (f", whole-tile mma.sync floor "
+                   f"{x['mma_sync_floor_ms']:.4f}")
         log(f"flash_attention timing {nm}: path shape {x['ms']:.3f} ms "
             f"(plain {x['plain_ms']:.3f}, library {x['library_ms']:.3f}, "
             f"bound {x['bound_ms']:.4f} {x['bound_by']}{tc}, "
             f"{x['gflop']:.2f} GFLOP); T={FLASH_LONG[1]} {y['ms']:.3f} ms "
             f"(plain {y['plain_ms']:.3f}, library {y['library_ms']:.3f}, "
             f"bound {y['bound_ms']:.4f})")
+    RECORD["sdpa_kernels"] = _sdpa_kernels(dev, g)
+    log(f"flash_attention library yardstick: scaled_dot_product_attention "
+        f"at {FLASH_SHAPE} causal f32 runs {RECORD['sdpa_kernels']}")
     return [{**FA.INFO_FWD, **fwd, "max_abs_err": err_f,
              "at_T4096": fwd_l},
             {**FA.INFO_BWD, **bwd, "max_abs_err": err_b,

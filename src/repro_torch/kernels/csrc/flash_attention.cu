@@ -101,26 +101,25 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
+constexpr int kThreads = 256;  // the D kernel's block: 8 warps, a row each
 constexpr int kWarps = kThreads / 32;
+constexpr int kFwdWarps = 8;   // the forward's warps a block, 16 rows each
+constexpr int kFwdBT = 16 * kFwdWarps;  // the forward's query rows per tile
 constexpr int kBwdWarps = 16;  // the fused backward's warps a block
-constexpr int kBT = 64;              // query rows per tile
-constexpr int kRowsT = kBT / kWarps; // query rows per warp
+constexpr int kBT = 64;              // the backward's query rows per tile
 constexpr float kNoKey = -INFINITY;  // the score of a column u >= S
 constexpr float kMinus = -1e30f;  // a masked score; the max before a key
 
 template <int DMAX>
 struct Tiles {
   static constexpr int kBS = DMAX > 128 ? 32 : 64;  // keys per tile
-  static constexpr int kLd = DMAX + 1;               // forward f32 row stride
-  static constexpr int kLdS = kBS + 1;
-  static constexpr int kColsS = kBS / 32;      // key columns per lane
-  static constexpr int kColsD = DMAX / 32;     // head-dim columns per lane
-  // forward: q [BT][Ld], k, v [BS][Ld], p [BT][LdS]
+  // forward: q [FwdBT][LdB], k, v [BS][LdB], each warp's P [16][LdP]
+  static constexpr int kLdP = kBS + 4;
   static constexpr size_t kFwdSmem =
-      sizeof(float) * ((size_t)(kBT + 2 * kBS) * kLd + kBT * kLdS);
-  // backward strides, 4 mod 32: an mma fragment's 32 lanes (rows lane / 4,
-  // columns lane % 4) read 32 distinct banks
+      sizeof(float) * ((size_t)(kFwdBT + 2 * kBS) * (DMAX + 4) +
+                       kFwdBT * kLdP);
+  // row strides of both directions, 4 mod 32: an mma fragment's 32 lanes
+  // (rows lane / 4, columns lane % 4) read 32 distinct banks
   static constexpr int kLdB = DMAX + 4;
   static constexpr int kLdTB = kBT + 4;
   // backward: k, v [BS][LdB], q, dO [BT][LdB], P^T, dS^T [BS][LdTB], lse, D
@@ -140,13 +139,6 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -218,162 +210,22 @@ __device__ __forceinline__ int first_keyless_row(int S, int window) {
   return window > 0 ? S + window - 1 : 0x7fffffff;
 }
 
-// The key range [lo, hi) that the band of query rows [t0, t0 + BT) reaches;
-// all S keys when a row of the tile has none in its band.
-__device__ __forceinline__ void key_range(int t0, int S, int causal,
+// The key range [lo, hi) that the band of query rows [t0, t0 + rows)
+// reaches; all S keys when a row of the tile has none in its band.
+__device__ __forceinline__ void key_range(int t0, int rows, int S, int causal,
                                           int window, int* lo, int* hi) {
-  if (t0 + kBT - 1 >= first_keyless_row(S, window)) {
+  if (t0 + rows - 1 >= first_keyless_row(S, window)) {
     *lo = 0;
     *hi = S;
     return;
   }
   *lo = window > 0 ? max(0, t0 - window + 1) : 0;
-  *hi = causal ? min(S, t0 + kBT) : S;
+  *hi = causal ? min(S, t0 + rows) : S;
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// the products of both directions: mma.sync m16n8k8 on TF32, three a product
 // ---------------------------------------------------------------------------
-
-template <int DMAX, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           float* __restrict__ lse, int Tq, int S, int H,
-                           int KV, int d, int causal, int window,
-                           float scale) {
-  using C = Tiles<DMAX>;
-  constexpr int BS = C::kBS, LD = C::kLd, LDS = C::kLdS;
-  extern __shared__ float sm[];
-  float* qs = sm;              // [BT][LD]
-  float* ks = qs + kBT * LD;   // [BS][LD]
-  float* vs = ks + BS * LD;    // [BS][LD]
-  float* ps = vs + BS * LD;    // [BT][LDS]
-
-  const int t0 = blockIdx.x * kBT, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = warp * kRowsT;
-
-  load_tile<T, kBT, DMAX, LD>(q, qs, b, t0, Tq, H, h, d);
-
-  float m[kRowsT], l[kRowsT], acc[kRowsT][C::kColsD];
-#pragma unroll
-  for (int r = 0; r < kRowsT; ++r) {
-    m[r] = kMinus;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < C::kColsD; ++j) acc[r][j] = 0.f;
-  }
-
-  int lo, hi;
-  key_range(t0, S, causal, window, &lo, &hi);
-  for (int s0 = (lo / BS) * BS; s0 < hi; s0 += BS) {
-    __syncthreads();  // every warp is done with the previous k, v tile
-    load_tile<T, BS, DMAX, LD>(k, ks, b, s0, S, KV, kvh, d);
-    load_tile<T, BS, DMAX, LD>(v, vs, b, s0, S, KV, kvh, d);
-    __syncthreads();
-
-    // s[t][u] = q_t . k_u for the warp's rows t and the lane's columns u
-    float sc[kRowsT][C::kColsS] = {};
-    for (int i = 0; i < d; ++i) {
-      float kv_[C::kColsS];
-#pragma unroll
-      for (int j = 0; j < C::kColsS; ++j) kv_[j] = ks[(lane + 32 * j) * LD + i];
-#pragma unroll
-      for (int r = 0; r < kRowsT; ++r) {
-        const float qv = qs[(r0 + r) * LD + i];
-#pragma unroll
-        for (int j = 0; j < C::kColsS; ++j) sc[r][j] = fmaf(qv, kv_[j], sc[r][j]);
-      }
-    }
-
-    // online softmax over this tile, one row per step, across the warp
-#pragma unroll
-    for (int r = 0; r < kRowsT; ++r) {
-      const int t = t0 + r0 + r;
-      float mx = kMinus;
-#pragma unroll
-      for (int j = 0; j < C::kColsS; ++j) {
-        const int u = s0 + lane + 32 * j;
-        sc[r][j] = in_band(t, u, Tq, S, causal, window) ? sc[r][j] * scale
-                   : u < S                              ? kMinus
-                                                        : kNoKey;
-        mx = fmaxf(mx, sc[r][j]);
-      }
-      const float m_new = fmaxf(m[r], warp_max(mx));
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < C::kColsS; ++j) {
-        const float p = expf(sc[r][j] - m_new);  // 0 for u >= S
-        ps[(r0 + r) * LDS + lane + 32 * j] = p;
-        sum += p;
-      }
-      l[r] = l[r] * alpha + warp_sum(sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < C::kColsD; ++j) acc[r][j] *= alpha;
-    }
-    __syncwarp();
-
-    // acc[t][c] += sum_u p[t][u] v[u][c]
-    const int un = min(BS, S - s0);
-    for (int u = 0; u < un; ++u) {
-      float vv[C::kColsD];
-#pragma unroll
-      for (int j = 0; j < C::kColsD; ++j) vv[j] = vs[u * LD + lane + 32 * j];
-#pragma unroll
-      for (int r = 0; r < kRowsT; ++r) {
-        const float pv = ps[(r0 + r) * LDS + u];
-#pragma unroll
-        for (int j = 0; j < C::kColsD; ++j) acc[r][j] = fmaf(pv, vv[j], acc[r][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsT; ++r) {
-    const int t = t0 + r0 + r;
-    if (t >= Tq) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-    T* orow = o + (((size_t)b * Tq + t) * H + h) * d;
-#pragma unroll
-    for (int j = 0; j < C::kColsD; ++j) {
-      const int c = lane + 32 * j;
-      if (c < d) orow[c] = from_f<T>(acc[r][j] / den);
-    }
-    if (lane == 0) lse[((size_t)b * H + h) * Tq + t] = m[r] + logf(l[r]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-
-// D[b][h][t] = sum_c dO[b][t][h][c] O[b][t][h][c]: one warp per row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dot_kernel(const T* __restrict__ o,
-                               const T* __restrict__ dout,
-                               float* __restrict__ Dv, int rows, int Tq,
-                               int H, int d) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const T* a = o + (size_t)row * d;
-  const T* g = dout + (size_t)row * d;
-  float acc = 0.f;
-  for (int c = lane; c < d; c += 32) acc = fmaf(to_f(a[c]), to_f(g[c]), acc);
-  acc = warp_sum(acc);
-  if (lane == 0) {
-    const int h = row % H, bt = row / H;  // row = (b * T + t) * H + h
-    const int t = bt % Tq, b = bt / Tq;
-    Dv[((size_t)b * H + h) * Tq + t] = acc;
-  }
-}
-
-// ---- the backward's products: mma.sync m16n8k8 on TF32, three a product
 //
 // Fragments of D[16][8] += A[16][8] . B[8][8] (PTX ISA, mma.m16n8k8 .tf32),
 // with g = lane / 4 and i = lane % 4: a0 (g, i), a1 (g + 8, i), a2 (g, i + 4),
@@ -455,6 +307,173 @@ __device__ __forceinline__ Split<2> frag_b(const float* x, int n0, int k0,
   const float* p = x + (k0 + (lane & 3)) * LD + n0 + (lane >> 2);
   const float v[2] = {p[0], p[4 * LD]};
   return split(v);
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// The max and the sum over a quad, the 4 lanes that hold one row of a C
+// fragment.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// o and lse for one query tile of one head: warp w owns query rows 16 w ..
+// 16 w + 15 of the tile, and each thread rows gr and gr + 8 of the warp's
+// C fragments, so a row's max and sum are quad shuffles. For each key tile
+// the band reaches: s = q.k^T (16 x BS a warp), the online softmax in
+// registers, P into the warp's slice of shared memory, acc += P.V.
+template <int DMAX, typename T>
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int Tq, int S, int H,
+                           int KV, int d, int causal, int window,
+                           float scale) {
+  using C = Tiles<DMAX>;
+  constexpr int BT = kFwdBT, BS = C::kBS, LD = C::kLdB, LDP = C::kLdP;
+  constexpr int NTH = 32 * kFwdWarps;
+  constexpr int NS = BS / 8;    // key n-tiles of s
+  constexpr int ND = DMAX / 8;  // head-dim n-tiles of acc
+  extern __shared__ float sm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* qs = sm;                                 // [BT][LD]
+  float* ks = qs + BT * LD;                       // [BS][LD]
+  float* vs = ks + BS * LD;                       // [BS][LD]
+  float* ps = vs + BS * LD + warp * 16 * LDP;     // the warp's P [16][LDP]
+
+  const int t0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int gr = lane >> 2, gc = 2 * (lane & 3);  // accumulator row, column
+  const int m0 = 16 * warp;
+  const int nt = (d + 7) / 8;  // head-dim n-tiles in all
+
+  load_tile<T, BT, DMAX, LD, NTH>(q, qs, b, t0, Tq, H, h, d);
+
+  // the running max and sum of rows gr and gr + 8
+  float m[2] = {kMinus, kMinus}, l[2] = {0.f, 0.f};
+  float acc[ND][4] = {};
+
+  int lo, hi;
+  key_range(t0, BT, S, causal, window, &lo, &hi);
+  for (int s0 = (lo / BS) * BS; s0 < hi; s0 += BS) {
+    __syncthreads();  // every warp is done with the previous k, v tile
+    load_tile<T, BS, DMAX, LD, NTH>(k, ks, b, s0, S, KV, kvh, d);
+    load_tile<T, BS, DMAX, LD, NTH>(v, vs, b, s0, S, KV, kvh, d);
+    __syncthreads();
+
+    // s[t][u] = q_t . k_u; the zero columns beyond d add nothing
+    float sc[NS][4] = {};
+#pragma unroll
+    for (int i0 = 0; i0 < DMAX; i0 += 8) {
+      if (i0 >= d) break;
+      const Split<4> aq = frag_a<LD>(qs, m0, i0, lane);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        mma3(sc[j], aq, frag_bt<LD>(ks, 8 * j, i0, lane));
+    }
+
+    // the online softmax of rows gr and gr + 8 over this tile
+    float mx[2] = {kMinus, kMinus};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = t0 + m0 + gr + 4 * (e & 2), u = s0 + 8 * j + gc + (e & 1);
+        sc[j][e] = in_band(t, u, Tq, S, causal, window) ? sc[j][e] * scale
+                   : u < S                              ? kMinus
+                                                        : kNoKey;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+      }
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = expf(sc[j][e] - m[e >> 1]);  // 0 for u >= S
+        sum[e >> 1] += sc[j][e];
+      }
+      *reinterpret_cast<float2*>(ps + gr * LDP + 8 * j + gc) =
+          make_float2(sc[j][0], sc[j][1]);
+      *reinterpret_cast<float2*>(ps + (gr + 8) * LDP + 8 * j + gc) =
+          make_float2(sc[j][2], sc[j][3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+    }
+    __syncwarp();
+
+    // acc[t][c] += sum_u P[t][u] v[u][c]
+    const int un = min(BS, S - s0);
+#pragma unroll
+    for (int k0 = 0; k0 < BS; k0 += 8) {
+      if (k0 >= un) break;
+      const Split<4> ap = frag_a<LDP>(ps, 0, k0, lane);
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        if (j < nt) mma3(acc[j], ap, frag_b<LD>(vs, 8 * j, k0, lane));
+    }
+    __syncwarp();  // the warp's P is read before the next tile writes it
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t0 + m0 + gr + 8 * r;
+    if (t >= Tq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    T* orow = o + (((size_t)b * Tq + t) * H + h) * d;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int c = 8 * j + gc;
+      if (j < nt && c < d) orow[c] = from_f<T>(acc[j][2 * r] / den);
+      if (j < nt && c + 1 < d) orow[c + 1] = from_f<T>(acc[j][2 * r + 1] / den);
+    }
+    if ((lane & 3) == 0) lse[((size_t)b * H + h) * Tq + t] = m[r] + logf(l[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+// D[b][h][t] = sum_c dO[b][t][h][c] O[b][t][h][c]: one warp per row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_bwd_dot_kernel(const T* __restrict__ o,
+                               const T* __restrict__ dout,
+                               float* __restrict__ Dv, int rows, int Tq,
+                               int H, int d) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* a = o + (size_t)row * d;
+  const T* g = dout + (size_t)row * d;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) acc = fmaf(to_f(a[c]), to_f(g[c]), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const int h = row % H, bt = row / H;  // row = (b * T + t) * H + h
+    const int t = bt % Tq, b = bt / Tq;
+    Dv[((size_t)b * H + h) * Tq + t] = acc;
+  }
 }
 
 // dq_acc[row][c .. c + 3] += v, one 16-byte reduction
@@ -652,8 +671,9 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   static const int attr = set_smem(
       (const void*)flash_attention_fwd_kernel<DMAX, T>, C::kFwdSmem);
   if (attr) return attr;
-  const dim3 grid((Tq + kBT - 1) / kBT, H, B);
-  flash_attention_fwd_kernel<DMAX, T><<<grid, kThreads, C::kFwdSmem, stream>>>(
+  const dim3 grid((Tq + kFwdBT - 1) / kFwdBT, H, B);
+  flash_attention_fwd_kernel<DMAX, T>
+      <<<grid, 32 * kFwdWarps, C::kFwdSmem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Tq, S, H, KV, d,
       causal, window, 1.0f / sqrtf((float)d));
   return (int)cudaGetLastError();

@@ -237,25 +237,35 @@ def test_triton_kernels_match_plain(cuda):
                                atol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,T,S,H,KV,d,causal,window", [
-    (2, 200, 200, 8, 8, 112, True, 0), (1, 300, 300, 8, 4, 256, True, 64),
-    (2, 70, 50, 4, 2, 64, False, 0), (1, 300, 100, 8, 4, 64, False, 64),
-    (1, 260, 100, 4, 2, 128, True, 32), (1, 1024, 1024, 16, 4, 128, True, 0),
-    (2, 513, 513, 8, 8, 112, True, 0)])
-def test_flash_attention_kernels_match_plain(cuda, B, T, S, H, KV, d, causal,
-                                             window):
-    """The forward and the three gradients against the plain version in
-    float64, as max|d| / max|plain| (f32 sums in another order); the fourth
-    and fifth cases have rows with no key in their band (T > S + window).
-    The backward adds dQ into one f32 buffer from every key tile's block,
-    for each of the G query heads of its kv head: the last two cases take
-    16 key tiles with G = 4, and a ragged last tile at T = 513, d = 112."""
-    g = torch.Generator(device=cuda).manual_seed(14)
-    q = torch.randn(B, T, H, d, generator=g, device=cuda)
-    k, v = (torch.randn(B, S, KV, d, generator=g, device=cuda)
+def _lse_plain(q, k, causal, window):
+    """Each row's logsumexp of the masked scaled scores, (B, H, T), masked
+    scores -1e30 as in the kernel: -1e30 on a row with no key."""
+    B, T, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    s = torch.einsum("btkgd,bskd->bkgts", q.reshape(B, T, KV, H // KV, d),
+                     k) / d ** 0.5
+    t = torch.arange(T, device=q.device)[:, None]
+    u = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= u <= t
+    if window:
+        mask &= u > t - window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    return torch.logsumexp(s, dim=-1).reshape(B, H, T)
+
+
+def _check_flash_kernels(dev, B, T, S, H, KV, d, causal, window, dtype,
+                         tol):
+    """The forward (o and lse) and the three gradients against the plain
+    version in float64, each as max|d| / max|plain|; the lse on the rows
+    with a key in their band, and <= -1e29 on the rows with none."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    q = torch.randn(B, T, H, d, generator=g, device=dev)
+    k, v = (torch.randn(B, S, KV, d, generator=g, device=dev)
             for _ in range(2))
-    do = torch.randn(B, T, H, d, generator=g, device=cuda)
+    do = torch.randn(B, T, H, d, generator=g, device=dev)
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
     o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=causal,
                                            window=window)
     grads = FA.flash_attention_bwd_kernel(q, k, v, o, lse, do,
@@ -263,9 +273,56 @@ def test_flash_attention_kernels_match_plain(cuda, B, T, S, H, KV, d, causal,
     leaves = [x.double().requires_grad_() for x in (q, k, v)]
     o2 = FA.flash_attention_plain(*leaves, causal=causal, window=window)
     grads2 = torch.autograd.grad(o2, leaves, do.double())
-    for a, b in zip((o, *grads), (o2, *grads2)):
+    lse2 = _lse_plain(leaves[0].detach(), leaves[1].detach(), causal, window)
+    live = lse2 > -1e29
+    assert bool((lse[~live] <= -1e29).all())
+    for a, b in zip((o, lse[live], *grads), (o2, lse2[live], *grads2)):
         b = b.detach()
-        assert float((a.double() - b).abs().max() / b.abs().max()) < 1e-4
+        assert float((a.double() - b).abs().max() / b.abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,H,KV,d,causal,window", [
+    (2, 200, 200, 8, 8, 112, True, 0), (1, 300, 300, 8, 4, 256, True, 64),
+    (2, 70, 50, 4, 2, 64, False, 0), (1, 300, 100, 8, 4, 64, False, 64),
+    (1, 260, 100, 4, 2, 128, True, 32), (1, 1024, 1024, 16, 4, 128, True, 0),
+    (2, 513, 513, 8, 8, 112, True, 0), (2, 200, 200, 8, 4, 100, True, 0),
+    (1, 130, 130, 4, 2, 50, True, 0)])
+def test_flash_attention_kernels_match_plain(cuda, B, T, S, H, KV, d, causal,
+                                             window):
+    """f32 sums in another order, so 1e-4 relative; the fourth and fifth
+    cases have rows with no key in their band (T > S + window). The
+    backward adds dQ into one f32 buffer from every key tile's block, for
+    each of the G query heads of its kv head: the sixth and seventh cases
+    take 16 key tiles with G = 4, and a ragged last tile at T = 513, d =
+    112. The last two have d % 8 != 0 (a ragged last slice of the head
+    dim), the last also d % 4 != 0 (rows staged by the scalar loop) and a
+    T that is not a multiple of the forward's 128-row query tile."""
+    _check_flash_kernels(cuda, B, T, S, H, KV, d, causal, window,
+                         torch.float32, 1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_kernels_match_plain(cuda):
+    """bf16 inputs at the hybrid path's shape, widened to f32 in the
+    kernels: the outputs differ from the float64 plain version by their
+    rounding to bf16 (2^-9 relative) and, in the backward, by O and dO in
+    bf16 entering D = rowsum(dO o O); 2e-2, as chip_smoke holds them."""
+    _check_flash_kernels(cuda, 8, 512, 512, 32, 32, 112, True, 0,
+                         torch.bfloat16, 2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_forward_repeats(cuda):
+    """The forward sums every row in a fixed order, with no atomics: two
+    runs on one input agree bitwise in o and lse."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q = torch.randn(2, 1000, 16, 112, generator=g, device=cuda)
+    k, v = (torch.randn(2, 1000, 4, 112, generator=g, device=cuda)
+            for _ in range(2))
+    o1, lse1 = FA.flash_attention_fwd_kernel(q, k, v, causal=True)
+    o2, lse2 = FA.flash_attention_fwd_kernel(q, k, v, causal=True)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 @pytest.mark.cuda
