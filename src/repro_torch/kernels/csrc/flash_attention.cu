@@ -113,11 +113,11 @@ constexpr float kMinus = -1e30f;  // a masked score; the max before a key
 template <int DMAX>
 struct Tiles {
   static constexpr int kBS = DMAX > 128 ? 32 : 64;  // keys per tile
-  // forward: q [FwdBT][LdB], k, v [BS][LdB], each warp's P [16][LdP]
-  static constexpr int kLdP = kBS + 4;
+  // forward: keys per tile; q [FwdBT][LdB] and two buffers of k, v
+  // [FwdBS][LdB], the next key tile loading while the block computes on one
+  static constexpr int kFwdBS = DMAX > 128 ? 16 : 64;
   static constexpr size_t kFwdSmem =
-      sizeof(float) * ((size_t)(kFwdBT + 2 * kBS) * (DMAX + 4) +
-                       kFwdBT * kLdP);
+      sizeof(float) * (size_t)(kFwdBT + 4 * kFwdBS) * (DMAX + 4);
   // row strides of both directions, 4 mod 32: an mma fragment's 32 lanes
   // (rows lane / 4, columns lane % 4) read 32 distinct banks
   static constexpr int kLdB = DMAX + 4;
@@ -313,6 +313,18 @@ __device__ __forceinline__ Split<2> frag_b(const float* x, int n0, int k0,
 // forward
 // ---------------------------------------------------------------------------
 
+// B fragment of a row-major x[k][n] whose k order in each 8-row slice is
+// (0, 2, 4, 6, 1, 3, 5, 7): b0 from row 2i and b1 from row 2i + 1. An A
+// fragment in that order is a C fragment as it stands, {c0, c2, c1, c3}:
+// the P of q.k^T feeds P.V from the registers that hold it.
+template <int LD>
+__device__ __forceinline__ Split<2> frag_b_pairs(const float* x, int n0,
+                                                 int k0, int lane) {
+  const float* p = x + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+  const float v[2] = {p[0], p[LD]};
+  return split(v);
+}
+
 // The max and the sum over a quad, the 4 lanes that hold one row of a C
 // fragment.
 __device__ __forceinline__ float quad_max(float v) {
@@ -325,11 +337,56 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// o and lse for one query tile of one head: warp w owns query rows 16 w ..
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(to),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// load_tile's tile, by 16-byte cp.async (zero-filled beyond n rows and d
+// columns; the caller commits and waits) where the rows are f32 with d %
+// 4 == 0 from a 16-byte aligned base, and by load_tile otherwise.
+template <typename T, int ROWS, int DMAX, int LD, int THREADS>
+__device__ void stage_tile(const T* __restrict__ src, float* dst, int b,
+                           int r0, int n, int heads, int head, int d) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (d % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+      constexpr int Q4 = DMAX / 4;
+      static_assert(ROWS * Q4 % THREADS == 0, "whole rounds of the block");
+#pragma unroll
+      for (int n4 = 0; n4 < ROWS * Q4 / THREADS; ++n4) {
+        const int i = n4 * THREADS + threadIdx.x;
+        const int r = i / Q4, c = 4 * (i % Q4);
+        const bool ok = r0 + r < n && c < d;
+        cp_async16(dst + r * LD + c,
+                   ok ? reinterpret_cast<const float*>(src) +
+                            (((size_t)b * n + r0 + r) * heads + head) * d + c
+                      : reinterpret_cast<const float*>(src),
+                   ok);
+      }
+      return;
+    }
+  }
+  load_tile<T, ROWS, DMAX, LD, THREADS>(src, dst, b, r0, n, heads, head, d);
+}
+
+// o and lse for one query tile of one head. Warp w owns query rows 16 w ..
 // 16 w + 15 of the tile, and each thread rows gr and gr + 8 of the warp's
 // C fragments, so a row's max and sum are quad shuffles. For each key tile
-// the band reaches: s = q.k^T (16 x BS a warp), the online softmax in
-// registers, P into the warp's slice of shared memory, acc += P.V.
+// the band reaches, with the next one loading meanwhile: s = q.k^T (16 x
+// BS a warp), the online softmax in registers, acc += P.V with P where
+// the softmax left it. A warp skips a key tile that no row of it reaches,
+// unless one of its rows has no key in its band.
 template <int DMAX, typename T>
 __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -338,36 +395,52 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            int KV, int d, int causal, int window,
                            float scale) {
   using C = Tiles<DMAX>;
-  constexpr int BT = kFwdBT, BS = C::kBS, LD = C::kLdB, LDP = C::kLdP;
+  constexpr int BT = kFwdBT, BS = C::kFwdBS, LD = C::kLdB;
   constexpr int NTH = 32 * kFwdWarps;
-  constexpr int NS = BS / 8;    // key n-tiles of s
+  constexpr int NS = BS / 8;    // 8-key slices of a key tile
   constexpr int ND = DMAX / 8;  // head-dim n-tiles of acc
   extern __shared__ float sm[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* qs = sm;                                 // [BT][LD]
-  float* ks = qs + BT * LD;                       // [BS][LD]
-  float* vs = ks + BS * LD;                       // [BS][LD]
-  float* ps = vs + BS * LD + warp * 16 * LDP;     // the warp's P [16][LDP]
+  float* qs = sm;              // [BT][LD]
+  float* kvs = qs + BT * LD;   // 2 x {k [BS][LD], v [BS][LD]}
 
   const int t0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gr = lane >> 2, gc = 2 * (lane & 3);  // accumulator row, column
   const int m0 = 16 * warp;
-  const int nt = (d + 7) / 8;  // head-dim n-tiles in all
+  const int tw = t0 + m0, last = min(tw + 15, Tq - 1);  // the warp's rows
+  const bool keyless = last >= first_keyless_row(S, window);
 
-  load_tile<T, BT, DMAX, LD, NTH>(q, qs, b, t0, Tq, H, h, d);
+  int lo, hi;
+  key_range(t0, BT, S, causal, window, &lo, &hi);
+  const int first = (lo / BS) * BS;
+  auto stage_kv = [&](int s0, int buf) {
+    float* ks = kvs + buf * 2 * BS * LD;
+    stage_tile<T, BS, DMAX, LD, NTH>(k, ks, b, s0, S, KV, kvh, d);
+    stage_tile<T, BS, DMAX, LD, NTH>(v, ks + BS * LD, b, s0, S, KV, kvh, d);
+  };
+  stage_tile<T, BT, DMAX, LD, NTH>(q, qs, b, t0, Tq, H, h, d);
+  if (first < hi) stage_kv(first, 0);
+  cp_async_commit();
 
   // the running max and sum of rows gr and gr + 8
   float m[2] = {kMinus, kMinus}, l[2] = {0.f, 0.f};
   float acc[ND][4] = {};
 
-  int lo, hi;
-  key_range(t0, BT, S, causal, window, &lo, &hi);
-  for (int s0 = (lo / BS) * BS; s0 < hi; s0 += BS) {
-    __syncthreads();  // every warp is done with the previous k, v tile
-    load_tile<T, BS, DMAX, LD, NTH>(k, ks, b, s0, S, KV, kvh, d);
-    load_tile<T, BS, DMAX, LD, NTH>(v, vs, b, s0, S, KV, kvh, d);
-    __syncthreads();
+  for (int s0 = first, buf = 0; s0 < hi; s0 += BS, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile is in; every warp is done with the last
+    if (s0 + BS < hi) stage_kv(s0 + BS, buf ^ 1);
+    cp_async_commit();
+    const float* ks = kvs + buf * 2 * BS * LD;
+    const float* vs = ks + BS * LD;
+
+    // a warp whose rows reach no key of this tile skips it: the tile would
+    // add exactly 0 to each row (or, before the row's first key, what that
+    // key's exp(-1e30 - m) wipes); not so a row with no key in its band
+    if (tw >= Tq || (!keyless && ((causal && s0 > last) ||
+                                  (window > 0 && s0 + BS - 1 <= tw - window))))
+      continue;
 
     // s[t][u] = q_t . k_u; the zero columns beyond d add nothing
     float sc[NS][4] = {};
@@ -386,7 +459,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NS; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int t = t0 + m0 + gr + 4 * (e & 2), u = s0 + 8 * j + gc + (e & 1);
+        const int t = tw + gr + 4 * (e & 2), u = s0 + 8 * j + gc + (e & 1);
         sc[j][e] = in_band(t, u, Tq, S, causal, window) ? sc[j][e] * scale
                    : u < S                              ? kMinus
                                                         : kNoKey;
@@ -407,44 +480,40 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sc[j][e] = expf(sc[j][e] - m[e >> 1]);  // 0 for u >= S
         sum[e >> 1] += sc[j][e];
       }
-      *reinterpret_cast<float2*>(ps + gr * LDP + 8 * j + gc) =
-          make_float2(sc[j][0], sc[j][1]);
-      *reinterpret_cast<float2*>(ps + (gr + 8) * LDP + 8 * j + gc) =
-          make_float2(sc[j][2], sc[j][3]);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
+    for (int n = 0; n < ND; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
     }
-    __syncwarp();
 
-    // acc[t][c] += sum_u P[t][u] v[u][c]
-    const int un = min(BS, S - s0);
+    // acc[t][c] += sum_u P[t][u] v[u][c], P from the registers of s. All
+    // DMAX / 8 n-tiles, also those beyond d (zero columns of v, never
+    // written): a product under a runtime condition is a branch, and the
+    // compiler interleaves no MMA chains across branches
 #pragma unroll
-    for (int k0 = 0; k0 < BS; k0 += 8) {
-      if (k0 >= un) break;
-      const Split<4> ap = frag_a<LDP>(ps, 0, k0, lane);
+    for (int j = 0; j < NS; ++j) {
+      const float pv[4] = {sc[j][0], sc[j][2], sc[j][1], sc[j][3]};
+      const Split<4> ap = split(pv);
 #pragma unroll
-      for (int j = 0; j < ND; ++j)
-        if (j < nt) mma3(acc[j], ap, frag_b<LD>(vs, 8 * j, k0, lane));
+      for (int n = 0; n < ND; ++n)
+        mma3(acc[n], ap, frag_b_pairs<LD>(vs, 8 * n, 8 * j, lane));
     }
-    __syncwarp();  // the warp's P is read before the next tile writes it
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int t = t0 + m0 + gr + 8 * r;
+    const int t = tw + gr + 8 * r;
     if (t >= Tq) continue;
     const float den = fmaxf(l[r], 1e-30f);
     T* orow = o + (((size_t)b * Tq + t) * H + h) * d;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int c = 8 * j + gc;
-      if (j < nt && c < d) orow[c] = from_f<T>(acc[j][2 * r] / den);
-      if (j < nt && c + 1 < d) orow[c + 1] = from_f<T>(acc[j][2 * r + 1] / den);
+    for (int n = 0; n < ND; ++n) {
+      const int c = 8 * n + gc;
+      if (c < d) orow[c] = from_f<T>(acc[n][2 * r] / den);
+      if (c + 1 < d) orow[c + 1] = from_f<T>(acc[n][2 * r + 1] / den);
     }
     if ((lane & 3) == 0) lse[((size_t)b * H + h) * Tq + t] = m[r] + logf(l[r]);
   }
