@@ -89,8 +89,9 @@ PEAK_TF32 = 495e12
 # TFLOP/s in scripts/flash_bwd_ablation.py's loop of independent products
 MMA_SYNC_TF32 = 310e12
 # flash_attention's forward tiles: query rows a block, keys a tile at
-# d <= 128 and at d > 128 (csrc/flash_attention.cu, kFwdBT and Tiles::kBS)
-FLASH_FWD_TILES = (128, 64, 32)
+# d <= 128 and at d > 128 (csrc/flash_attention.cu, kFwdBT and
+# Tiles::kFwdBS)
+FLASH_FWD_TILES = (128, 64, 16)
 
 # the main path's run
 K, NUM_LABELS, STEPS, S_P, POOL, TOPK_K = 3, 1000, 12, 4, 3, 32

@@ -403,7 +403,9 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* qs = sm;              // [BT][LD]
   float* kvs = qs + BT * LD;   // 2 x {k [BS][LD], v [BS][LD]}
 
-  const int t0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  // the last query tile first: under a causal mask it has the most keys
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * BT, h = blockIdx.y,
+            b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gr = lane >> 2, gc = 2 * (lane & 3);  // accumulator row, column
@@ -453,17 +455,32 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mma3(sc[j], aq, frag_bt<LD>(ks, 8 * j, i0, lane));
     }
 
-    // the online softmax of rows gr and gr + 8 over this tile
+    // the online softmax of rows gr and gr + 8 over this tile; the scores
+    // are masked unless the tile lies inside the band of every row
+    const bool inner = last - tw == 15 && s0 + BS <= S &&
+                       (!causal || s0 + BS - 1 <= tw) &&
+                       (window <= 0 || s0 > last - window);
     float mx[2] = {kMinus, kMinus};
+    if (inner) {
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
+      for (int j = 0; j < NS; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int t = tw + gr + 4 * (e & 2), u = s0 + 8 * j + gc + (e & 1);
-        sc[j][e] = in_band(t, u, Tq, S, causal, window) ? sc[j][e] * scale
-                   : u < S                              ? kMinus
-                                                        : kNoKey;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] *= scale;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = tw + gr + 4 * (e & 2), u = s0 + 8 * j + gc + (e & 1);
+          sc[j][e] = in_band(t, u, Tq, S, causal, window) ? sc[j][e] * scale
+                     : u < S                              ? kMinus
+                                                          : kNoKey;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+        }
       }
     }
     float alpha[2], sum[2] = {0.f, 0.f};

@@ -15,12 +15,16 @@ times them beside the kernel itself at the hybrid path's shape (8, 512, 32,
   * "q not split" (wrong sums): q's fragments enter the MMAs unsplit, so
     their split instructions are gone: at most what splitting q once a
     block, not once a key tile, could save;
-  * "heavy tiles first": the query tiles launched in reverse order, the
-    causal band's longest first;
+  * "first tile first": the query tiles launched in order, not the last
+    (under a causal mask the longest) first;
   * "no warp skipping": every warp computes every key tile of its block,
     also those that no row of it reaches;
   * "n-tiles beyond d skipped": P.V leaves out the head-dim n-tiles at or
     beyond d (2 of 16 at d = 112), each product under a runtime condition;
+  * "16-key tiles", and with it "2 blocks an SM" (at most 128 registers a
+    thread at d <= 128, where the block's shared memory allows two);
+  * "every tile masked": the band mask is evaluated on every score, also
+    in the tiles that lie inside every row's band;
   * "one MMA of three" (wrong sums): each product is big.big alone
     (1xTF32): what the two error-compensating MMAs cost.
 
@@ -76,24 +80,33 @@ VARIANTS = {
          "        aq.big[e] = __float_as_uint(xq[e]);\n"
          "        aq.small[e] = 0u;\n"
          "      }\n")],
-    "heavy tiles first": [
-        ("  const int t0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;",
-         "  const int t0 = (gridDim.x - 1 - blockIdx.x) * BT, h = blockIdx.y,"
-         " b = blockIdx.z;")],
+    "first tile first": [
+        ("  const int t0 = (gridDim.x - 1 - blockIdx.x) * BT, h = blockIdx.y,",
+         "  const int t0 = blockIdx.x * BT, h = blockIdx.y,")],
     "no warp skipping": [
         ("    if (tw >= Tq || (!keyless && ((causal && s0 > last) ||\n"
          "                                  (window > 0 && s0 + BS - 1 <= tw -"
          " window))))\n      continue;\n", "")],
     "n-tiles beyond d skipped": [
         ("        mma3(acc[n], ap, frag_b_pairs<LD>(vs, 8 * n, 8 * j, lane));",
-         "        if (n < (d + 7) / 8)\n"
-         "          mma3(acc[n], ap, frag_b_pairs<LD>(vs, 8 * n, 8 * j, lane));")],
+         "        if (n < (d + 7) / 8)\n          mma3(acc[n], ap,"
+         " frag_b_pairs<LD>(vs, 8 * n, 8 * j, lane));")],
+    "16-key tiles": [
+        ("  static constexpr int kFwdBS = DMAX > 128 ? 16 : 64;",
+         "  static constexpr int kFwdBS = 16;")],
+    "16-key tiles, 2 blocks an SM": [
+        ("  static constexpr int kFwdBS = DMAX > 128 ? 16 : 64;",
+         "  static constexpr int kFwdBS = 16;"),
+        ("__launch_bounds__(32 * kFwdWarps, 1)\nflash_attention_fwd_kernel",
+         "__launch_bounds__(32 * kFwdWarps, DMAX > 128 ? 1 : 2)\n"
+         "flash_attention_fwd_kernel")],
+    "every tile masked": [("    if (inner) {", "    if (false) {")],
     "one MMA of three": [("  mma_tf32(c, a.small, b.big);\n"
                           "  mma_tf32(c, a.big, b.small);\n", "")],
 }
 EXACT = ("loads not overlapped", "P through shared memory",
-         "heavy tiles first", "no warp skipping",
-         "n-tiles beyond d skipped")
+         "first tile first", "no warp skipping", "n-tiles beyond d skipped",
+         "16-key tiles", "16-key tiles, 2 blocks an SM", "every tile masked")
 MMA_LOOP = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
