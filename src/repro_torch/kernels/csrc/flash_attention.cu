@@ -22,22 +22,36 @@
 // key it is -1e30 (log S is below f32's resolution there), so the backward
 // gives such a row P = 1/S by its index, not from lse.
 //
-// Forward design. The TPU kernel walks key blocks on a sequential grid
-// axis with m, l and acc in VMEM scratch. Here one block of 256 threads
-// owns a tile of 64 query rows and loops over the key tiles itself. A tile
-// that lies wholly outside the causal or window band is never loaded: the
-// loop runs only over the key tiles that the band reaches. Every tile
-// lives in shared memory as f32, with an odd row stride (DMAX + 1, tile +
-// 1) so a column read by consecutive lanes hits consecutive banks. Each
-// warp owns whole rows of every product's output (its left operand is a
-// broadcast) and the lanes consecutive columns; so the row max and row sum
-// of the softmax are warp shuffles, and the P written for a P.V product is
-// read back only by the warp that wrote it (a __syncwarp, not a block
-// barrier). Head dims d <= 64, 128 and 256 each get their own tiles: the
-// key tile is 64 rows, 32 at d > 128, so the f32 tiles fit the 227 KB a
-// block may use. Inputs are f32 or bf16; the forward accumulates in f32
-// with fmaf, and both directions use IEEE expf (the file is never built
-// with fast math).
+// Forward design. The TPU kernel walks key blocks on a sequential grid axis
+// with m, l and acc in VMEM scratch. Here one block of 8 warps owns a tile of
+// 128 query rows and loops over the key tiles itself, 64 keys a tile (16 at d >
+// 128, where two 32-key buffers would not fit); the last query tile launches
+// first, since under a causal mask it has the most keys. A key tile that lies
+// wholly outside the causal or window band is never loaded: the loop runs only
+// over the key tiles that the band reaches. Each warp owns 16 whole query rows,
+// one m16 block of both products: s = q.k^T (16 x 64 a warp) into registers;
+// the online softmax on those C fragments, where each thread holds rows g and g
+// + 8, so a row's max and sum are two quad shuffles and the rescale of acc
+// stays in registers; the band mask only on the tiles that cross a row's band
+// edge; and acc += P.V with P taken from the registers of s: V's rows are read
+// in the order (0, 2, 4, 6, 1, 3, 5, 7) of each 8-key slice, in which the C
+// fragment {c0, c2, c1, c3} is the A fragment. K and V are double-buffered:
+// 16-byte cp.async brings the next tile while the block computes on this one
+// (f32 rows with d % 4 == 0; bf16 and other d are staged by a thread loop,
+// widened to f32). No MMA of a product loop is under a runtime condition: P.V
+// runs over all DMAX / 8 head-dim n-tiles, the zero columns beyond d included,
+// because the compiler interleaves no accumulator chains across a branch (a
+// condition on each n-tile beyond d cost 48 %). No warp skips the parts of the
+// causal diagonal's tiles that its rows do not reach: per 8-key slice (a
+// condition on each MMA) it was slower, per whole tile no faster. No atomics:
+// the forward is bitwise reproducible. Head dims d <= 64, 128 and 256 each get
+// their own instantiation. Shared memory a block: 104,448 B at DMAX 64, 202,752
+// B at 128, 199,680 B at 256, so one block an SM, and a thread may hold 255
+// registers: it takes 168 at DMAX 64, 208 at 128 and 230 at 256 (bf16 167, 188,
+// 228; nvcc -Xptxas -v, sm_90a, CUDA 12.8), with no spills. Two blocks an SM at
+// 16-key tiles and <= 128 registers spilled and were slower
+// (src/repro_torch/kernels/flash_fwd_ablation.py times the kernel against
+// copies with one of its parts undone).
 //
 // Backward (the TPU kernel has none), FA2-style, two launches: D =
 // rowsum(dO o O) by a small kernel, then one fused kernel. A block per (b,
@@ -53,46 +67,54 @@
 // run, so dQ may differ in its last bits from run to run (as
 // scaled_dot_product_attention's own backward may).
 //
-// The products run on the tensor cores by 3xTF32 (CUTLASS's
-// OpMultiplyAddFastF32): each f32 operand x is split as big + small, big
-// rounded to TF32 and small = x - big read as TF32, and a.b = big_a.big_b +
-// big_a.small_b + small_a.big_b, three mma.sync m16n8k8 into one f32
-// accumulator. big carries x's top 11 significant bits and small the next
-// 11, so each product keeps about 21 bits (small_a.small_b, dropped, is
-// below 2^-21 of it), where one TF32 pass would keep 11: the sums stay
-// near f32 accuracy. The tiles stay in shared memory as f32 with a row stride
-// of DMAX + 4 (and 64 + 4 for P^T and dS^T), 4 mod 32: the A and B
-// fragments that read along a row (lane -> row lane / 4, column lane % 4
-// and + 4) hit 32 distinct banks; the transposed operands (Q, dO and K as
-// the right operand of dK, dV and dQ, dS as the left of dQ) are read by
-// index from those tiles, not copied, with at most 2-way conflicts (an
-// order of columns that avoids them compiled to a slower kernel). The loops
-// over the head dim and over the tiles are unrolled in full. Rows
-// are staged with 16-byte loads where d % 4 == 0 (every width the paths
-// use), a scalar loop otherwise; bf16 is widened to f32 as it is staged.
-// Shared memory a block: 104,960 B at DMAX 64, 170,496 B at 128 and
-// 217,600 B at 256 (32-key tiles), so one block an SM; a next
-// q/dO tile double-buffered beside them would need 238,080 B at DMAX 128,
-// more than the 232,448 a block may use, so the loads are not overlapped
-// with the products. The block has 16 warps, 4 to a scheduler, so one
-// warp's load -> split -> MMA chain waits while others issue; with 8
-// warps and twice the registers each it is slower
-// (scripts/flash_bwd_ablation.py). So a thread may hold 128 registers
-// (nvcc -Xptxas -v, sm_90a, CUDA 12.8): it takes 119 at DMAX 64, 123 at
-// 128 and 118 at 256, f32 and bf16 alike, with no spills.
+// The products of both directions run on the tensor cores by 3xTF32
+// (CUTLASS's OpMultiplyAddFastF32): each f32 operand x is split as big +
+// small, big rounded to TF32 and small = x - big read as TF32, and a.b =
+// big_a.big_b + big_a.small_b + small_a.big_b, three mma.sync m16n8k8 into
+// one f32 accumulator. big carries x's top 11 significant bits and small
+// the next 11, so each product keeps about 21 bits (small_a.small_b,
+// dropped, is below 2^-21 of it), where one TF32 pass would keep 11: the
+// sums stay near f32 accuracy. The tiles stay in shared memory as f32 with
+// a row stride of DMAX + 4 (and 64 + 4 for the backward's P^T and dS^T), 4
+// mod 32: the A and B fragments that read along a row (lane -> row lane /
+// 4, column lane % 4 and + 4) hit 32 distinct banks; in the backward the
+// transposed operands (Q, dO and K as the right operand of dK, dV and dQ,
+// dS as the left of dQ) are read by index from those tiles, not copied,
+// with at most 2-way conflicts (an order of columns that avoids them
+// compiled to a slower kernel). The loops over the head dim and over the
+// tiles are unrolled in full. The backward stages rows with 16-byte loads
+// where d % 4 == 0 (every width the paths use), a scalar loop otherwise;
+// bf16 is widened to f32 as it is staged. Its shared memory a block:
+// 104,960 B at DMAX 64, 170,496 B at 128 and 217,600 B at 256 (32-key
+// tiles), so one block an SM; a next q/dO tile double-buffered beside them
+// would need 238,080 B at DMAX 128, more than the 232,448 a block may use,
+// so its loads are not overlapped with the products. Its block has 16
+// warps, 4 to a scheduler, so one warp's load -> split -> MMA chain waits
+// while others issue; with 8 warps and twice the registers each it is
+// slower (scripts/flash_bwd_ablation.py). So a thread may hold 128
+// registers (nvcc -Xptxas -v, sm_90a, CUDA 12.8): it takes 119 at DMAX 64,
+// 123 at 128 and 118 at 256, f32 and bf16 alike, with no spills.
 //
 // Bounds on the H100 at the zamba2 path's shape (B 8, T = S = 512, H = KV
 // = 32, d 112, causal): 131,328 (t, u) pairs in the causal band per (b,
 // h). Forward, 2 d multiply-adds a pair (q.k and p.v): 15.06 GFLOP, 0.225
 // ms at the card's 67 TFLOP/s f32 without tensor cores; q, k, v and o are
-// 235 MB, 0.070 ms at 3.35 TB/s. Backward, 5 d multiply-adds a pair:
-// 37.65 GFLOP, 0.562 ms at 67 TFLOP/s, against 0.14 ms of bytes, so it is
-// bound by operations; on the tensor cores the 3xTF32 route does three
-// TF32 products for each, 3 x 37.65 GFLOP at 495 TFLOP/s: 0.228 ms. But
-// mma.sync reaches about 310 TFLOP/s of TF32 on this card
-// (scripts/flash_bwd_ablation.py), and the kernel computes the causal
-// diagonal's tiles whole (42.3 GFLOP a product set), so its own floor is
-// 3 x 42.3 GFLOP at 310 TFLOP/s, 0.41 ms.
+// 235 MB, 0.070 ms at 3.35 TB/s. On the tensor cores the 3xTF32 route does
+// three TF32 products for each, 3 x 15.06 GFLOP at 495 TFLOP/s: 0.091 ms.
+// But mma.sync reaches about 310 TFLOP/s of TF32 on this card (the loop in
+// scripts/flash_bwd_ablation.py), and the forward computes whole 128 x 64
+// tiles on the causal diagonal (18.8 GFLOP for its two products, +24.8
+// %), so its own floor is 3 x 18.8 GFLOP at 310 TFLOP/s, 0.182 ms; at T =
+// 4096 the same bounds are 1.795, 0.729 and 1.20 ms. It takes 0.476 ms at
+// the path's shape and 2.663 ms at T = 4096, 0.92x and 0.83x the time of
+// scaled_dot_product_attention, whose f32 route on this card is CUTLASS's
+// memory-efficient attention (fmha_cutlassF_f32_aligned_64x128_rf_sm80);
+// chip_smoke.py's phase_flash on an H100 80GB HBM3 at 700 W. Backward, 5 d
+// multiply-adds a pair: 37.65 GFLOP, 0.562 ms at 67 TFLOP/s, against 0.14
+// ms of bytes, so it is bound by operations; 3 x 37.65 GFLOP at 495
+// TFLOP/s is 0.228 ms, and with the causal diagonal's 64 x 64 tiles whole
+// (42.3 GFLOP a product set) its own floor is 3 x 42.3 GFLOP at 310
+// TFLOP/s, 0.41 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -166,24 +188,22 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 
 // Stage `rows` rows of one head of a (B, L, heads, d) tensor as f32
 // [rows][ld], zero beyond the sequence's `n` rows and beyond d columns; four
-// columns a thread (16 bytes of f32) where ld and d allow it.
-template <typename T, int ROWS, int DMAX, int LD, int THREADS = kThreads>
+// columns a thread (16 bytes of f32) where d allows it.
+template <typename T, int ROWS, int DMAX, int LD, int THREADS>
 __device__ void load_tile(const T* __restrict__ src, float* dst, int b,
                           int r0, int n, int heads, int head, int d) {
-  if constexpr (LD % 4 == 0) {
-    const bool aligned =
-        reinterpret_cast<uintptr_t>(src) % (4 * sizeof(T)) == 0;
-    if (d % 4 == 0 && aligned) {
-      constexpr int Q4 = DMAX / 4;
-      for (int i = threadIdx.x; i < ROWS * Q4; i += THREADS) {
-        const int r = i / Q4, c = 4 * (i % Q4);
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r0 + r < n && c < d)
-          val = load4(src + (((size_t)b * n + r0 + r) * heads + head) * d + c);
-        *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-      }
-      return;
+  static_assert(LD % 4 == 0, "16-byte aligned rows");
+  const bool aligned = reinterpret_cast<uintptr_t>(src) % (4 * sizeof(T)) == 0;
+  if (d % 4 == 0 && aligned) {
+    constexpr int Q4 = DMAX / 4;
+    for (int i = threadIdx.x; i < ROWS * Q4; i += THREADS) {
+      const int r = i / Q4, c = 4 * (i % Q4);
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r0 + r < n && c < d)
+        val = load4(src + (((size_t)b * n + r0 + r) * heads + head) * d + c);
+      *reinterpret_cast<float4*>(dst + r * LD + c) = val;
     }
+    return;
   }
   for (int i = threadIdx.x; i < ROWS * DMAX; i += THREADS) {
     const int r = i / DMAX, c = i % DMAX;
@@ -385,8 +405,7 @@ __device__ void stage_tile(const T* __restrict__ src, float* dst, int b,
 // C fragments, so a row's max and sum are quad shuffles. For each key tile
 // the band reaches, with the next one loading meanwhile: s = q.k^T (16 x
 // BS a warp), the online softmax in registers, acc += P.V with P where
-// the softmax left it. A warp skips a key tile that no row of it reaches,
-// unless one of its rows has no key in its band.
+// the softmax left it.
 template <int DMAX, typename T>
 __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -411,7 +430,6 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int gr = lane >> 2, gc = 2 * (lane & 3);  // accumulator row, column
   const int m0 = 16 * warp;
   const int tw = t0 + m0, last = min(tw + 15, Tq - 1);  // the warp's rows
-  const bool keyless = last >= first_keyless_row(S, window);
 
   int lo, hi;
   key_range(t0, BT, S, causal, window, &lo, &hi);
@@ -436,13 +454,6 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     const float* ks = kvs + buf * 2 * BS * LD;
     const float* vs = ks + BS * LD;
-
-    // a warp whose rows reach no key of this tile skips it: the tile would
-    // add exactly 0 to each row (or, before the row's first key, what that
-    // key's exp(-1e30 - m) wipes); not so a row with no key in its band
-    if (tw >= Tq || (!keyless && ((causal && s0 > last) ||
-                                  (window > 0 && s0 + BS - 1 <= tw - window))))
-      continue;
 
     // s[t][u] = q_t . k_u; the zero columns beyond d add nothing
     float sc[NS][4] = {};

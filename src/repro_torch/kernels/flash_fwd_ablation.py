@@ -17,8 +17,8 @@ times them beside the kernel itself at the hybrid path's shape (8, 512, 32,
     block, not once a key tile, could save;
   * "first tile first": the query tiles launched in order, not the last
     (under a causal mask the longest) first;
-  * "no warp skipping": every warp computes every key tile of its block,
-    also those that no row of it reaches;
+  * "warp skipping": a warp skips the key tiles that no row of it
+    reaches (unless a row of it has no key in its band);
   * "n-tiles beyond d skipped": P.V leaves out the head-dim n-tiles at or
     beyond d (2 of 16 at d = 112), each product under a runtime condition;
   * "16-key tiles", and with it "2 blocks an SM" (at most 128 registers a
@@ -28,13 +28,12 @@ times them beside the kernel itself at the hybrid path's shape (8, 512, 32,
   * "one MMA of three" (wrong sums): each product is big.big alone
     (1xTF32): what the two error-compensating MMAs cost.
 
-It also times a loop of independent ``mma.sync`` m16n8k8 TF32 products, the
-ceiling of the kernel's tensor-core route on the card. Each variant is
-timed twice, in the order kernel ... last, last ... kernel (median of 20
-CUDA-event times each); the variants that compute the same function give
-their largest difference from the kernel's o. Prints the card's name and
-power limit first; exits non-zero without a card, or if a patch no longer
-applies to the source.
+Each variant is timed twice, in the order kernel ... last, last ...
+kernel (median of 20 CUDA-event times each); the variants that compute the
+same function give their largest difference from the kernel's o. Prints
+the card's name and power limit first; exits non-zero without a card, or
+if a patch no longer applies to the source. scripts/flash_bwd_ablation.py
+times the ceiling of the route, a loop of ``mma.sync`` TF32 products.
 """
 from __future__ import annotations
 
@@ -83,10 +82,13 @@ VARIANTS = {
     "first tile first": [
         ("  const int t0 = (gridDim.x - 1 - blockIdx.x) * BT, h = blockIdx.y,",
          "  const int t0 = blockIdx.x * BT, h = blockIdx.y,")],
-    "no warp skipping": [
-        ("    if (tw >= Tq || (!keyless && ((causal && s0 > last) ||\n"
-         "                                  (window > 0 && s0 + BS - 1 <= tw -"
-         " window))))\n      continue;\n", "")],
+    "warp skipping": [
+        ("    const float* vs = ks + BS * LD;\n",
+         "    const float* vs = ks + BS * LD;\n"
+         "    if (tw >= Tq || (last < first_keyless_row(S, window) &&\n"
+         "                     ((causal && s0 > last) ||\n"
+         "                      (window > 0 && s0 + BS - 1 <= tw - window))))\n"
+         "      continue;\n")],
     "n-tiles beyond d skipped": [
         ("        mma3(acc[n], ap, frag_b_pairs<LD>(vs, 8 * n, 8 * j, lane));",
          "        if (n < (d + 7) / 8)\n          mma3(acc[n], ap,"
@@ -105,37 +107,10 @@ VARIANTS = {
                           "  mma_tf32(c, a.big, b.small);\n", "")],
 }
 EXACT = ("loads not overlapped", "P through shared memory",
-         "first tile first", "no warp skipping", "n-tiles beyond d skipped",
+         "first tile first", "warp skipping", "n-tiles beyond d skipped",
          "16-key tiles", "16-key tiles, 2 blocks an SM", "every tile masked")
-MMA_LOOP = r"""
-#include <cuda_runtime.h>
-#include <stdint.h>
-__global__ void mma_loop(float* out, int iters) {
-  float c[8][4] = {};
-  uint32_t a[4], b[2];
-  for (int i = 0; i < 4; i++) a[i] = __float_as_uint(threadIdx.x * 1e-3f + i);
-  b[0] = a[1]; b[1] = a[2];
-  for (int it = 0; it < iters; ++it)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-                   "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-                   : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
-                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-                     "r"(b[1]));
-  float s = 0;
-  for (int j = 0; j < 8; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
-}
-extern "C" int mma_loop_launch(float* out, int blocks, int threads, int iters) {
-  mma_loop<<<blocks, threads>>>(out, iters);
-  return (int)cudaGetLastError();
-}
-"""
-
-
 def build_all() -> dict:
-    """One nvcc per variant and one for the loop, all started together."""
+    """One nvcc per variant, all started together."""
     OUT.mkdir(parents=True, exist_ok=True)
     source = (build.CSRC / "flash_attention.cu").read_text()
     texts = {}
@@ -146,7 +121,6 @@ def build_all() -> dict:
                 raise SystemExit(f"{name}: patch no longer applies: {old!r}")
             text = text.replace(old, new)
         texts[name] = text
-    texts["mma loop"] = MMA_LOOP
     procs = {}
     for i, (name, text) in enumerate(texts.items()):
         (OUT / f"v{i}.cu").write_text(text)
@@ -164,14 +138,10 @@ def build_all() -> dict:
         if spills:
             print(f"{name}: {spills}", flush=True)
         lib = ctypes.CDLL(str(lib_path))
-        if name == "mma loop":
-            lib.mma_loop_launch.argtypes = ([ctypes.c_void_p]
-                                            + [ctypes.c_int] * 3)
-        else:
-            lib.flash_attention_fwd.argtypes = ([ctypes.c_int]
-                                                + [ctypes.c_void_p] * 5
-                                                + [ctypes.c_int] * 8
-                                                + [ctypes.c_void_p])
+        lib.flash_attention_fwd.argtypes = ([ctypes.c_int]
+                                            + [ctypes.c_void_p] * 5
+                                            + [ctypes.c_int] * 8
+                                            + [ctypes.c_void_p])
         libs[name] = lib
     return libs
 
@@ -200,16 +170,6 @@ def main() -> None:
                          text=True, check=True).stdout.strip(), flush=True)
     libs = build_all()
     dev = torch.device("cuda", 0)
-    out = torch.empty(132 * 512, device=dev)
-    loop = libs.pop("mma loop")
-    for blocks, threads in [(132, 256), (264, 256)]:
-        iters = 4000
-        ms = time_ms(lambda: loop.mma_loop_launch(out.data_ptr(), blocks,
-                                                  threads, iters),
-                     iters=5, warmup=1)
-        flop = blocks * threads // 32 * iters * 8 * 2 * 16 * 8 * 8
-        print(f"mma.sync m16n8k8 tf32, {blocks} blocks of {threads} "
-              f"threads: {flop / ms / 1e9:.1f} TFLOP/s", flush=True)
     g = torch.Generator(device=dev).manual_seed(3)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for B, T, H, d in SHAPES:
