@@ -88,10 +88,6 @@ PEAK_TF32 = 495e12
 # what mma.sync m16n8k8 reaches of TF32 on the H100 SXM at 700 W: 308.7-317.3
 # TFLOP/s in scripts/flash_bwd_ablation.py's loop of independent products
 MMA_SYNC_TF32 = 310e12
-# flash_attention's forward tiles: query rows a block, keys a tile at
-# d <= 128 and at d > 128 (csrc/flash_attention.cu, kFwdBT and
-# Tiles::kFwdBS)
-FLASH_FWD_TILES = (128, 64, 16)
 
 # the main path's run
 K, NUM_LABELS, STEPS, S_P, POOL, TOPK_K = 3, 1000, 12, 4, 3, 32
@@ -277,8 +273,10 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32):
+    """The least time of the work, ms: its bytes over the card's memory
+    rate or its operations over the peak rate of their type, the larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -577,21 +575,24 @@ def attn_pairs(T: int, S: int, causal: bool, window: int) -> int:
 
 def _flash_bounds(B, T, S, H, KV, d, causal, window, elem):
     """(forward, backward) bounds: bytes with every input read once and
-    every output written once, over 3.35 TB/s; f32 operations over 67
-    TFLOP/s, counting the pairs inside the mask only — 2 d multiply-adds a
-    pair forward (q·k, p·v), 5 backward (s again, dP, dV, dS·K, dSᵀ·Q)."""
+    every output written once, over 3.35 TB/s; operations over 495 TFLOP/s
+    of TF32, the type both kernels compute in: three TF32 products (3xTF32)
+    for each f32 one, counting the pairs inside the mask only — 2 d
+    multiply-adds a pair forward (q·k, p·v), 5 backward (s again, dP, dV,
+    dS·K, dSᵀ·Q). Also the f32 operations of each."""
     pairs = attn_pairs(T, S, causal, window) * B * H
     qo, kv, rows = B * T * H * d * elem, B * S * KV * d * elem, B * H * T * 4
-    fwd = bound(2 * qo + 2 * kv + rows, 4 * pairs * d)
-    bwd = bound(3 * qo + 2 * kv + rows + qo + 2 * kv, 10 * pairs * d)
-    return fwd, bwd, 4 * pairs * d, 10 * pairs * d
+    fl_f, fl_b = 4 * pairs * d, 10 * pairs * d
+    fwd = bound(2 * qo + 2 * kv + rows, 3 * fl_f, PEAK_TF32)
+    bwd = bound(3 * qo + 2 * kv + rows + qo + 2 * kv, 3 * fl_b, PEAK_TF32)
+    return fwd, bwd, fl_f, fl_b
 
 
 def fwd_tile_pairs(T: int, S: int, causal: bool, window: int, d: int) -> int:
     """The (query, key) pairs of the whole tiles the forward kernel computes
-    for one (b, h): each query tile of FLASH_FWD_TILES[0] rows times the
-    key tiles its band reaches (all of them if a row has no key)."""
-    rows, keys = FLASH_FWD_TILES[0], FLASH_FWD_TILES[1 if d <= 128 else 2]
+    for one (b, h): each query tile times the key tiles its band reaches
+    (all of them if a row has no key), at the tiles the kernel reports."""
+    rows, keys = FA.flash_attention_fwd_tile(d)
     pairs = 0
     for t0 in range(0, T, rows):
         if window and t0 + rows - 1 >= S + window - 1:
@@ -631,11 +632,9 @@ def _flash_timing(dev, g, B, T, H, d, iters: int) -> tuple:
         torch.autograd.grad(o_lib, leaves, do.transpose(1, 2),
                             retain_graph=True)
 
-    # the forward's two products run as three TF32 products each; the
-    # kernel computes whole tiles, at mma.sync's rate at best
+    # the forward computes whole tiles, at mma.sync's rate at best
     tiles = 4 * B * H * d * fwd_tile_pairs(T, T, True, 0, d)
     fwd = {"shape": [B, T, H, d], "gflop": fl_f / 1e9,
-           "tf32x3_bound_ms": 3 * fl_f / PEAK_TF32 * 1e3,
            "mma_sync_floor_ms": 3 * tiles / MMA_SYNC_TF32 * 1e3,
            "ms": time_ms(lambda: FA.flash_attention_fwd_kernel(
                q, k, v, causal=True), iters=iters),
@@ -643,9 +642,7 @@ def _flash_timing(dev, g, B, T, H, d, iters: int) -> tuple:
                q, k, v, causal=True), iters=iters, warmup=2),
            "bound_ms": fb, "bound_by": fby,
            "library_ms": time_ms(lambda: _sdpa(q, k, v), iters=iters)}
-    # the backward's products run as three TF32 tensor-core products each
     bwd = {"shape": [B, T, H, d], "gflop": fl_b / 1e9,
-           "tf32x3_bound_ms": 3 * fl_b / PEAK_TF32 * 1e3,
            "ms": time_ms(lambda: FA.flash_attention_bwd_kernel(
                q, k, v, o, lse, do, causal=True, window=0), iters=iters),
            "plain_ms": time_ms(plain_bwd, iters=iters, warmup=2),
@@ -757,13 +754,11 @@ def phase_flash(dev) -> list:
     fwd_l, bwd_l = _flash_timing(dev, g, *FLASH_LONG, iters=10)
     torch.cuda.empty_cache()
     for nm, x, y in (("fwd", fwd, fwd_l), ("bwd", bwd, bwd_l)):
-        tc = f", 3xTF32 bound {x['tf32x3_bound_ms']:.4f}"
-        if "mma_sync_floor_ms" in x:
-            tc += (f", whole-tile mma.sync floor "
-                   f"{x['mma_sync_floor_ms']:.4f}")
+        tc = (f", whole-tile mma.sync floor {x['mma_sync_floor_ms']:.4f}"
+              if "mma_sync_floor_ms" in x else "")
         log(f"flash_attention timing {nm}: path shape {x['ms']:.3f} ms "
             f"(plain {x['plain_ms']:.3f}, library {x['library_ms']:.3f}, "
-            f"bound {x['bound_ms']:.4f} {x['bound_by']}{tc}, "
+            f"3xTF32 bound {x['bound_ms']:.4f} {x['bound_by']}{tc}, "
             f"{x['gflop']:.2f} GFLOP); T={FLASH_LONG[1]} {y['ms']:.3f} ms "
             f"(plain {y['plain_ms']:.3f}, library {y['library_ms']:.3f}, "
             f"bound {y['bound_ms']:.4f})")

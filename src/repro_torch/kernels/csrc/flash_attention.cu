@@ -38,10 +38,12 @@
 // fragment {c0, c2, c1, c3} is the A fragment. K and V are double-buffered:
 // 16-byte cp.async brings the next tile while the block computes on this one
 // (f32 rows with d % 4 == 0; bf16 and other d are staged by a thread loop,
-// widened to f32). No MMA of a product loop is under a runtime condition: P.V
-// runs over all DMAX / 8 head-dim n-tiles, the zero columns beyond d included,
-// because the compiler interleaves no accumulator chains across a branch (a
-// condition on each n-tile beyond d cost 48 %). No warp skips the parts of the
+// widened to f32). No MMA of P.V is under a runtime condition: it runs over all
+// DMAX / 8 head-dim n-tiles, the zero columns beyond d included, because the
+// compiler interleaves no accumulator chains across a branch (a condition on
+// each n-tile beyond d cost 45-52 %). q.k^T's loop over the head dim ends at
+// the first 8-column slice at or beyond d, by a break between slices; the
+// key tile's independent chains inside a slice run unbranched. No warp skips the
 // causal diagonal's tiles that its rows do not reach: per 8-key slice (a
 // condition on each MMA) it was slower, per whole tile no faster. No atomics:
 // the forward is bitwise reproducible. Head dims d <= 64, 128 and 256 each get
@@ -50,8 +52,8 @@
 // registers: it takes 168 at DMAX 64, 208 at 128 and 230 at 256 (bf16 167, 188,
 // 228; nvcc -Xptxas -v, sm_90a, CUDA 12.8), with no spills. Two blocks an SM at
 // 16-key tiles and <= 128 registers spilled and were slower
-// (src/repro_torch/kernels/flash_fwd_ablation.py times the kernel against
-// copies with one of its parts undone).
+// (tools/flash_fwd_ablation.py times the kernel against copies with one of
+// its parts undone).
 //
 // Backward (the TPU kernel has none), FA2-style, two launches: D =
 // rowsum(dO o O) by a small kernel, then one fused kernel. A block per (b,
@@ -97,24 +99,26 @@
 //
 // Bounds on the H100 at the zamba2 path's shape (B 8, T = S = 512, H = KV
 // = 32, d 112, causal): 131,328 (t, u) pairs in the causal band per (b,
-// h). Forward, 2 d multiply-adds a pair (q.k and p.v): 15.06 GFLOP, 0.225
-// ms at the card's 67 TFLOP/s f32 without tensor cores; q, k, v and o are
-// 235 MB, 0.070 ms at 3.35 TB/s. On the tensor cores the 3xTF32 route does
-// three TF32 products for each, 3 x 15.06 GFLOP at 495 TFLOP/s: 0.091 ms.
+// h). Both directions compute on the tensor cores by 3xTF32, three TF32
+// products for each f32 one, so their bound is those products at the
+// card's 495 TFLOP/s of TF32, or their bytes at 3.35 TB/s if more
+// (chip_smoke.py's bound_ms). Forward, 2 d multiply-adds a pair (q.k and
+// p.v): 15.06 GFLOP, 3 x 15.06 GFLOP at 495 TFLOP/s is 0.0913 ms, against
+// 0.070 ms for the 235 MB of q, k, v and o, so it is bound by operations.
 // But mma.sync reaches about 310 TFLOP/s of TF32 on this card (the loop in
 // scripts/flash_bwd_ablation.py), and the forward computes whole 128 x 64
 // tiles on the causal diagonal (18.8 GFLOP for its two products, +24.8
 // %), so its own floor is 3 x 18.8 GFLOP at 310 TFLOP/s, 0.182 ms; at T =
-// 4096 the same bounds are 1.795, 0.729 and 1.20 ms. It takes 0.476 ms at
-// the path's shape and 2.663 ms at T = 4096, 0.92x and 0.83x the time of
-// scaled_dot_product_attention, whose f32 route on this card is CUTLASS's
-// memory-efficient attention (fmha_cutlassF_f32_aligned_64x128_rf_sm80);
-// chip_smoke.py's phase_flash on an H100 80GB HBM3 at 700 W. Backward, 5 d
-// multiply-adds a pair: 37.65 GFLOP, 0.562 ms at 67 TFLOP/s, against 0.14
-// ms of bytes, so it is bound by operations; 3 x 37.65 GFLOP at 495
-// TFLOP/s is 0.228 ms, and with the causal diagonal's 64 x 64 tiles whole
-// (42.3 GFLOP a product set) its own floor is 3 x 42.3 GFLOP at 310
-// TFLOP/s, 0.41 ms.
+// 4096 the bound is 0.729 ms and the floor 1.20 ms. It takes 0.476 ms at
+// the path's shape and 2.663 ms at T = 4096, 5.2x and 3.7x its bound and
+// 0.92x and 0.83x the time of scaled_dot_product_attention, whose f32
+// route on this card is CUTLASS's memory-efficient attention
+// (fmha_cutlassF_f32_aligned_64x128_rf_sm80); chip_smoke.py's phase_flash
+// on an H100 80GB HBM3 at 700 W. Backward, 5 d multiply-adds a pair: 37.65
+// GFLOP, 3 x 37.65 GFLOP at 495 TFLOP/s is 0.228 ms against 0.14 ms of
+// bytes, so it is bound by operations (1.823 ms at T = 4096); with the
+// causal diagonal's 64 x 64 tiles whole (42.3 GFLOP a product set) its own
+// floor is 3 x 42.3 GFLOP at 310 TFLOP/s, 0.41 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -806,6 +810,15 @@ constexpr int kBadArgs = (int)cudaErrorInvalidValue;
 }  // namespace
 
 extern "C" int flash_attention_max_d() { return 256; }
+
+// The forward's tile at head dim d: *rows query rows a block, *keys keys a
+// key tile.
+extern "C" void flash_attention_fwd_tile(int d, int* rows, int* keys) {
+  *rows = kFwdBT;
+  *keys = d <= 64    ? Tiles<64>::kFwdBS
+          : d <= 128 ? Tiles<128>::kFwdBS
+                     : Tiles<256>::kFwdBS;
+}
 
 // Forward: q (B,T,H,d), k, v (B,S,KV,d), contiguous, dtype 0 = f32,
 // 1 = bf16 -> o (B,T,H,d) in q's type and lse (B,H,T) f32. Returns the

@@ -100,7 +100,17 @@ def _lib():
     lib.flash_attention_bwd.restype = _I
     lib.flash_attention_max_d.argtypes = []
     lib.flash_attention_max_d.restype = _I
+    lib.flash_attention_fwd_tile.argtypes = [_I, _P, _P]
+    lib.flash_attention_fwd_tile.restype = None
     return lib
+
+
+def flash_attention_fwd_tile(d: int) -> Tuple[int, int]:
+    """The forward kernel's tile at head dim d: (query rows a block, keys a
+    key tile). Builds the kernel's library, so it needs nvcc."""
+    rows, keys = _I(), _I()
+    _lib().flash_attention_fwd_tile(d, ctypes.byref(rows), ctypes.byref(keys))
+    return rows.value, keys.value
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor) -> Tuple[int, ...]:

@@ -13,16 +13,20 @@ Tolerances: top-k values and indices exact; f32 results 1e-4 as in
 tests/test_kernels.py (the plain version sums in another order than the
 Pallas body); the lse 1e-6 relative; float64 gradients 1e-9.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke as CS
 from repro.kernels.dist_ce import dist_ce as jax_dist_ce
 from repro.kernels.emb_dist import emb_dist as jax_emb_dist
 from repro.kernels.topk_wire import topk_wire as jax_topk_wire
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.kernels import dist_ce as DCE
 from repro_torch.kernels import emb_dist as EMB
 from repro_torch.kernels import flash_attention as FA
@@ -237,24 +241,6 @@ def test_triton_kernels_match_plain(cuda):
                                atol=1e-4)
 
 
-def _lse_plain(q, k, causal, window):
-    """Each row's logsumexp of the masked scaled scores, (B, H, T), masked
-    scores -1e30 as in the kernel: -1e30 on a row with no key."""
-    B, T, H, d = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    s = torch.einsum("btkgd,bskd->bkgts", q.reshape(B, T, KV, H // KV, d),
-                     k) / d ** 0.5
-    t = torch.arange(T, device=q.device)[:, None]
-    u = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= u <= t
-    if window:
-        mask &= u > t - window
-    s = torch.where(mask, s, torch.full_like(s, -1e30))
-    return torch.logsumexp(s, dim=-1).reshape(B, H, T)
-
-
 def _check_flash_kernels(dev, B, T, S, H, KV, d, causal, window, dtype,
                          tol):
     """The forward (o and lse) and the three gradients against the plain
@@ -273,7 +259,8 @@ def _check_flash_kernels(dev, B, T, S, H, KV, d, causal, window, dtype,
     leaves = [x.double().requires_grad_() for x in (q, k, v)]
     o2 = FA.flash_attention_plain(*leaves, causal=causal, window=window)
     grads2 = torch.autograd.grad(o2, leaves, do.double())
-    lse2 = _lse_plain(leaves[0].detach(), leaves[1].detach(), causal, window)
+    lse2 = CS._flash_lse_plain(leaves[0].detach(), leaves[1].detach(),
+                               causal, window)
     live = lse2 > -1e29
     assert bool((lse[~live] <= -1e29).all())
     for a, b in zip((o, lse[live], *grads), (o2, lse2[live], *grads2)):
@@ -310,6 +297,33 @@ def test_flash_attention_bf16_kernels_match_plain(cuda):
     bf16 entering D = rowsum(dO o O); 2e-2, as chip_smoke holds them."""
     _check_flash_kernels(cuda, 8, 512, 512, 32, 32, 112, True, 0,
                          torch.bfloat16, 2e-2)
+
+
+def _load_script(path: Path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# the forward's ablation script, which holds the backward's as BWD
+FWD_ABLATION = _load_script(Path(__file__).resolve().parents[1] / "tools"
+                            / "flash_fwd_ablation.py")
+ABLATIONS = {"fwd": FWD_ABLATION.VARIANTS,
+             "bwd": FWD_ABLATION.BWD.VARIANTS}
+
+
+@pytest.mark.parametrize("direction,name", [
+    (direction, name) for direction, table in ABLATIONS.items()
+    for name, patches in table.items() if patches])
+def test_flash_attention_ablation_patches_apply(direction, name):
+    """tools/flash_fwd_ablation.py and scripts/flash_bwd_ablation.py build
+    copies of flash_attention.cu patched by text: each text a variant
+    replaces occurs exactly once in the committed source, and the copy
+    differs from it."""
+    source = (build.CSRC / "flash_attention.cu").read_text()
+    patches = ABLATIONS[direction][name]
+    assert FWD_ABLATION.patched(source, name, patches) != source
 
 
 @pytest.mark.cuda

@@ -1,8 +1,10 @@
+#!/usr/bin/env python3
 """Where the time of ``flash_attention``'s forward kernel goes, on one card.
 
-    PYTHONPATH=src python3 -m repro_torch.kernels.flash_fwd_ablation
+    python3 tools/flash_fwd_ablation.py
 
-Builds copies of ``csrc/flash_attention.cu`` with one part of the forward
+Builds copies of ``src/repro_torch/kernels/csrc/flash_attention.cu`` with
+one part of the forward
 taken out or swapped, each by a text patch of the committed source, and
 times them beside the kernel itself at the hybrid path's shape (8, 512, 32,
 112) and at T = 4096, causal, f32:
@@ -33,20 +35,28 @@ kernel (median of 20 CUDA-event times each); the variants that compute the
 same function give their largest difference from the kernel's o. Prints
 the card's name and power limit first; exits non-zero without a card, or
 if a patch no longer applies to the source. scripts/flash_bwd_ablation.py
-times the ceiling of the route, a loop of ``mma.sync`` TF32 products.
+does the same for the backward, and times the ceiling of the route, a loop
+of ``mma.sync`` TF32 products; this script takes its nvcc and timing
+helpers from there. tests/test_torch_kernels.py checks on the CPU that
+both scripts' patches apply to the source.
 """
 from __future__ import annotations
 
 import ctypes
-import statistics
 import subprocess
+import sys
+from pathlib import Path
 
-import torch
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "scripts"))
 
-from repro_torch.kernels import build
+import flash_bwd_ablation as BWD  # noqa: E402  (puts src on the path)
+import torch  # noqa: E402
 
-SHAPES = [(8, 512, 32, 112), (1, 4096, 32, 112)]
-OUT = build.BUILD_DIR.parent / "fwd_ablation"
+from repro_torch.kernels import build  # noqa: E402
+
+SHAPES = BWD.SHAPES
+OUT = ROOT / "build" / "fwd_ablation"
 NO_OVERLAP = [("    cp_async_commit();\n    const float* ks = kvs",
                "    cp_async_commit();\n    cp_async_wait_all();\n"
                "    const float* ks = kvs")]
@@ -109,25 +119,28 @@ VARIANTS = {
 EXACT = ("loads not overlapped", "P through shared memory",
          "first tile first", "warp skipping", "n-tiles beyond d skipped",
          "16-key tiles", "16-key tiles, 2 blocks an SM", "every tile masked")
+
+
+def patched(source: str, name: str, patches: list) -> str:
+    """source with each (old, new) of a variant applied in turn; each old
+    text must occur exactly once where it is applied."""
+    for old, new in patches:
+        if source.count(old) != 1:
+            raise SystemExit(f"{name}: patch no longer applies: {old!r}")
+        source = source.replace(old, new)
+    return source
+
+
 def build_all() -> dict:
     """One nvcc per variant, all started together."""
     OUT.mkdir(parents=True, exist_ok=True)
     source = (build.CSRC / "flash_attention.cu").read_text()
-    texts = {}
-    for name, patches in VARIANTS.items():
-        text = source
-        for old, new in patches:
-            if text.count(old) != 1:
-                raise SystemExit(f"{name}: patch no longer applies: {old!r}")
-            text = text.replace(old, new)
-        texts[name] = text
+    texts = {n: patched(source, n, p) for n, p in VARIANTS.items()}
     procs = {}
     for i, (name, text) in enumerate(texts.items()):
         (OUT / f"v{i}.cu").write_text(text)
-        procs[name] = (OUT / f"libv{i}.so", subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(OUT / f"libv{i}.so"),
-             str(OUT / f"v{i}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        procs[name] = (OUT / f"libv{i}.so",
+                       BWD.nvcc(OUT / f"v{i}.cu", OUT / f"libv{i}.so"))
     libs = {}
     for name, (lib_path, proc) in procs.items():
         log, _ = proc.communicate()
@@ -144,22 +157,6 @@ def build_all() -> dict:
                                             + [ctypes.c_void_p])
         libs[name] = lib
     return libs
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def main() -> None:
@@ -189,7 +186,7 @@ def main() -> None:
         names = list(libs)
         ms = {n: [] for n in names}
         for n in names + names[::-1]:
-            ms[n].append(time_ms(lambda: fwd(n)))
+            ms[n].append(BWD.time_ms(lambda: fwd(n)))
         for n in names:
             diff = (f", max|o - kernel's o| "
                     f"{float((outs[n][0] - outs['kernel'][0]).abs().max()):.3g}"
