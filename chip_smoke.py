@@ -204,8 +204,8 @@ TOL_BF16_GRAD_ABS = 1e-4
 TOL_SSD = 1e-4
 TOL_SSD_DECAY = 2e-3
 # ssd_scan at the LM path's shape: Bt, T, H, P, N, and mamba2-370m's chunk
-# (zamba2-7b's is the same); and at the hybrid path's, where N = 64 < 128
-# takes the kernel's masking of the state's columns
+# (zamba2-7b's is the same); and at the hybrid path's, where N = 64 takes
+# the forward's NMAX = 64 instantiation
 SSD_SHAPE = (8, 512, 32, 64, 128)
 SSD_ZAMBA_SHAPE = (8, 512, 112, 64, 64)
 SSD_CHUNK = 256
@@ -408,7 +408,8 @@ def _relerr(a, b) -> float:
 def phase_ssd(dev) -> list:
     """ssd_scan forward and backward kernels against ssd_scan_plain on the
     card: y, the final state and all six gradients (of a random linear
-    function of y and the final state), each as max|d| over max|plain|.
+    function of y and the final state), each as max|d| over max|plain|,
+    and the chunk-start states the forward saves for the backward.
     The plain version runs in float64 on the same inputs (the model's
     chunk, 256, or the sequential recurrence when T is not a multiple):
     at dt·A = -10 a step a float32 autograd of the chunked math cancels
@@ -417,8 +418,9 @@ def phase_ssd(dev) -> list:
     order and chunking; TOL_SSD_DECAY at dt·A = -10, where the kernel's
     own cumsum over a 64-chunk reaches -640, so s_t - s_u carries ~4e-5
     of absolute rounding into every e^-10(t-u) term. The cases: both LM
-    paths' shapes (N = 128, and the hybrid path's N = 64, where the kernel
-    masks the state's upper columns), ragged T, strong decay, no decay."""
+    paths' shapes (N = 128, and the hybrid path's N = 64, which takes the
+    forward's NMAX = 64 instantiation), ragged T, strong decay, no
+    decay."""
     g = torch.Generator(device=dev).manual_seed(5)
     Bt, T, H, P, N = SSD_SHAPE
     cases = [("path", (Bt, T, H, P, N), "model", SSD_CHUNK),
@@ -450,11 +452,17 @@ def phase_ssd(dev) -> list:
         torch.cuda.synchronize()
         tol = TOL_SSD_DECAY if kind == "decay" else TOL_SSD
         (y1, f1, g1), (y2, f2, g2) = res
-        ey, ef = _relerr(y1, y2), _relerr(f1, f2)
-        check(torch.isfinite(y1).all() and torch.isfinite(f1).all(),
-              f"ssd_scan {name}: finite")
-        check(ey <= tol and ef <= tol,
-              f"ssd_scan {name}: y {ey:.3g}, final state {ef:.3g} > {tol}")
+        # the chunk-start states the forward saves for the backward, against
+        # the plain state after each prefix of 64·c steps
+        st1 = SSD.ssd_scan_fwd_kernel(*ins, save_states=True)[2]
+        st2 = SSD.ssd_chunk_states_plain(*(t.double() for t in ins),
+                                         SSD.kernel_chunk())
+        ey, ef, es = _relerr(y1, y2), _relerr(f1, f2), _relerr(st1, st2)
+        check(torch.isfinite(y1).all() and torch.isfinite(f1).all()
+              and torch.isfinite(st1).all(), f"ssd_scan {name}: finite")
+        check(ey <= tol and ef <= tol and es <= tol,
+              f"ssd_scan {name}: y {ey:.3g}, final state {ef:.3g}, chunk "
+              f"states {es:.3g} > {tol}")
         errs, abs_errs = [], []
         scale = max(float(b.abs().max()) for b in g2)
         for nm, a, b in zip(names, g1, g2):
@@ -467,9 +475,10 @@ def phase_ssd(dev) -> list:
             abs_errs.append(maxerr(a, b))
             check(torch.isfinite(a).all(), f"ssd_scan {name}: {nm} finite")
             check(e <= tol, f"ssd_scan {name}: {nm} {e:.3g} > {tol}")
-        err_f = max(err_f, maxerr(y1, y2), maxerr(f1, f2))
+        err_f = max(err_f, maxerr(y1, y2), maxerr(f1, f2), maxerr(st1, st2))
         err_b = max(err_b, *abs_errs)
-        log(f"ssd_scan {name} {shape}: y {ey:.3g} state {ef:.3g} | "
+        log(f"ssd_scan {name} {shape}: y {ey:.3g} state {ef:.3g} chunk "
+            f"states {es:.3g} | "
             + " ".join(f"{nm} {e:.3g}" for nm, e in zip(names, errs))
             + f" (max|d| / max|plain|, tolerance {tol})")
         log(f"ssd_scan {name}: max|d| y {maxerr(y1, y2):.3g} state "
@@ -480,8 +489,10 @@ def phase_ssd(dev) -> list:
                        for nm, b in zip(names, g2)))
         record.append({
             "case": name, "shape": list(shape), "tol": tol,
-            "rel": {"y": ey, "state": ef, **dict(zip(names, errs))},
+            "rel": {"y": ey, "state": ef, "chunk_states": es,
+                    **dict(zip(names, errs))},
             "abs": {"y": maxerr(y1, y2), "state": maxerr(f1, f2),
+                    "chunk_states": maxerr(st1, st2),
                     **dict(zip(names, abs_errs))},
             "plain_max": {"y": float(y2.abs().max()),
                           "state": float(f2.abs().max()),
@@ -491,13 +502,20 @@ def phase_ssd(dev) -> list:
     fwd, bwd = _ssd_timing(dev, g, SSD_SHAPE)
     fwd_z, bwd_z = _ssd_timing(dev, g, SSD_ZAMBA_SHAPE)
     for nm, x, y in (("fwd", fwd, fwd_z), ("bwd", bwd, bwd_z)):
+        extra = [""] * 2
+        if nm == "fwd":
+            extra = [f", 3xTF32 ops {v['tf32x3_bound_ms']:.4f}, saving states"
+                     f" {v['ms_saving_states']:.3f} ms against bound "
+                     f"{v['bound_ms_saving_states']:.4f}" for v in (x, y)]
         log(f"ssd_scan timing {nm}: LM shape {x['ms']:.3f} ms (plain "
             f"{x['plain_ms']:.3f}, bound {x['bound_ms']:.4f} "
-            f"{x['bound_by']}, {x['gflop']:.3f} GFLOP); zamba2 shape "
-            f"{y['ms']:.3f} ms (plain {y['plain_ms']:.3f}, bound "
-            f"{y['bound_ms']:.4f}, {y['gflop']:.3f} GFLOP)")
-    log(f"ssd_scan timing: fwd saving states {fwd['ms_saving_states']:.3f}"
-        f" ms; einsum at L={SSD.kernel_chunk()} {fwd['library_ms']:.3f} ms")
+            f"{x['bound_by']}{extra[0]}, {x['gflop']:.3f} GFLOP); zamba2 "
+            f"shape {y['ms']:.3f} ms (plain {y['plain_ms']:.3f}, bound "
+            f"{y['bound_ms']:.4f} {y['bound_by']}{extra[1]}, "
+            f"{y['gflop']:.3f} GFLOP)")
+    log(f"ssd_scan timing: einsum at L={SSD.kernel_chunk()} "
+        f"{fwd['library_ms']:.3f} ms (LM), {fwd_z['library_ms']:.3f} ms "
+        f"(zamba2)")
     return [{**SSD.INFO_FWD, **fwd, "max_abs_err": err_f,
              "at_zamba2_shape": fwd_z},
             {**SSD.INFO_BWD, **bwd, "max_abs_err": err_b,
@@ -522,14 +540,19 @@ def _ssd_timing(dev, g, shape) -> tuple:
     # each). Backward: C·Bᵀ again, and dC = dCB·B and dB = dCBᵀ·C once on
     # the head-summed dCB (its tri·H additions); per head dx and dCB from
     # the masked product (2·tri·P) and the four state products
-    # (4·L·N·P). What this kernel does beyond that (C·Bᵀ per head, dB and
-    # dC per head) belongs to its design, not to the function.
+    # (4·L·N·P). What the backward kernel does beyond that (dB and dC per
+    # head) belongs to its design, not to the function. The forward
+    # computes by 3xTF32, three TF32 products for each f32 one, so its
+    # bound is those at 495 TFLOP/s or its bytes, the larger; with and
+    # without the chunk states the training call saves.
     io_in = 4 * (2 * Bt * T * N + Bt * T * H * P + Bt * T * H + 2 * H)
     state_b = 4 * Bt * H * P * N
     tri = L * (L + 1) / 2
     rows, heads = Bt * nc, Bt * nc * H
     fl_fwd = 2 * rows * tri * N + 2 * heads * (tri * P + 2 * L * N * P)
-    fb, fby = bound(io_in + 4 * Bt * T * H * P + state_b, fl_fwd)
+    fwd_bytes = io_in + 4 * Bt * T * H * P + state_b
+    fb, fby = bound(fwd_bytes, 3 * fl_fwd, PEAK_TF32)
+    fb_states, _ = bound(fwd_bytes + nc * state_b, 3 * fl_fwd, PEAK_TF32)
     fl_bwd = (2 * rows * 3 * tri * N + rows * tri * H
               + 2 * heads * (2 * tri * P + 4 * L * N * P))
     # backward: dy and the chunk states (the wrapper's inputs) read; dx,
@@ -538,6 +561,9 @@ def _ssd_timing(dev, g, shape) -> tuple:
                     + 4 * (Bt * T * H * P + Bt * T * H + 2 * Bt * T * N
                            + 2 * H), fl_bwd)
     fwd = {"shape": [Bt, T, H, P, N], "gflop": fl_fwd / 1e9,
+           "tf32x3_bound_ms": 3 * fl_fwd / PEAK_TF32 * 1e3,
+           "f32_bound_ms": fl_fwd / PEAK_F32 * 1e3,
+           "bound_ms_saving_states": fb_states,
            "ms": time_ms(lambda: SSD.ssd_scan_fwd_kernel(
                x, dt, A, B, C, D), iters=20),
            "ms_saving_states": time_ms(lambda: SSD.ssd_scan_fwd_kernel(

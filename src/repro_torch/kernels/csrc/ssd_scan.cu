@@ -60,6 +60,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -78,9 +79,6 @@ constexpr int kColsP = kPMax / 32;      // columns per lane: P columns
 constexpr int kColsN = kNMax / 32;      // columns per lane: N columns
 constexpr int kVec = 16;                // per-chunk vectors of length L
 
-constexpr size_t kFwdSmem =
-    sizeof(float) * (kPMax * kLdN + kL * kLdP + 2 * kL * kLdN +
-                     kL * kLdL + kVec * kL + kWarps);
 constexpr size_t kBwdSmem =
     sizeof(float) * (2 * kPMax * kLdN + 2 * kL * kLdP + 2 * kL * kLdN +
                      2 * kL * kLdL + kVec * kL + kWarps);
@@ -145,6 +143,155 @@ __device__ void chunk_cumsum(const float* dts, float* ss, float Ah) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward: every product on the tensor cores by 3xTF32
+// ---------------------------------------------------------------------------
+
+// mma.sync m16n8k8 fragments, lane = 4 g + i: a0 (g, i), a1 (g + 8, i), a2
+// (g, i + 4), a3 (g + 8, i + 4); b0 (k i, n g), b1 (k i + 4, n g); c0, c1 (g,
+// 2i and 2i + 1), c2, c3 (g + 8, the same columns).
+
+// x = big + small: big is x rounded to TF32's 10-bit mantissa (add half of
+// its last place, clear the 13 bits below), small = x - big exactly, passed
+// as f32 bits, of which the tensor core reads the top 19 (TF32). big carries
+// x's top 11 significant bits and small the next 11, so what the core sees
+// is x to about 2^-21.
+template <int N>
+struct Split {
+  uint32_t big[N], small[N];
+};
+
+template <int N>
+__device__ __forceinline__ Split<N> split(const float (&x)[N]) {
+  Split<N> f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    f.big[j] = (__float_as_uint(x[j]) + 0x1000u) & 0xffffe000u;
+    f.small[j] = __float_as_uint(x[j] - __uint_as_float(f.big[j]));
+  }
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b in f32 by 3xTF32: a.b = big.big + big.small + small.big, the
+// dropped small.small below 2^-22 of it; the small terms go in first.
+__device__ __forceinline__ void mma3(float (&c)[4], const Split<4>& a,
+                                     const Split<2>& b) {
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+// A fragment of rows m0.. of a row-major tile x[m][k], columns k0..
+template <int LD>
+__device__ __forceinline__ Split<4> frag_a(const float* x, int m0, int k0,
+                                           int lane) {
+  const float* p = x + (m0 + (lane >> 2)) * LD + k0 + (lane & 3);
+  const float v[4] = {p[0], p[8 * LD], p[4], p[8 * LD + 4]};
+  return split(v);
+}
+
+// B fragment of B = x^T for a row-major x[n][k]: B[k][n] = x[n][k]
+template <int LD>
+__device__ __forceinline__ Split<2> frag_bt(const float* x, int n0, int k0,
+                                            int lane) {
+  const float* p = x + (n0 + (lane >> 2)) * LD + k0 + (lane & 3);
+  const float v[2] = {p[0], p[4]};
+  return split(v);
+}
+
+// B fragment of a row-major x[k][n]
+template <int LD>
+__device__ __forceinline__ Split<2> frag_b(const float* x, int n0, int k0,
+                                           int lane) {
+  const float* p = x + (k0 + (lane & 3)) * LD + n0 + (lane >> 2);
+  const float v[2] = {p[0], p[4 * LD]};
+  return split(v);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(to),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(to),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// The forward's shared-memory tiles for state sizes N <= NMAX. A tile whose
+// fragments are read along its rows (lane -> row lane / 4, column lane % 4)
+// has a row stride of 4 mod 32; one read down its columns (lane -> row
+// lane % 4, column lane / 4), 8 mod 32: either way the 32 lanes hit 32
+// banks. Every stride is a multiple of 4 floats, so 16-byte copies align.
+template <int NMAX>
+struct FwdTiles {
+  static constexpr int kLdX = kPMax + 8;  // x [u][p], read down columns
+  static constexpr int kLdB = NMAX + 8;   // B [u][n], read down columns
+  static constexpr int kLdC = NMAX + 4;   // C [t][n], read along rows
+  static constexpr int kLdH = NMAX + 4;   // h [p][n], read along rows
+  static constexpr int kLdM = kL + 4;     // C B^T [t][u], read along rows
+  static constexpr int kH = kPMax * kLdH, kX = kL * kLdX, kB = kL * kLdB,
+                       kC = kL * kLdC, kM = kL * kLdM;
+  static constexpr size_t kSmem =
+      sizeof(float) * (kH + kX + kB + kC + kM + 2 * kL);
+};
+
+// Copy rows [0, rows) and columns [0, cols) of a chunk into a zeroed
+// [kL][COLS] tile of row stride LD, by cp.async: 16 bytes a copy when
+// `vec` (cols % 4 == 0 and the rows 16-byte aligned), else 4. The caller
+// commits and waits.
+template <int COLS, int LD>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           size_t row0, int stride, int rows,
+                                           int cols, bool vec) {
+  if (vec) {
+    constexpr int Q4 = COLS / 4;
+    for (int i = threadIdx.x; i < kL * Q4; i += kThreads) {
+      const int r = i / Q4, c = 4 * (i % Q4);
+      const bool ok = r < rows && c < cols;
+      cp_async16(dst + r * LD + c, ok ? src + row0 + (size_t)r * stride + c : src,
+                 ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kL * COLS; i += kThreads) {
+      const int r = i / COLS, c = i % COLS;
+      const bool ok = r < rows && c < cols;
+      cp_async4(dst + r * LD + c, ok ? src + row0 + (size_t)r * stride + c : src,
+                ok);
+    }
+  }
+}
+
+// One block of 8 warps per (b, h), walking the chunks in order with the
+// state h in shared memory. Per chunk: C B^T (warp w: rows 16 (w / 2).., 32
+// columns from 32 (w % 2)); y = M x + exp(s_t) C h^T + D x with M = C B^T o
+// gate o dt_u formed in the A fragments (warp w: rows 16 (w / 2).., p
+// columns 32 (w % 2)..); h = exp(total) h + x^T (w o B) (warp w: p rows 16
+// (w / 2).., n columns from (w % 2) NMAX / 2).
+template <int NMAX>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_fwd_kernel(const float* __restrict__ x,
                     const float* __restrict__ dt,
@@ -152,30 +299,39 @@ ssd_scan_fwd_kernel(const float* __restrict__ x,
                     const float* __restrict__ Cm, const float* __restrict__ D,
                     float* __restrict__ y, float* __restrict__ fin,
                     float* __restrict__ states, int T, int H, int P, int N) {
-  extern __shared__ float sm[];
-  float* hs = sm;                   // [P][N]   state
-  float* xs = hs + kPMax * kLdN;    // [L][P]
-  float* bs = xs + kL * kLdP;       // [L][N]
-  float* cs = bs + kL * kLdN;       // [L][N]
-  float* ms = cs + kL * kLdN;       // [L][L]   M = CB o gate o dt_u
-  float* ss = ms + kL * kLdL;       // [L]      cumulative log decay
-  float* dts = ss + kL;             // [L]
-  float* ws = dts + kL;             // [L]      exp(total - s_u) dt_u
+  using F = FwdTiles<NMAX>;
+  extern __shared__ __align__(16) float fsm[];
+  float* hs = fsm;          // [P][N]  state
+  float* xs = hs + F::kH;   // [L][P]
+  float* bs = xs + F::kX;   // [L][N]
+  float* cs = bs + F::kB;   // [L][N]
+  float* ms = cs + F::kC;   // [L][L]  C B^T
+  float* ss = ms + F::kM;   // [L]     cumulative log decay
+  float* dts = ss + kL;     // [L]
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, i4 = lane & 3;
+  const int r = warp >> 1, half = warp & 1;
   const float Ah = A[h], Dh = D[h];
   const int nc = (T + kL - 1) / kL;
   const size_t bh = (size_t)b * H + h;
+  const bool vec = P % 4 == 0 && N % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(Bm) |
+                     reinterpret_cast<uintptr_t>(Cm)) & 15) == 0;
 
-  for (int i = threadIdx.x; i < kPMax * kLdN; i += kThreads) hs[i] = 0.f;
+  for (int i = threadIdx.x; i < F::kH; i += kThreads) hs[i] = 0.f;
 
   for (int c = 0; c < nc; ++c) {
     const int t0 = c * kL;
     const int Lc = min(kL, T - t0);
     __syncthreads();  // the previous chunk is done with shared memory
-    load_xp(x, xs, (((size_t)b * T + t0) * H + h) * P, H * P, Lc, P);
-    load_bc(Bm, Cm, bs, cs, ((size_t)b * T + t0) * N, Lc, N);
+    stage_rows<kPMax, F::kLdX>(xs, x, (((size_t)b * T + t0) * H + h) * P,
+                               H * P, Lc, P, vec);
+    stage_rows<NMAX, F::kLdB>(bs, Bm, ((size_t)b * T + t0) * N, N, Lc, N, vec);
+    stage_rows<NMAX, F::kLdC>(cs, Cm, ((size_t)b * T + t0) * N, N, Lc, N, vec);
+    cp_async_commit();
     if (threadIdx.x < kL)
       dts[threadIdx.x] = threadIdx.x < Lc
                              ? dt[((size_t)b * T + t0 + threadIdx.x) * H + h]
@@ -183,117 +339,123 @@ ssd_scan_fwd_kernel(const float* __restrict__ x,
     if (states) {  // the state entering chunk c, for the backward
       float* dst = states + (bh * nc + c) * (size_t)P * N;
       for (int i = threadIdx.x; i < P * N; i += kThreads)
-        dst[i] = hs[(i / N) * kLdN + i % N];
+        dst[i] = hs[(i / N) * F::kLdH + i % N];
     }
+    cp_async_wait_all();
     __syncthreads();
     chunk_cumsum(dts, ss, Ah);
-    __syncthreads();
-    const float total = ss[kL - 1];
-    if (threadIdx.x < kL)
-      ws[threadIdx.x] = expf(total - ss[threadIdx.x]) * dts[threadIdx.x];
 
-    // M[t][u] = (C_t . B_u) exp(s_t - s_u) dt_u for u <= t, else 0
-    {
-      const int r0 = warp * kRowsL;
-      float acc[kRowsL][kColsL] = {};
-      for (int n = 0; n < N; ++n) {
-        float yv[kColsL];
+    // C B^T: warp (r, half) computes rows 16 r.., columns 32 half.. unless
+    // they lie wholly above the diagonal
+    if (!(half == 1 && r < 2)) {
+      float acc[4][4] = {};
 #pragma unroll
-        for (int j = 0; j < kColsL; ++j) yv[j] = bs[(lane + 32 * j) * kLdN + n];
+      for (int ks = 0; ks < NMAX / 8; ++ks) {
+        const Split<4> a = frag_a<F::kLdC>(cs, 16 * r, 8 * ks, lane);
 #pragma unroll
-        for (int i = 0; i < kRowsL; ++i) {
-          const float xv = cs[(r0 + i) * kLdN + n];
-#pragma unroll
-          for (int j = 0; j < kColsL; ++j) acc[i][j] = fmaf(xv, yv[j], acc[i][j]);
-        }
+        for (int q = 0; q < 4; ++q)
+          mma3(acc[q], a, frag_bt<F::kLdB>(bs, 32 * half + 8 * q, 8 * ks, lane));
       }
 #pragma unroll
-      for (int i = 0; i < kRowsL; ++i) {
-        const int t = r0 + i;
-#pragma unroll
-        for (int j = 0; j < kColsL; ++j) {
-          const int u = lane + 32 * j;
-          ms[t * kLdL + u] =
-              u <= t ? acc[i][j] * expf(ss[t] - ss[u]) * dts[u] : 0.f;
-        }
+      for (int q = 0; q < 4; ++q) {
+        float* p = ms + (16 * r + g) * F::kLdM + 32 * half + 8 * q + 2 * i4;
+        *reinterpret_cast<float2*>(p) = make_float2(acc[q][0], acc[q][1]);
+        *reinterpret_cast<float2*>(p + 8 * F::kLdM) =
+            make_float2(acc[q][2], acc[q][3]);
       }
     }
-    __syncthreads();
+    __syncthreads();  // C B^T and s ready
 
     // y[t][p] = sum_u M[t][u] x[u][p] + exp(s_t) sum_n C[t][n] h[p][n]
-    //         + D x[t][p]
+    //         + D x[t][p], M[t][u] = (C B^T)[t][u] exp(s_t - s_u) dt_u, u <= t
     {
-      const int r0 = warp * kRowsL;
-      float ai[kRowsL][kColsP] = {};
-      float ae[kRowsL][kColsP] = {};
-      const int umax = r0 + kRowsL;  // M[t][u] = 0 for u > t
-      for (int u = 0; u < umax; ++u) {
-        float yv[kColsP];
+      const int ta = 16 * r + g, tb = ta + 8;
+      const float sa = ss[ta], sb = ss[tb];
+      float yi[4][4] = {}, ye[4][4] = {};
+      for (int ks = 0; ks < 2 * r + 2; ++ks) {  // M[t][u] = 0 for u > t
+        const int u0 = 8 * ks + i4, u1 = u0 + 4;
+        const float su0 = ss[u0], su1 = ss[u1], d0 = dts[u0], d1 = dts[u1];
+        const float* mp = ms + ta * F::kLdM;
+        // the gate is exponentiated only where u <= t
+        const float e0 = expf(u0 <= ta ? sa - su0 : 0.f);
+        const float e1 = expf(u0 <= tb ? sb - su0 : 0.f);
+        const float e2 = expf(u1 <= ta ? sa - su1 : 0.f);
+        const float e3 = expf(u1 <= tb ? sb - su1 : 0.f);
+        const float v[4] = {u0 <= ta ? mp[u0] * e0 * d0 : 0.f,
+                            u0 <= tb ? mp[8 * F::kLdM + u0] * e1 * d0 : 0.f,
+                            u1 <= ta ? mp[u1] * e2 * d1 : 0.f,
+                            u1 <= tb ? mp[8 * F::kLdM + u1] * e3 * d1 : 0.f};
+        const Split<4> a = split(v);
 #pragma unroll
-        for (int j = 0; j < kColsP; ++j) yv[j] = xs[u * kLdP + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kRowsL; ++i) {
-          const float xv = ms[(r0 + i) * kLdL + u];
-#pragma unroll
-          for (int j = 0; j < kColsP; ++j) ai[i][j] = fmaf(xv, yv[j], ai[i][j]);
-        }
-      }
-      for (int n = 0; n < N; ++n) {
-        float yv[kColsP];
-#pragma unroll
-        for (int j = 0; j < kColsP; ++j) yv[j] = hs[(lane + 32 * j) * kLdN + n];
-#pragma unroll
-        for (int i = 0; i < kRowsL; ++i) {
-          const float xv = cs[(r0 + i) * kLdN + n];
-#pragma unroll
-          for (int j = 0; j < kColsP; ++j) ae[i][j] = fmaf(xv, yv[j], ae[i][j]);
-        }
+        for (int q = 0; q < 4; ++q)
+          mma3(yi[q], a, frag_b<F::kLdX>(xs, 32 * half + 8 * q, 8 * ks, lane));
       }
 #pragma unroll
-      for (int i = 0; i < kRowsL; ++i) {
-        const int t = r0 + i;
-        if (t >= Lc) continue;
-        const float es = expf(ss[t]);
-        float* yrow = y + (((size_t)b * T + t0 + t) * H + h) * P;
+      for (int ks = 0; ks < NMAX / 8; ++ks) {
+        const Split<4> a = frag_a<F::kLdC>(cs, 16 * r, 8 * ks, lane);
 #pragma unroll
-        for (int j = 0; j < kColsP; ++j) {
-          const int p = lane + 32 * j;
-          if (p < P) yrow[p] = ai[i][j] + es * ae[i][j] + Dh * xs[t * kLdP + p];
+        for (int q = 0; q < 4; ++q)
+          mma3(ye[q], a, frag_bt<F::kLdH>(hs, 32 * half + 8 * q, 8 * ks, lane));
+      }
+      const float ea = expf(sa), eb = expf(sb);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = 32 * half + 8 * q + 2 * i4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int t = j < 2 ? ta : tb, pj = p + (j & 1);
+          if (t < Lc && pj < P)
+            y[(((size_t)b * T + t0 + t) * H + h) * P + pj] =
+                yi[q][j] + (j < 2 ? ea : eb) * ye[q][j] +
+                Dh * xs[t * F::kLdX + pj];
         }
       }
     }
     __syncthreads();  // every read of the old state is done
 
-    // h[p][n] = exp(total) h[p][n] + sum_u x[u][p] w_u B[u][n]
+    // h[p][n] = exp(total) h[p][n] + sum_u x[u][p] w_u B[u][n],
+    // w_u = exp(total - s_u) dt_u
     {
-      const int r0 = warp * kRowsP;
-      float acc[kRowsP][kColsN] = {};
-      for (int u = 0; u < Lc; ++u) {
-        const float wu = ws[u];
-        float yv[kColsN];
+      constexpr int NQ = NMAX / 16;
+      const int p0 = 16 * r, n0 = half * (NMAX / 2);
+      const float total = ss[kL - 1], dec = expf(total);
+      float acc[NQ][4];
 #pragma unroll
-        for (int j = 0; j < kColsN; ++j) yv[j] = bs[u * kLdN + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kRowsP; ++i) {
-          const float xv = xs[u * kLdP + r0 + i] * wu;
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) acc[i][j] = fmaf(xv, yv[j], acc[i][j]);
-        }
+      for (int q = 0; q < NQ; ++q) {
+        const float* hp = hs + (p0 + g) * F::kLdH + n0 + 8 * q + 2 * i4;
+        const float2 h0 = *reinterpret_cast<const float2*>(hp);
+        const float2 h1 = *reinterpret_cast<const float2*>(hp + 8 * F::kLdH);
+        acc[q][0] = dec * h0.x;
+        acc[q][1] = dec * h0.y;
+        acc[q][2] = dec * h1.x;
+        acc[q][3] = dec * h1.y;
       }
-      const float dec = expf(total);
 #pragma unroll
-      for (int i = 0; i < kRowsP; ++i)
+      for (int ks = 0; ks < kL / 8; ++ks) {
+        const int u0 = 8 * ks + i4, u1 = u0 + 4;
+        const float w0 = expf(total - ss[u0]) * dts[u0];
+        const float w1 = expf(total - ss[u1]) * dts[u1];
+        const float* x0 = xs + u0 * F::kLdX + p0 + g;
+        const float* x1 = xs + u1 * F::kLdX + p0 + g;
+        const float v[4] = {x0[0] * w0, x0[8] * w0, x1[0] * w1, x1[8] * w1};
+        const Split<4> a = split(v);
 #pragma unroll
-        for (int j = 0; j < kColsN; ++j) {
-          float* hp = hs + (r0 + i) * kLdN + lane + 32 * j;
-          *hp = dec * *hp + acc[i][j];
-        }
+        for (int q = 0; q < NQ; ++q)
+          mma3(acc[q], a, frag_b<F::kLdB>(bs, n0 + 8 * q, 8 * ks, lane));
+      }
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        float* hp = hs + (p0 + g) * F::kLdH + n0 + 8 * q + 2 * i4;
+        *reinterpret_cast<float2*>(hp) = make_float2(acc[q][0], acc[q][1]);
+        *reinterpret_cast<float2*>(hp + 8 * F::kLdH) =
+            make_float2(acc[q][2], acc[q][3]);
+      }
     }
   }
   __syncthreads();
   float* dst = fin + bh * (size_t)P * N;
   for (int i = threadIdx.x; i < P * N; i += kThreads)
-    dst[i] = hs[(i / N) * kLdN + i % N];
+    dst[i] = hs[(i / N) * F::kLdH + i % N];
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -625,6 +787,19 @@ int set_smem(const void* fn, size_t bytes) {
                                    (int)bytes);
 }
 
+template <int NMAX>
+int launch_fwd(const float* x, const float* dt, const float* A, const float* B,
+               const float* C, const float* D, float* y, float* fin,
+               float* states, int Bt, int T, int H, int P, int N,
+               cudaStream_t stream) {
+  constexpr size_t smem = FwdTiles<NMAX>::kSmem;
+  static const int attr = set_smem((const void*)ssd_scan_fwd_kernel<NMAX>, smem);
+  if (attr) return attr;
+  ssd_scan_fwd_kernel<NMAX><<<dim3(H, Bt), kThreads, smem, stream>>>(
+      x, dt, A, B, C, D, y, fin, states, T, H, P, N);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ssd_scan_chunk() { return kL; }
@@ -641,11 +816,10 @@ extern "C" int ssd_scan_fwd_f32(const float* x, const float* dt,
                                 float* fin, float* states, int Bt, int T,
                                 int H, int P, int N, void* stream) {
   if (Bt <= 0 || H <= 0 || T <= 0) return 0;
-  static const int attr = set_smem((const void*)ssd_scan_fwd_kernel, kFwdSmem);
-  if (attr) return attr;
-  ssd_scan_fwd_kernel<<<dim3(H, Bt), kThreads, kFwdSmem, (cudaStream_t)stream>>>(
-      x, dt, A, B, C, D, y, fin, states, T, H, P, N);
-  return (int)cudaGetLastError();
+  return N <= 64 ? launch_fwd<64>(x, dt, A, B, C, D, y, fin, states, Bt, T, H,
+                                  P, N, (cudaStream_t)stream)
+                 : launch_fwd<128>(x, dt, A, B, C, D, y, fin, states, Bt, T,
+                                   H, P, N, (cudaStream_t)stream);
 }
 
 // Backward: the forward's inputs, its chunk states, dy (Bt,T,H,P) and dfin

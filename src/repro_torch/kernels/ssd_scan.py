@@ -126,6 +126,22 @@ def ssd_scan_plain(x, dt, A, B, C, D, chunk_size: int
     return ssd_reference_plain(x, dt, A, B, C, D)
 
 
+def ssd_chunk_states_plain(x, dt, A, B, C, D, chunk: int = 64) -> Tensor:
+    """The state entering each chunk of ``chunk`` steps, (Bt, H, ceil(T /
+    chunk), P, N): zero, then the final state of `ssd_scan_plain` on each
+    prefix of ``chunk``·c steps. What the forward kernel saves for the
+    backward, at its own chunk length (64)."""
+    Bt, T, H, P = x.shape
+    N = B.shape[-1]
+    nc = -(-T // chunk)
+    states = [x.new_zeros((Bt, H, P, N), dtype=_acc_dtype(x))]
+    for c in range(1, nc):
+        t = c * chunk
+        states.append(ssd_scan_plain(x[:, :t], dt[:, :t], A, B[:, :t],
+                                     C[:, :t], D, chunk)[1])
+    return torch.stack(states, dim=2)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------

@@ -164,16 +164,108 @@ def cuda():
     return torch.device("cuda")
 
 
+# the kernels' cases: both LM paths' shapes at batch 1 (N = 128, and the
+# hybrid path's N = 64), T = 1, a ragged T, dt·A = -10 a step and A = 0;
+# held against the plain version in float64 at chip_smoke.py's tolerances:
+# 1e-4 for float32 sums in another order and chunking, 2e-3 at dt·A = -10,
+# where the kernels' cumsum over a 64-chunk reaches -640 and s_t - s_u
+# carries ~4e-5 of absolute rounding into every e^-10(t-u) term
+SSD_KERNEL_CASES = [
+    ("lm", (1, 512, 32, 64, 128), "model"),
+    ("hybrid", (1, 512, 112, 64, 64), "model"),
+    ("T=1", (2, 1, 4, 64, 128), "model"),
+    ("T=200", (2, 200, 4, 64, 32), "model"),
+    ("decay", (1, 512, 8, 64, 128), "decay"),
+    ("A=0", (1, 512, 4, 64, 128), "A=0"),
+]
+
+
+def _kernel_inputs(shape, kind, seed=0):
+    """`_inputs` with dt around 0.05 (the model's range) and, for "decay",
+    dt·A = -10 every step, for "A=0", no decay at all."""
+    Bt, T, H, P, N = shape
+    x, dt, A, B, C, D = _inputs(Bt, T, H, P, N, seed)
+    dt = (dt * 0.05).astype(np.float32)
+    if kind == "decay":
+        dt = np.broadcast_to(10.0 / -A, dt.shape).astype(np.float32)
+    if kind == "A=0":
+        A = np.zeros_like(A)
+    return x, dt, A, B, C, D
+
+
 @pytest.mark.cuda
-def test_ssd_kernels_match_plain(cuda):
-    ins = [torch.from_numpy(a).to(cuda) for a in _inputs(2, 200, 4, 64, 32)]
-    leaves = [t.clone().requires_grad_() for t in ins]
+@pytest.mark.parametrize("name,shape,kind", SSD_KERNEL_CASES,
+                         ids=[c[0] for c in SSD_KERNEL_CASES])
+def test_ssd_kernels_match_plain(cuda, name, shape, kind):
+    """y, the final state and all six gradients of a random linear function
+    of both, kernels against the plain version in float64."""
+    tol = 2e-3 if kind == "decay" else 1e-4
+    ins = _kernel_inputs(shape, kind)
+    rng = np.random.default_rng(7)
+    gy = torch.from_numpy(rng.standard_normal(ins[0].shape)).to(cuda)
+    gf = torch.from_numpy(rng.standard_normal(
+        (shape[0], shape[2], shape[3], shape[4]))).to(cuda)
+    leaves = [torch.from_numpy(a).to(cuda).requires_grad_() for a in ins]
     y, st = SSD.SSDScan.apply(*leaves)
-    gk = torch.autograd.grad(y.sum() + st.sum(), leaves)
-    leaves2 = [t.clone().requires_grad_() for t in ins]
+    gk = torch.autograd.grad((y * gy.float()).sum() + (st * gf.float()).sum(),
+                             leaves)
+    leaves2 = [torch.from_numpy(a).to(cuda).double().requires_grad_()
+               for a in ins]
     y2, st2 = SSD.ssd_scan_plain(*leaves2, 64)
-    gp = torch.autograd.grad(y2.sum() + st2.sum(), leaves2)
-    assert _rel(y.detach().cpu(), y2.detach().cpu()) < 1e-4
-    assert _rel(st.detach().cpu(), st2.detach().cpu()) < 1e-4
-    for a, b in zip(gk, gp):
-        assert _rel(a.cpu(), b.cpu()) < 1e-4
+    gp = torch.autograd.grad((y2 * gy).sum() + (st2 * gf).sum(), leaves2)
+    assert _rel(y.detach().cpu(), y2.detach().cpu()) < tol
+    assert _rel(st.detach().cpu(), st2.detach().cpu()) < tol
+    scale = max(float(b.abs().max()) for b in gp)
+    for nm, a, b in zip(("x", "dt", "A", "B", "C", "D"), gk, gp):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        # a gradient that is exactly zero on the plain side (dA at T = 1)
+        # is held at the tolerance times the case's largest gradient entry
+        err = _rel(a, b) if np.abs(b).max() > 0 else \
+            float(np.abs(a - b).max()) / scale
+        assert err < tol, nm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 200, 4, 64, 32), (1, 512, 8, 64, 128),
+                                   (1, 300, 16, 64, 64)])
+def test_ssd_forward_saved_states_match_plain(cuda, shape):
+    """The chunk-start states the forward saves for the backward equal the
+    plain state after each prefix of 64·c steps."""
+    ins = [torch.from_numpy(a).to(cuda)
+           for a in _kernel_inputs(shape, "model", seed=3)]
+    _, _, states = SSD.ssd_scan_fwd_kernel(*ins, save_states=True)
+    ref = SSD.ssd_chunk_states_plain(*(t.double() for t in ins), 64)
+    assert states.shape == ref.shape
+    assert _rel(states.cpu(), ref.cpu()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_ssd_forward_repeats(cuda):
+    """The forward has no atomics: two calls on one input agree bitwise in
+    y, the final state and the saved states."""
+    ins = [torch.from_numpy(a).to(cuda)
+           for a in _kernel_inputs((2, 300, 8, 64, 128), "model", seed=4)]
+    first = SSD.ssd_scan_fwd_kernel(*ins, save_states=True)
+    second = SSD.ssd_scan_fwd_kernel(*ins, save_states=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Bt,T,H,P,N", [(1, 150, 2, 8, 4),
+                                        (2, 130, 3, 16, 8)])
+def test_ssd_chunk_states_plain_matches_pallas(Bt, T, H, P, N):
+    """The plain chunk-start states the kernel's saved states are held
+    against: zero, then the final state of the Pallas kernel (interpret
+    mode) on each prefix of 64·c steps."""
+    ins = _inputs(Bt, T, H, P, N, seed=5)
+    states = SSD.ssd_chunk_states_plain(*map(torch.from_numpy, ins), 64)
+    assert states.shape == (Bt, H, -(-T // 64), P, N)
+    assert not states[:, :, 0].any()
+    for c in range(1, states.shape[2]):
+        t = 64 * c
+        pre = [ins[0][:, :t], ins[1][:, :t], ins[2], ins[3][:, :t],
+               ins[4][:, :t], ins[5]]
+        _, st = jax_ssd_scan(*map(jnp.asarray, pre), chunk=16,
+                             interpret=True)
+        np.testing.assert_allclose(states[:, :, c].numpy(), np.asarray(st),
+                                   rtol=3e-4, atol=3e-4)
