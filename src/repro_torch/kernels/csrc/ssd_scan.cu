@@ -245,6 +245,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // has a row stride of 4 mod 32; one read down its columns (lane -> row
 // lane % 4, column lane / 4), 8 mod 32: either way the 32 lanes hit 32
 // banks. Every stride is a multiple of 4 floats, so 16-byte copies align.
+constexpr int kFwdThreads = 512;  // the scan kernel's 16 warps
+
 template <int NMAX>
 struct FwdTiles {
   static constexpr int kLdX = kPMax + 8;  // x [u][p], read down columns
@@ -254,8 +256,10 @@ struct FwdTiles {
   static constexpr int kLdM = kL + 4;     // C B^T [t][u], read along rows
   static constexpr int kH = kPMax * kLdH, kX = kL * kLdX, kB = kL * kLdB,
                        kC = kL * kLdC, kM = kL * kLdM;
-  static constexpr size_t kSmem =
-      sizeof(float) * (kH + kX + kB + kC + kM + 2 * kL);
+  // x, B, M, and s, dt, w, exp(s) of a chunk
+  static constexpr int kEarly = kX + kB + kM + 4 * kL;
+  static constexpr size_t kSmem = sizeof(float) * (kH + kC + 2 * kEarly);
+  static constexpr size_t kPrepSmem = sizeof(float) * 2 * kL * (NMAX + 4);
 };
 
 // Copy rows [0, rows) and columns [0, cols) of a chunk into a zeroed
@@ -269,14 +273,14 @@ __device__ __forceinline__ void stage_rows(float* dst,
                                            int cols, bool vec) {
   if (vec) {
     constexpr int Q4 = COLS / 4;
-    for (int i = threadIdx.x; i < kL * Q4; i += kThreads) {
+    for (int i = threadIdx.x; i < kL * Q4; i += blockDim.x) {
       const int r = i / Q4, c = 4 * (i % Q4);
       const bool ok = r < rows && c < cols;
       cp_async16(dst + r * LD + c, ok ? src + row0 + (size_t)r * stride + c : src,
                  ok);
     }
   } else {
-    for (int i = threadIdx.x; i < kL * COLS; i += kThreads) {
+    for (int i = threadIdx.x; i < kL * COLS; i += blockDim.x) {
       const int r = i / COLS, c = i % COLS;
       const bool ok = r < rows && c < cols;
       cp_async4(dst + r * LD + c, ok ? src + row0 + (size_t)r * stride + c : src,
@@ -285,35 +289,115 @@ __device__ __forceinline__ void stage_rows(float* dst,
   }
 }
 
-// One block of 8 warps per (b, h), walking the chunks in order with the
-// state h in shared memory. Per chunk: C B^T (warp w: rows 16 (w / 2).., 32
-// columns from 32 (w % 2)); y = M x + exp(s_t) C h^T + D x with M = C B^T o
-// gate o dt_u formed in the A fragments (warp w: rows 16 (w / 2).., p
-// columns 32 (w % 2)..); h = exp(total) h + x^T (w o B) (warp w: p rows 16
-// (w / 2).., n columns from (w % 2) NMAX / 2).
+// C B^T once per (b, chunk), the 64 x 64 tile's blocks of 16 x 32 that
+// reach the diagonal or below it (warp w: rows 16 (w / 2).., columns 32 (w
+// % 2)..), into cb (Bt, nc, L, L); and every head's cumsum s over the
+// chunk, one thread a head, in chunk_cumsum's order, so that the backward's
+// s is the same bitwise, into s (Bt, nc, L, H).
 template <int NMAX>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_fwd_kernel(const float* __restrict__ x,
-                    const float* __restrict__ dt,
-                    const float* __restrict__ A, const float* __restrict__ Bm,
-                    const float* __restrict__ Cm, const float* __restrict__ D,
-                    float* __restrict__ y, float* __restrict__ fin,
-                    float* __restrict__ states, int T, int H, int P, int N) {
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_fwd_prep_kernel(const float* __restrict__ dt,
+                         const float* __restrict__ A,
+                         const float* __restrict__ Bm,
+                         const float* __restrict__ Cm, float* __restrict__ cb,
+                         float* __restrict__ s, int T, int H, int N) {
+  constexpr int LD = NMAX + 4;  // both read along rows
+  extern __shared__ __align__(16) float psm[];
+  float* bs = psm;           // [L][N]
+  float* cs = bs + kL * LD;  // [L][N]
+  const int c = blockIdx.x, b = blockIdx.y, nc = gridDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = warp >> 1, half = warp & 1;
+  const int t0 = c * kL, Lc = min(kL, T - t0);
+  const size_t bc = (size_t)b * nc + c;
+  const bool vec = N % 4 == 0 && ((reinterpret_cast<uintptr_t>(Bm) |
+                                   reinterpret_cast<uintptr_t>(Cm)) & 15) == 0;
+  stage_rows<NMAX, LD>(bs, Bm, ((size_t)b * T + t0) * N, N, Lc, N, vec);
+  stage_rows<NMAX, LD>(cs, Cm, ((size_t)b * T + t0) * N, N, Lc, N, vec);
+  cp_async_commit();
+
+  // head h's cumsum, its 64 loads in flight together
+  auto cumsum = [&](int hh, const float (&d)[kL]) {
+    const float Ah = A[hh];
+    float acc = 0.f;
+#pragma unroll
+    for (int t = 0; t < kL; ++t) {
+      acc = __fadd_rn(acc, __fmul_rn(d[t], Ah));
+      s[(bc * kL + t) * H + hh] = acc;
+    }
+  };
+  auto load_dt = [&](int hh, float (&d)[kL]) {
+#pragma unroll
+    for (int t = 0; t < kL; ++t)
+      d[t] = t < Lc ? dt[((size_t)b * T + t0 + t) * H + hh] : 0.f;
+  };
+  float d[kL];
+  if (threadIdx.x < H) load_dt(threadIdx.x, d);
+  cp_async_wait_all();
+  __syncthreads();
+
+  if (!(half == 1 && r < 2)) {  // else wholly above the diagonal
+    float acc[4][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < NMAX / 8; ++ks) {
+      const Split<4> a = frag_a<LD>(cs, 16 * r, 8 * ks, lane);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        mma3(acc[q], a, frag_bt<LD>(bs, 32 * half + 8 * q, 8 * ks, lane));
+    }
+    const int g = lane >> 2, i4 = lane & 3;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float* p = cb + (bc * kL + 16 * r + g) * kL + 32 * half + 8 * q + 2 * i4;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[q][0], acc[q][1]);
+      *reinterpret_cast<float2*>(p + 8 * kL) =
+          make_float2(acc[q][2], acc[q][3]);
+    }
+  }
+  if (threadIdx.x < H) cumsum(threadIdx.x, d);
+  for (int hh = threadIdx.x + kThreads; hh < H; hh += kThreads) {
+    load_dt(hh, d);
+    cumsum(hh, d);
+  }
+}
+
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
+
+// One block of 16 warps per (b, h), walking the chunks in order with the
+// state h in shared memory. Per chunk: y = M x + (exp(s_t) C) h^T + D x
+// (warp w: rows 16 (w / 4).., p columns 16 (w % 4)..; the 4 warps of a
+// scheduler hold the 4 row blocks, so M x's triangle is shared evenly
+// between the schedulers); then h = exp(total) h + x^T (w o B) (warp w: p
+// rows 16 (w / 4).., n columns from (w % 4) NMAX / 4). Chunk c + 1's x, B,
+// C B^T, s and dt load into a second buffer while chunk c computes its y;
+// then every thread turns C B^T into M = C B^T o gate o dt_u in place,
+// and w_u and exp(s_t) beside it, before chunk c's state update; chunk c +
+// 1's C loads into the one buffer once chunk c's y is done with it.
+template <int NMAX>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+ssd_scan_fwd_scan_kernel(const float* __restrict__ x,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ D,
+                         const float* __restrict__ Bm,
+                         const float* __restrict__ Cm,
+                         const float* __restrict__ cb,
+                         const float* __restrict__ sc, float* __restrict__ y,
+                         float* __restrict__ fin, float* __restrict__ states,
+                         int T, int H, int P, int N) {
   using F = FwdTiles<NMAX>;
   extern __shared__ __align__(16) float fsm[];
-  float* hs = fsm;          // [P][N]  state
-  float* xs = hs + F::kH;   // [L][P]
-  float* bs = xs + F::kX;   // [L][N]
-  float* cs = bs + F::kB;   // [L][N]
-  float* ms = cs + F::kC;   // [L][L]  C B^T
-  float* ss = ms + F::kM;   // [L]     cumulative log decay
-  float* dts = ss + kL;     // [L]
+  float* hs = fsm;            // [P][N]  state
+  float* cs = hs + F::kH;     // [L][N]
+  float* early = cs + F::kC;  // two of: x [L][P], B [L][N], M [L][L], and
+                              // s, dt, w, exp(s) [L] each
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, i4 = lane & 3;
-  const int r = warp >> 1, half = warp & 1;
-  const float Ah = A[h], Dh = D[h];
+  const float Dh = D[h];
   const int nc = (T + kL - 1) / kL;
   const size_t bh = (size_t)b * H + h;
   const bool vec = P % 4 == 0 && N % 4 == 0 &&
@@ -321,104 +405,142 @@ ssd_scan_fwd_kernel(const float* __restrict__ x,
                      reinterpret_cast<uintptr_t>(Bm) |
                      reinterpret_cast<uintptr_t>(Cm)) & 15) == 0;
 
-  for (int i = threadIdx.x; i < F::kH; i += kThreads) hs[i] = 0.f;
+  auto load_early = [&](int c) {
+    const int t0 = c * kL, Lc = min(kL, T - t0);
+    float* xs = early + (c & 1) * F::kEarly;
+    stage_rows<kPMax, F::kLdX>(xs, x, (((size_t)b * T + t0) * H + h) * P,
+                               H * P, Lc, P, vec);
+    stage_rows<NMAX, F::kLdB>(xs + F::kX, Bm, ((size_t)b * T + t0) * N, N,
+                              Lc, N, vec);
+    // row t of C B^T as far as its row block's diagonal
+    float* ms = xs + F::kX + F::kB;
+    const float* src = cb + ((size_t)b * nc + c) * kL * kL;
+    for (int i = threadIdx.x; i < kL * kL / 4; i += kFwdThreads) {
+      const int t = i / (kL / 4), u = 4 * (i % (kL / 4));
+      if (u < 16 * (t / 16 + 1))
+        cp_async16(ms + t * F::kLdM + u, src + t * kL + u, true);
+    }
+    float* ss = ms + F::kM;
+    if (threadIdx.x < kL)
+      cp_async4(ss + threadIdx.x,
+                sc + (((size_t)b * nc + c) * kL + threadIdx.x) * H + h, true);
+    else if (threadIdx.x < 2 * kL) {
+      const int t = threadIdx.x - kL;
+      cp_async4(ss + kL + t,
+                t < Lc ? dt + ((size_t)b * T + t0 + t) * H + h : dt, t < Lc);
+    }
+  };
+  // M[t][u] = (C B^T)[t][u] exp(s_t - s_u) dt_u for u <= t, else 0, in
+  // place, where its row block reaches; the gate is exponentiated only
+  // where u <= t. Thread i takes column u = i % 64 of every eighth row.
+  // Beside it w_u = exp(total - s_u) dt_u and exp(s_t).
+  auto form_m = [&](int c) {
+    float* ms = early + (c & 1) * F::kEarly + F::kX + F::kB;
+    float* ss = ms + F::kM;
+    const int u = threadIdx.x % kL;
+    const float su = ss[u], du = ss[kL + u];
+    for (int t = threadIdx.x / kL; t < kL; t += kFwdThreads / kL) {
+      if (u < 16 * (t / 16 + 1)) {
+        float* m = ms + t * F::kLdM + u;
+        *m = u <= t ? *m * expf(ss[t] - su) * du : 0.f;
+      }
+    }
+    if (threadIdx.x < kL) {
+      ss[2 * kL + u] = expf(ss[kL - 1] - su) * du;
+      ss[3 * kL + u] = expf(su);
+    }
+  };
+  auto load_late = [&](int c) {
+    const int t0 = c * kL, Lc = min(kL, T - t0);
+    stage_rows<NMAX, F::kLdC>(cs, Cm, ((size_t)b * T + t0) * N, N, Lc, N, vec);
+  };
+
+  // y of row block R, p columns 16 (warp % 4)..
+  auto y_part = [&](auto r_c, const float* xs, const float* ms,
+                    const float* es, int t0, int Lc) {
+    constexpr int R = decltype(r_c)::value;
+    const int p0 = 16 * (warp & 3), ta = 16 * R + g;
+    float acc[2][4] = {};
+    // M x: M[t][u] = 0 for u > t, so row block R stops at k-slice 2 R + 1
+#pragma unroll
+    for (int ks = 0; ks < 2 * R + 2; ++ks) {
+      const Split<4> a = frag_a<F::kLdM>(ms, 16 * R, 8 * ks, lane);
+      mma3(acc[0], a, frag_b<F::kLdX>(xs, p0, 8 * ks, lane));
+      mma3(acc[1], a, frag_b<F::kLdX>(xs, p0 + 8, 8 * ks, lane));
+    }
+    // (exp(s_t) C) h^T
+    const float ea = es[ta], eb = es[ta + 8];
+#pragma unroll
+    for (int ks = 0; ks < NMAX / 8; ++ks) {
+      const float* cp = cs + ta * F::kLdC + 8 * ks + i4;
+      const float v[4] = {cp[0] * ea, cp[8 * F::kLdC] * eb, cp[4] * ea,
+                          cp[8 * F::kLdC + 4] * eb};
+      const Split<4> a = split(v);
+      mma3(acc[0], a, frag_bt<F::kLdH>(hs, p0, 8 * ks, lane));
+      mma3(acc[1], a, frag_bt<F::kLdH>(hs, p0 + 8, 8 * ks, lane));
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int t = ta + (k < 2 ? 0 : 8);
+        const int p = p0 + 8 * n + 2 * i4 + (k & 1);
+        if (t < Lc && p < P)
+          y[(((size_t)b * T + t0 + t) * H + h) * P + p] =
+              acc[n][k] + Dh * xs[t * F::kLdX + p];
+      }
+  };
+
+  for (int i = threadIdx.x; i < F::kH; i += kFwdThreads) hs[i] = 0.f;
+  load_early(0);
+  load_late(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  form_m(0);
 
   for (int c = 0; c < nc; ++c) {
     const int t0 = c * kL;
     const int Lc = min(kL, T - t0);
-    __syncthreads();  // the previous chunk is done with shared memory
-    stage_rows<kPMax, F::kLdX>(xs, x, (((size_t)b * T + t0) * H + h) * P,
-                               H * P, Lc, P, vec);
-    stage_rows<NMAX, F::kLdB>(bs, Bm, ((size_t)b * T + t0) * N, N, Lc, N, vec);
-    stage_rows<NMAX, F::kLdC>(cs, Cm, ((size_t)b * T + t0) * N, N, Lc, N, vec);
-    cp_async_commit();
-    if (threadIdx.x < kL)
-      dts[threadIdx.x] = threadIdx.x < Lc
-                             ? dt[((size_t)b * T + t0 + threadIdx.x) * H + h]
-                             : 0.f;
+    const float* xs = early + (c & 1) * F::kEarly;
+    const float* bs = xs + F::kX;
+    const float* ms = bs + F::kB;
+    const float* ss = ms + F::kM;
+    const float* ws = ss + 2 * kL;
+    cp_async_wait_all();
+    __syncthreads();  // chunk c's tiles and M are in; chunk c - 1 is done
     if (states) {  // the state entering chunk c, for the backward
       float* dst = states + (bh * nc + c) * (size_t)P * N;
-      for (int i = threadIdx.x; i < P * N; i += kThreads)
+      for (int i = threadIdx.x; i < P * N; i += kFwdThreads)
         dst[i] = hs[(i / N) * F::kLdH + i % N];
     }
+    if (c + 1 < nc) {
+      load_early(c + 1);
+      cp_async_commit();
+    }
+
+    // y[t][p] = sum_u M[t][u] x[u][p] + sum_n exp(s_t) C[t][n] h[p][n]
+    //         + D x[t][p]
+    switch (warp >> 2) {
+      case 0: y_part(Int<0>(), xs, ms, ws + kL, t0, Lc); break;
+      case 1: y_part(Int<1>(), xs, ms, ws + kL, t0, Lc); break;
+      case 2: y_part(Int<2>(), xs, ms, ws + kL, t0, Lc); break;
+      default: y_part(Int<3>(), xs, ms, ws + kL, t0, Lc);
+    }
     cp_async_wait_all();
-    __syncthreads();
-    chunk_cumsum(dts, ss, Ah);
-
-    // C B^T: warp (r, half) computes rows 16 r.., columns 32 half.. unless
-    // they lie wholly above the diagonal
-    if (!(half == 1 && r < 2)) {
-      float acc[4][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < NMAX / 8; ++ks) {
-        const Split<4> a = frag_a<F::kLdC>(cs, 16 * r, 8 * ks, lane);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          mma3(acc[q], a, frag_bt<F::kLdB>(bs, 32 * half + 8 * q, 8 * ks, lane));
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float* p = ms + (16 * r + g) * F::kLdM + 32 * half + 8 * q + 2 * i4;
-        *reinterpret_cast<float2*>(p) = make_float2(acc[q][0], acc[q][1]);
-        *reinterpret_cast<float2*>(p + 8 * F::kLdM) =
-            make_float2(acc[q][2], acc[q][3]);
-      }
+    __syncthreads();  // every read of the old state and C is done; chunk
+                      // c + 1's x, B, C B^T, s and dt are in
+    if (c + 1 < nc) {
+      load_late(c + 1);
+      cp_async_commit();
+      form_m(c + 1);
     }
-    __syncthreads();  // C B^T and s ready
 
-    // y[t][p] = sum_u M[t][u] x[u][p] + exp(s_t) sum_n C[t][n] h[p][n]
-    //         + D x[t][p], M[t][u] = (C B^T)[t][u] exp(s_t - s_u) dt_u, u <= t
+    // h[p][n] = exp(total) h[p][n] + sum_u x[u][p] w_u B[u][n]
     {
-      const int ta = 16 * r + g, tb = ta + 8;
-      const float sa = ss[ta], sb = ss[tb];
-      float yi[4][4] = {}, ye[4][4] = {};
-      for (int ks = 0; ks < 2 * r + 2; ++ks) {  // M[t][u] = 0 for u > t
-        const int u0 = 8 * ks + i4, u1 = u0 + 4;
-        const float su0 = ss[u0], su1 = ss[u1], d0 = dts[u0], d1 = dts[u1];
-        const float* mp = ms + ta * F::kLdM;
-        // the gate is exponentiated only where u <= t
-        const float e0 = expf(u0 <= ta ? sa - su0 : 0.f);
-        const float e1 = expf(u0 <= tb ? sb - su0 : 0.f);
-        const float e2 = expf(u1 <= ta ? sa - su1 : 0.f);
-        const float e3 = expf(u1 <= tb ? sb - su1 : 0.f);
-        const float v[4] = {u0 <= ta ? mp[u0] * e0 * d0 : 0.f,
-                            u0 <= tb ? mp[8 * F::kLdM + u0] * e1 * d0 : 0.f,
-                            u1 <= ta ? mp[u1] * e2 * d1 : 0.f,
-                            u1 <= tb ? mp[8 * F::kLdM + u1] * e3 * d1 : 0.f};
-        const Split<4> a = split(v);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          mma3(yi[q], a, frag_b<F::kLdX>(xs, 32 * half + 8 * q, 8 * ks, lane));
-      }
-#pragma unroll
-      for (int ks = 0; ks < NMAX / 8; ++ks) {
-        const Split<4> a = frag_a<F::kLdC>(cs, 16 * r, 8 * ks, lane);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          mma3(ye[q], a, frag_bt<F::kLdH>(hs, 32 * half + 8 * q, 8 * ks, lane));
-      }
-      const float ea = expf(sa), eb = expf(sb);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int p = 32 * half + 8 * q + 2 * i4;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = j < 2 ? ta : tb, pj = p + (j & 1);
-          if (t < Lc && pj < P)
-            y[(((size_t)b * T + t0 + t) * H + h) * P + pj] =
-                yi[q][j] + (j < 2 ? ea : eb) * ye[q][j] +
-                Dh * xs[t * F::kLdX + pj];
-        }
-      }
-    }
-    __syncthreads();  // every read of the old state is done
-
-    // h[p][n] = exp(total) h[p][n] + sum_u x[u][p] w_u B[u][n],
-    // w_u = exp(total - s_u) dt_u
-    {
-      constexpr int NQ = NMAX / 16;
-      const int p0 = 16 * r, n0 = half * (NMAX / 2);
-      const float total = ss[kL - 1], dec = expf(total);
+      constexpr int NQ = NMAX / 32;
+      const int p0 = 16 * (warp >> 2), n0 = (warp & 3) * (NMAX / 4);
+      const float dec = expf(ss[kL - 1]);
       float acc[NQ][4];
 #pragma unroll
       for (int q = 0; q < NQ; ++q) {
@@ -433,8 +555,7 @@ ssd_scan_fwd_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int ks = 0; ks < kL / 8; ++ks) {
         const int u0 = 8 * ks + i4, u1 = u0 + 4;
-        const float w0 = expf(total - ss[u0]) * dts[u0];
-        const float w1 = expf(total - ss[u1]) * dts[u1];
+        const float w0 = ws[u0], w1 = ws[u1];
         const float* x0 = xs + u0 * F::kLdX + p0 + g;
         const float* x1 = xs + u1 * F::kLdX + p0 + g;
         const float v[4] = {x0[0] * w0, x0[8] * w0, x1[0] * w1, x1[8] * w1};
@@ -454,7 +575,7 @@ ssd_scan_fwd_kernel(const float* __restrict__ x,
   }
   __syncthreads();
   float* dst = fin + bh * (size_t)P * N;
-  for (int i = threadIdx.x; i < P * N; i += kThreads)
+  for (int i = threadIdx.x; i < P * N; i += kFwdThreads)
     dst[i] = hs[(i / N) * F::kLdH + i % N];
 }
 
@@ -790,13 +911,23 @@ int set_smem(const void* fn, size_t bytes) {
 template <int NMAX>
 int launch_fwd(const float* x, const float* dt, const float* A, const float* B,
                const float* C, const float* D, float* y, float* fin,
-               float* states, int Bt, int T, int H, int P, int N,
-               cudaStream_t stream) {
-  constexpr size_t smem = FwdTiles<NMAX>::kSmem;
-  static const int attr = set_smem((const void*)ssd_scan_fwd_kernel<NMAX>, smem);
+               float* states, float* scratch, int Bt, int T, int H, int P,
+               int N, cudaStream_t stream) {
+  using F = FwdTiles<NMAX>;
+  static const int attr =
+      set_smem((const void*)ssd_scan_fwd_prep_kernel<NMAX>, F::kPrepSmem) |
+      set_smem((const void*)ssd_scan_fwd_scan_kernel<NMAX>, F::kSmem);
   if (attr) return attr;
-  ssd_scan_fwd_kernel<NMAX><<<dim3(H, Bt), kThreads, smem, stream>>>(
-      x, dt, A, B, C, D, y, fin, states, T, H, P, N);
+  const int nc = (T + kL - 1) / kL;
+  float* cb = scratch;                              // (Bt, nc, L, L)
+  float* s = scratch + (size_t)Bt * nc * kL * kL;   // (Bt, nc, L, H)
+  ssd_scan_fwd_prep_kernel<NMAX><<<dim3(nc, Bt), kThreads, F::kPrepSmem,
+                                   stream>>>(dt, A, B, C, cb, s, T, H, N);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  ssd_scan_fwd_scan_kernel<NMAX><<<dim3(H, Bt), kFwdThreads, F::kSmem,
+                                   stream>>>(
+      x, dt, D, B, C, cb, s, y, fin, states, T, H, P, N);
   return (int)cudaGetLastError();
 }
 
@@ -806,20 +937,28 @@ extern "C" int ssd_scan_chunk() { return kL; }
 extern "C" int ssd_scan_max_p() { return kPMax; }
 extern "C" int ssd_scan_max_n() { return kNMax; }
 
+// The forward's scratch, in floats: C B^T for each (b, chunk) and every
+// head's cumsum, (Bt, ceil(T/64), 64, 64 + H).
+extern "C" long long ssd_scan_fwd_scratch_floats(int Bt, int T, int H) {
+  return (long long)Bt * ((T + kL - 1) / kL) * kL * (kL + H);
+}
+
 // Forward: x (Bt,T,H,P), dt (Bt,T,H), A, D (H), B, C (Bt,T,N) float32
 // contiguous -> y (Bt,T,H,P), fin (Bt,H,P,N) and, when `states` is not
-// null, the state entering each chunk (Bt,H,ceil(T/64),P,N). Returns the
-// cudaError_t of the launch.
+// null, the state entering each chunk (Bt,H,ceil(T/64),P,N). `scratch`
+// holds ssd_scan_fwd_scratch_floats(Bt, T, H) floats. Returns the
+// cudaError_t of the launches.
 extern "C" int ssd_scan_fwd_f32(const float* x, const float* dt,
                                 const float* A, const float* B,
                                 const float* C, const float* D, float* y,
-                                float* fin, float* states, int Bt, int T,
-                                int H, int P, int N, void* stream) {
+                                float* fin, float* states, float* scratch,
+                                int Bt, int T, int H, int P, int N,
+                                void* stream) {
   if (Bt <= 0 || H <= 0 || T <= 0) return 0;
-  return N <= 64 ? launch_fwd<64>(x, dt, A, B, C, D, y, fin, states, Bt, T, H,
-                                  P, N, (cudaStream_t)stream)
-                 : launch_fwd<128>(x, dt, A, B, C, D, y, fin, states, Bt, T,
-                                   H, P, N, (cudaStream_t)stream);
+  return N <= 64 ? launch_fwd<64>(x, dt, A, B, C, D, y, fin, states, scratch,
+                                  Bt, T, H, P, N, (cudaStream_t)stream)
+                 : launch_fwd<128>(x, dt, A, B, C, D, y, fin, states, scratch,
+                                   Bt, T, H, P, N, (cudaStream_t)stream);
 }
 
 // Backward: the forward's inputs, its chunk states, dy (Bt,T,H,P) and dfin

@@ -153,10 +153,12 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = cuda_library("ssd_scan")
-    lib.ssd_scan_fwd_f32.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+    lib.ssd_scan_fwd_f32.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     lib.ssd_scan_fwd_f32.restype = _I
     lib.ssd_scan_bwd_f32.argtypes = [_P] * 15 + [_I] * 5 + [_P]
     lib.ssd_scan_bwd_f32.restype = _I
+    lib.ssd_scan_fwd_scratch_floats.argtypes = [_I] * 3
+    lib.ssd_scan_fwd_scratch_floats.restype = ctypes.c_longlong
     for fn in (lib.ssd_scan_chunk, lib.ssd_scan_max_p, lib.ssd_scan_max_n):
         fn.argtypes = []
         fn.restype = _I
@@ -199,7 +201,7 @@ def _stream(dev) -> int:
 
 def ssd_scan_fwd_kernel(x, dt, A, B, C, D, save_states: bool = False
                         ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
-    """Launch the forward kernel. Returns (y, final state, chunk-start
+    """Launch the forward kernels. Returns (y, final state, chunk-start
     states (Bt, H, ceil(T/64), P, N) or None)."""
     Bt, T, H, P, N = _check(x, dt, A, B, C, D)
     x, dt, A, B, C, D = (t.contiguous() for t in (x, dt, A, B, C, D))
@@ -211,12 +213,15 @@ def ssd_scan_fwd_kernel(x, dt, A, B, C, D, save_states: bool = False
         nc = -(-T // kernel_chunk())
         states = torch.empty((Bt, H, nc, P, N), dtype=torch.float32,
                              device=dev)
+    lib = _lib()
+    scratch = torch.empty(lib.ssd_scan_fwd_scratch_floats(Bt, T, H),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib().ssd_scan_fwd_f32(
+        err = lib.ssd_scan_fwd_f32(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), y.data_ptr(), fin.data_ptr(),
             states.data_ptr() if states is not None else None,
-            Bt, T, H, P, N, _stream(dev))
+            scratch.data_ptr(), Bt, T, H, P, N, _stream(dev))
     if err:
         raise RuntimeError(f"ssd_scan forward launch failed: cudaError {err}")
     FWD_COUNTER.bump()
