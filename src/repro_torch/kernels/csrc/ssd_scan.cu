@@ -289,11 +289,12 @@ __device__ __forceinline__ void stage_rows(float* dst,
   }
 }
 
-// C B^T once per (b, chunk), the 64 x 64 tile's blocks of 16 x 32 that
-// reach the diagonal or below it (warp w: rows 16 (w / 2).., columns 32 (w
-// % 2)..), into cb (Bt, nc, L, L); and every head's cumsum s over the
-// chunk, one thread a head, in chunk_cumsum's order, so that the backward's
-// s is the same bitwise, into s (Bt, nc, L, H).
+// Blocks (c, b, 0): C B^T once per (b, chunk), the 64 x 64 tile's blocks
+// of 16 x 32 that reach the diagonal or below it (warp w: rows 16 (w /
+// 2).., columns 32 (w % 2)..), into cb (Bt, nc, L, L). Blocks (c, b, 1):
+// every head's cumsum s over the chunk, one thread a head with its 64
+// loads of dt in flight together, in chunk_cumsum's order, so that the
+// backward's s is the same bitwise, into s (Bt, nc, L, H).
 template <int NMAX>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_fwd_prep_kernel(const float* __restrict__ dt,
@@ -301,63 +302,72 @@ ssd_scan_fwd_prep_kernel(const float* __restrict__ dt,
                          const float* __restrict__ Bm,
                          const float* __restrict__ Cm, float* __restrict__ cb,
                          float* __restrict__ s, int T, int H, int N) {
+  const int c = blockIdx.x, b = blockIdx.y, nc = gridDim.x;
+  const int t0 = c * kL, Lc = min(kL, T - t0);
+  const size_t bc = (size_t)b * nc + c;
+  if (blockIdx.z == 1) {
+    for (int hh = threadIdx.x; hh < H; hh += kThreads) {
+      float d[kL];
+#pragma unroll
+      for (int t = 0; t < kL; ++t)
+        d[t] = t < Lc ? dt[((size_t)b * T + t0 + t) * H + hh] : 0.f;
+      const float Ah = A[hh];
+      float acc = 0.f;
+#pragma unroll
+      for (int t = 0; t < kL; ++t) {
+        acc = __fadd_rn(acc, __fmul_rn(d[t], Ah));
+        s[(bc * kL + t) * H + hh] = acc;
+      }
+    }
+    return;
+  }
   constexpr int LD = NMAX + 4;  // both read along rows
   extern __shared__ __align__(16) float psm[];
   float* bs = psm;           // [L][N]
   float* cs = bs + kL * LD;  // [L][N]
-  const int c = blockIdx.x, b = blockIdx.y, nc = gridDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r = warp >> 1, half = warp & 1;
-  const int t0 = c * kL, Lc = min(kL, T - t0);
-  const size_t bc = (size_t)b * nc + c;
   const bool vec = N % 4 == 0 && ((reinterpret_cast<uintptr_t>(Bm) |
                                    reinterpret_cast<uintptr_t>(Cm)) & 15) == 0;
   stage_rows<NMAX, LD>(bs, Bm, ((size_t)b * T + t0) * N, N, Lc, N, vec);
   stage_rows<NMAX, LD>(cs, Cm, ((size_t)b * T + t0) * N, N, Lc, N, vec);
   cp_async_commit();
-
-  // head h's cumsum, its 64 loads in flight together
-  auto cumsum = [&](int hh, const float (&d)[kL]) {
-    const float Ah = A[hh];
-    float acc = 0.f;
-#pragma unroll
-    for (int t = 0; t < kL; ++t) {
-      acc = __fadd_rn(acc, __fmul_rn(d[t], Ah));
-      s[(bc * kL + t) * H + hh] = acc;
-    }
-  };
-  auto load_dt = [&](int hh, float (&d)[kL]) {
-#pragma unroll
-    for (int t = 0; t < kL; ++t)
-      d[t] = t < Lc ? dt[((size_t)b * T + t0 + t) * H + hh] : 0.f;
-  };
-  float d[kL];
-  if (threadIdx.x < H) load_dt(threadIdx.x, d);
   cp_async_wait_all();
   __syncthreads();
-
-  if (!(half == 1 && r < 2)) {  // else wholly above the diagonal
-    float acc[4][4] = {};
+  if (half == 1 && r < 2) return;  // wholly above the diagonal
+  float acc[4][4] = {};
 #pragma unroll
-    for (int ks = 0; ks < NMAX / 8; ++ks) {
-      const Split<4> a = frag_a<LD>(cs, 16 * r, 8 * ks, lane);
+  for (int ks = 0; ks < NMAX / 8; ++ks) {
+    const Split<4> a = frag_a<LD>(cs, 16 * r, 8 * ks, lane);
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        mma3(acc[q], a, frag_bt<LD>(bs, 32 * half + 8 * q, 8 * ks, lane));
-    }
-    const int g = lane >> 2, i4 = lane & 3;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float* p = cb + (bc * kL + 16 * r + g) * kL + 32 * half + 8 * q + 2 * i4;
-      *reinterpret_cast<float2*>(p) = make_float2(acc[q][0], acc[q][1]);
-      *reinterpret_cast<float2*>(p + 8 * kL) =
-          make_float2(acc[q][2], acc[q][3]);
-    }
+    for (int q = 0; q < 4; ++q)
+      mma3(acc[q], a, frag_bt<LD>(bs, 32 * half + 8 * q, 8 * ks, lane));
   }
-  if (threadIdx.x < H) cumsum(threadIdx.x, d);
-  for (int hh = threadIdx.x + kThreads; hh < H; hh += kThreads) {
-    load_dt(hh, d);
-    cumsum(hh, d);
+  const int g = lane >> 2, i4 = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float* p = cb + (bc * kL + 16 * r + g) * kL + 32 * half + 8 * q + 2 * i4;
+    *reinterpret_cast<float2*>(p) = make_float2(acc[q][0], acc[q][1]);
+    *reinterpret_cast<float2*>(p + 8 * kL) = make_float2(acc[q][2], acc[q][3]);
+  }
+}
+
+// dst (P x N, contiguous) = the state tile hs, 16 bytes a store when
+// `vec` (N % 4 == 0, dst 16-byte aligned as P N % 4 == 0).
+template <int LD>
+__device__ __forceinline__ void store_state(float* __restrict__ dst,
+                                            const float* hs, int P, int N,
+                                            bool vec) {
+  if (vec) {
+    const int n4 = N / 4;
+    for (int i = threadIdx.x; i < P * n4; i += blockDim.x) {
+      const int p = i / n4, n = 4 * (i % n4);
+      *reinterpret_cast<float4*>(dst + p * N + n) =
+          *reinterpret_cast<const float4*>(hs + p * LD + n);
+    }
+  } else {
+    for (int i = threadIdx.x; i < P * N; i += blockDim.x)
+      dst[i] = hs[(i / N) * LD + i % N];
   }
 }
 
@@ -482,12 +492,19 @@ ssd_scan_fwd_scan_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int n = 0; n < 2; ++n)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int t = ta + (k < 2 ? 0 : 8);
-        const int p = p0 + 8 * n + 2 * i4 + (k & 1);
-        if (t < Lc && p < P)
-          y[(((size_t)b * T + t0 + t) * H + h) * P + p] =
-              acc[n][k] + Dh * xs[t * F::kLdX + p];
+      for (int k = 0; k < 4; k += 2) {
+        const int t = ta + (k < 2 ? 0 : 8), p = p0 + 8 * n + 2 * i4;
+        if (t >= Lc || p >= P) continue;
+        float* yp = y + (((size_t)b * T + t0 + t) * H + h) * P + p;
+        const float* xp = xs + t * F::kLdX + p;
+        const float y0 = acc[n][k] + Dh * xp[0];
+        const float y1 = acc[n][k + 1] + Dh * xp[1];
+        if (vec)  // P % 4 == 0: p + 1 < P, and the pair is 8-byte aligned
+          *reinterpret_cast<float2*>(yp) = make_float2(y0, y1);
+        else {
+          yp[0] = y0;
+          if (p + 1 < P) yp[1] = y1;
+        }
       }
   };
 
@@ -509,11 +526,9 @@ ssd_scan_fwd_scan_kernel(const float* __restrict__ x,
     const float* ws = ss + 2 * kL;
     cp_async_wait_all();
     __syncthreads();  // chunk c's tiles and M are in; chunk c - 1 is done
-    if (states) {  // the state entering chunk c, for the backward
-      float* dst = states + (bh * nc + c) * (size_t)P * N;
-      for (int i = threadIdx.x; i < P * N; i += kFwdThreads)
-        dst[i] = hs[(i / N) * F::kLdH + i % N];
-    }
+    if (states)  // the state entering chunk c, for the backward
+      store_state<F::kLdH>(states + (bh * nc + c) * (size_t)P * N, hs, P, N,
+                           vec);
     if (c + 1 < nc) {
       load_early(c + 1);
       cp_async_commit();
@@ -574,9 +589,7 @@ ssd_scan_fwd_scan_kernel(const float* __restrict__ x,
     }
   }
   __syncthreads();
-  float* dst = fin + bh * (size_t)P * N;
-  for (int i = threadIdx.x; i < P * N; i += kFwdThreads)
-    dst[i] = hs[(i / N) * F::kLdH + i % N];
+  store_state<F::kLdH>(fin + bh * (size_t)P * N, hs, P, N, vec);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -921,7 +934,7 @@ int launch_fwd(const float* x, const float* dt, const float* A, const float* B,
   const int nc = (T + kL - 1) / kL;
   float* cb = scratch;                              // (Bt, nc, L, L)
   float* s = scratch + (size_t)Bt * nc * kL * kL;   // (Bt, nc, L, H)
-  ssd_scan_fwd_prep_kernel<NMAX><<<dim3(nc, Bt), kThreads, F::kPrepSmem,
+  ssd_scan_fwd_prep_kernel<NMAX><<<dim3(nc, Bt, 2), kThreads, F::kPrepSmem,
                                    stream>>>(dt, A, B, C, cb, s, T, H, N);
   const int err = (int)cudaGetLastError();
   if (err) return err;

@@ -326,6 +326,21 @@ def test_flash_attention_ablation_patches_apply(direction, name):
     assert FWD_ABLATION.patched(source, name, patches) != source
 
 
+SSD_ABLATION = _load_script(Path(__file__).resolve().parents[1] / "tools"
+                            / "ssd_fwd_ablation.py")
+
+
+@pytest.mark.parametrize("name", [name for name, patches
+                                  in SSD_ABLATION.VARIANTS.items() if patches])
+def test_ssd_scan_ablation_patches_apply(name):
+    """tools/ssd_fwd_ablation.py builds copies of ssd_scan.cu patched by
+    text: each text a variant replaces occurs exactly once in the
+    committed source, and the copy differs from it."""
+    source = (build.CSRC / "ssd_scan.cu").read_text()
+    patches = SSD_ABLATION.VARIANTS[name]
+    assert SSD_ABLATION.patched(source, name, patches) != source
+
+
 @pytest.mark.cuda
 def test_flash_attention_forward_repeats(cuda):
     """The forward sums every row in a fixed order, with no atomics: two

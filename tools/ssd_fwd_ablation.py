@@ -18,15 +18,24 @@ path's shape (8, 512, 32, 64, N 128) and the hybrid path's (8, 512, 112,
     chunk) and every head's cumsum, without the scan;
   * "no state update" (wrong sums): the scan without h's update, so y's
     products and the loads alone;
+  * "no C.h^T", "no M x" (wrong sums): y without the one or the other of
+    its two products;
+  * "M not formed" (wrong sums): C B^T taken as M after the first chunk,
+    with no gate, dt_u, w_u or exp(s_t) formed;
   * "gate not exponentiated" (wrong sums): exp(s_t - s_u) taken as 1 where
     M is formed, so what the gate's IEEE expf costs;
   * "one MMA of three" (wrong sums): each product is big.big alone
-    (1xTF32): what the two error-compensating MMAs cost.
+    (1xTF32): what the two error-compensating MMAs cost;
+  * "parallel over chunks (probe)": Mamba2's own split in place of the
+    scan kernel (tools/ssd_fwd_chunks_probe.cu): each chunk's state in
+    parallel, a pass over the chunks that is elementwise on (P, N), then
+    y in parallel; it writes and reads the chunks' states through device
+    memory, and sums h in another order.
 
 Each variant is timed twice, in the order kernel ... last, last ...
 kernel (median of 20 CUDA-event times of 10 calls back to back, so that
-the card does not wait on the host's launches); the variants that compute the
-same function give their largest difference from the kernel's y. Prints
+the card does not wait on the host's launches); the variants that compute
+the same function give their largest difference from the kernel's y. Prints
 the card's name and power limit first; exits non-zero without a card, or
 if a patch no longer applies to the source. The nvcc and timing helpers
 are scripts/flash_bwd_ablation.py's. tests/test_torch_kernels.py checks on
@@ -84,11 +93,42 @@ VARIANTS = {
                            "  if (Bt < 0) ssd_scan_fwd_scan_kernel<NMAX><<<")],
     "no state update": [("    {\n      constexpr int NQ = NMAX / 32;",
                          "    if (T < 0) {\n      constexpr int NQ = NMAX / 32;")],
+    "no C.h^T" : [("    for (int ks = 0; ks < NMAX / 8; ++ks) {\n"
+                   "      const float* cp = cs + ta * F::kLdC + 8 * ks + i4;",
+                   "    for (int ks = 0; ks < (T < 0 ? NMAX / 8 : 0); ++ks) {\n"
+                   "      const float* cp = cs + ta * F::kLdC + 8 * ks + i4;")],
+    "no M x": [("    for (int ks = 0; ks < 2 * R + 2; ++ks) {",
+                "    for (int ks = 0; ks < (T < 0 ? 2 * R + 2 : 0); ++ks) {")],
+    "M not formed": [("      form_m(c + 1);\n", "")],
     "gate not exponentiated": [("*m * expf(ss[t] - su) * du", "*m * du")],
     "one MMA of three": [("  mma_tf32(c, a.small, b.big);\n"
                           "  mma_tf32(c, a.big, b.small);\n", "")],
 }
-EXACT = ("loads not overlapped", "C.B^T per head")
+# Mamba2's split, three kernels in place of the scan; its source is
+# appended to the kernel's
+PROBE = ROOT / "tools" / "ssd_fwd_chunks_probe.cu"
+VARIANTS["parallel over chunks (probe)"] = [
+    ("template <int NMAX>\nint launch_fwd(",
+     "template <int NMAX>\n"
+     "int probe_chunks(const float* x, const float* dt, const float* D,\n"
+     "                 const float* B, const float* C, const float* cb,\n"
+     "                 const float* s, float* y, float* fin, float* states,\n"
+     "                 float* extra, int Bt, int T, int H, int P, int N,\n"
+     "                 cudaStream_t stream);\n\n"
+     "template <int NMAX>\nint launch_fwd("),
+    ("  ssd_scan_fwd_scan_kernel<NMAX><<<dim3(H, Bt), kFwdThreads, F::kSmem,\n"
+     "                                   stream>>>(\n"
+     "      x, dt, D, B, C, cb, s, y, fin, states, T, H, P, N);\n"
+     "  return (int)cudaGetLastError();",
+     "  return probe_chunks<NMAX>(x, dt, D, B, C, cb, s, y, fin, states,\n"
+     "                            s + (size_t)Bt * nc * kL * H, Bt, T, H, P,"
+     " N,\n                            stream);"),
+    ("  return (long long)Bt * ((T + kL - 1) / kL) * kL * (kL + H);",
+     "  return (long long)Bt * ((T + kL - 1) / kL) *\n"
+     "         (kL * (kL + H) + 2LL * H * kPMax * kNMax);")]
+APPEND = {"parallel over chunks (probe)": PROBE}
+EXACT = ("loads not overlapped", "C.B^T per head",
+         "parallel over chunks (probe)")
 
 
 def patched(source: str, name: str, patches: list) -> str:
@@ -105,7 +145,9 @@ def build_all() -> dict:
     """One nvcc per variant, all started together."""
     OUT.mkdir(parents=True, exist_ok=True)
     source = (build.CSRC / "ssd_scan.cu").read_text()
-    texts = {n: patched(source, n, p) for n, p in VARIANTS.items()}
+    texts = {n: patched(source, n, p)
+             + (APPEND[n].read_text() if n in APPEND else "")
+             for n, p in VARIANTS.items()}
     procs = {}
     for i, (name, text) in enumerate(texts.items()):
         (OUT / f"v{i}.cu").write_text(text)
@@ -152,7 +194,8 @@ def main() -> None:
         outs = {n: (torch.empty_like(x),
                     torch.empty(Bt, H, P, N, device=dev)) for n in libs}
         scratch = torch.empty(
-            libs["kernel"].ssd_scan_fwd_scratch_floats(Bt, T, H), device=dev)
+            max(lib.ssd_scan_fwd_scratch_floats(Bt, T, H)
+                for lib in libs.values()), device=dev)
 
         def fwd(n):
             y, fin = outs[n]
