@@ -371,6 +371,32 @@ __device__ __forceinline__ void store_state(float* __restrict__ dst,
   }
 }
 
+// Four 8 x 4 f32 blocks of a row-major tile x by one ldmatrix (each f32 is
+// two of its b16 elements): lane l gets x[m0 + l / 4 (+ 8)][k0 + l % 4 (+
+// 4)] of rows m0..m0 + 15 and columns k0..k0 + 7, in the A fragment's
+// order {a0, a1, a2, a3} = {(g, i), (g + 8, i), (g, i + 4), (g + 8, i + 4)};
+// with `cols_first`, in the order {(g, i), (g, i + 4), (g + 8, i), (g + 8,
+// i + 4)}: the B fragments {b0, b1} of x^T's n-tiles m0.. and m0 + 8...
+// Each 8-row block reads 8 rows of 16 bytes: a row stride of 4 mod 32
+// floats puts them on 32 banks.
+template <int LD>
+__device__ __forceinline__ void ldmatrix_a(float (&v)[4], const float* x,
+                                           int m0, int k0, int lane,
+                                           bool cols_first = false) {
+  const int j = lane >> 3;  // the 8 x 4 block whose row this lane names
+  const int hi_row = cols_first ? j >> 1 : j & 1;
+  const int hi_col = cols_first ? j & 1 : j >> 1;
+  const float* row = x + (m0 + (lane & 7) + 8 * hi_row) * LD + k0 + 4 * hi_col;
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  uint32_t r[4];
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = __uint_as_float(r[e]);
+}
+
 template <int V>
 struct Int {
   static constexpr int value = V;
@@ -474,7 +500,9 @@ ssd_scan_fwd_scan_kernel(const float* __restrict__ x,
     // M x: M[t][u] = 0 for u > t, so row block R stops at k-slice 2 R + 1
 #pragma unroll
     for (int ks = 0; ks < 2 * R + 2; ++ks) {
-      const Split<4> a = frag_a<F::kLdM>(ms, 16 * R, 8 * ks, lane);
+      float m[4];
+      ldmatrix_a<F::kLdM>(m, ms, 16 * R, 8 * ks, lane);
+      const Split<4> a = split(m);
       mma3(acc[0], a, frag_b<F::kLdX>(xs, p0, 8 * ks, lane));
       mma3(acc[1], a, frag_b<F::kLdX>(xs, p0 + 8, 8 * ks, lane));
     }
@@ -482,12 +510,18 @@ ssd_scan_fwd_scan_kernel(const float* __restrict__ x,
     const float ea = es[ta], eb = es[ta + 8];
 #pragma unroll
     for (int ks = 0; ks < NMAX / 8; ++ks) {
-      const float* cp = cs + ta * F::kLdC + 8 * ks + i4;
-      const float v[4] = {cp[0] * ea, cp[8 * F::kLdC] * eb, cp[4] * ea,
-                          cp[8 * F::kLdC + 4] * eb};
+      float v[4], hv[4];
+      ldmatrix_a<F::kLdC>(v, cs, 16 * R, 8 * ks, lane);
+      v[0] *= ea;
+      v[1] *= eb;
+      v[2] *= ea;
+      v[3] *= eb;
       const Split<4> a = split(v);
-      mma3(acc[0], a, frag_bt<F::kLdH>(hs, p0, 8 * ks, lane));
-      mma3(acc[1], a, frag_bt<F::kLdH>(hs, p0 + 8, 8 * ks, lane));
+      // h's B fragments of both n-tiles: {b0, b1} of p0.., then of p0 + 8..
+      ldmatrix_a<F::kLdH>(hv, hs, p0, 8 * ks, lane, true);
+      const float h0[2] = {hv[0], hv[1]}, h1[2] = {hv[2], hv[3]};
+      mma3(acc[0], a, split(h0));
+      mma3(acc[1], a, split(h1));
     }
 #pragma unroll
     for (int n = 0; n < 2; ++n)

@@ -93,10 +93,10 @@ VARIANTS = {
                            "  if (Bt < 0) ssd_scan_fwd_scan_kernel<NMAX><<<")],
     "no state update": [("    {\n      constexpr int NQ = NMAX / 32;",
                          "    if (T < 0) {\n      constexpr int NQ = NMAX / 32;")],
-    "no C.h^T" : [("    for (int ks = 0; ks < NMAX / 8; ++ks) {\n"
-                   "      const float* cp = cs + ta * F::kLdC + 8 * ks + i4;",
-                   "    for (int ks = 0; ks < (T < 0 ? NMAX / 8 : 0); ++ks) {\n"
-                   "      const float* cp = cs + ta * F::kLdC + 8 * ks + i4;")],
+    "no C.h^T": [("    for (int ks = 0; ks < NMAX / 8; ++ks) {\n"
+                  "      float v[4], hv[4];",
+                  "    for (int ks = 0; ks < (T < 0 ? NMAX / 8 : 0); ++ks) {\n"
+                  "      float v[4], hv[4];")],
     "no M x": [("    for (int ks = 0; ks < 2 * R + 2; ++ks) {",
                 "    for (int ks = 0; ks < (T < 0 ? 2 * R + 2 : 0); ++ks) {")],
     "M not formed": [("      form_m(c + 1);\n", "")],
