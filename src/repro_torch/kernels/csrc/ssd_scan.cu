@@ -16,47 +16,75 @@
 //
 // Design. The TPU kernel walks the chunks as a sequential grid axis and
 // carries the state in VMEM scratch. Hopper's blocks run in no order, so
-// here one block of 256 threads owns one (b, h) and loops over the chunks
-// itself, with the state in shared memory. The chunk length is the
-// kernel's own, L = 64: the TPU's L = 256 would need a 256 KB L x L tile,
-// more than a block's 227 KB. The chunk length changes only the rounding,
-// not the function. A ragged last chunk is zero-padded in shared memory
-// (dt, x, B, C = 0 contribute nothing), so any T runs, and this one kernel
-// serves both cases the reference tells apart (ssd_chunked when T is a
-// multiple of its chunk, the sequential ssd_reference otherwise).
-//
-// Every matrix product is written as: each warp owns whole rows of the
-// output (its operand is read at one address by all lanes, a broadcast),
-// and the lanes own consecutive columns. Every shared-memory matrix has an
-// odd row stride (cols + 1), so a column read by consecutive lanes hits
-// consecutive banks whichever index runs along the lanes. Sums accumulate
-// in float32 with IEEE expf (the file is never built with fast math). The
+// here one block owns one (b, h) and loops over the chunks itself, with
+// the state in shared memory. The chunk length is the kernels' own, L =
+// 64: the TPU's L = 256 would need a 256 KB L x L tile, more than a
+// block's 227 KB. The chunk length changes only the rounding, not the
+// function. A ragged last chunk is zero-padded in shared memory (dt, x, B,
+// C = 0 contribute nothing), so any T runs, and these kernels serve both
+// cases the reference tells apart (ssd_chunked when T is a multiple of its
+// chunk, the sequential ssd_reference otherwise). Sums accumulate in
+// float32 with IEEE expf (the file is never built with fast math). The
 // gate exp(s_t - s_u) is evaluated for u <= t only, where it is <= 1: the
 // upper triangle, which overflows, is never exponentiated.
 //
-// The forward saves the state entering each chunk, (Bt, H, nc, P, N), when
-// the caller asks for it; the backward reads them and runs the chunks in
-// reverse, carrying dh (P x N) in shared memory, so it never redoes the
-// recurrence. It returns dx, ddt, and per-(b, h) partials of dA and dD and
-// per-head partials of dB and dC (Bt, H, T, N): B and C are shared across
-// heads, and the caller sums the partials over heads in a fixed order,
-// so the result does not depend on the order in which blocks run.
+// Forward: two kernels, every product on the tensor cores by 3xTF32
+// (mma.sync m16n8k8; each f32 operand split as big + small, three TF32
+// products for each f32 one, about 21 bits kept a product, as in
+// flash_attention.cu). A prep kernel forms C B^T once per (b, chunk), since
+// B and C are shared by the heads, into a scratch of (Bt, nc, 64, 64), and
+// every head's cumsum s, one thread a head in the backward's order (so both
+// directions agree on s bitwise), into (Bt, nc, 64, H): 1.5 MB at the LM
+// path's shape, 2.9 MB at the hybrid path's, read back from L2. The scan
+// kernel is a block of 16 warps per (b, h). Per chunk: y = M x + (exp(s_t)
+// C) h^T + D x, warp w taking rows 16 (w / 4).. and p columns 16 (w %
+// 4).., so each scheduler's 4 warps hold the 4 row blocks of M x's
+// triangle; then h = exp(total) h + x^T (w o B), warp w taking p rows 16
+// (w / 4).. and n columns from (w % 4) N / 4. Chunk c + 1's x, C B^T, s,
+// dt and B load by 16-byte cp.async into a second buffer while chunk c
+// computes its y; after y, every thread turns C B^T into M = C B^T o gate
+// o dt_u in place (each gate once), with w_u and exp(s_t) beside it, and
+// chunk c + 1's C loads into the one C buffer. Tiles read along rows (C,
+// M, h) have a row stride of 4 mod 32 and are read by ldmatrix; tiles
+// read down columns (x, B), 8 mod 32: no bank conflicts. Templated on NMAX
+// = 64 or 128 (N <= NMAX): shared memory 144,384 B and 209,920 B a scan
+// block, so one block an SM; 124 and 109 registers a thread (at most 128
+// for 16 warps), the prep kernel 254, no spills (nvcc -Xptxas -v, sm_90a,
+// CUDA 12.8). No atomics: the forward is bitwise reproducible. It saves
+// the state entering each chunk, (Bt, H, nc, P, N), when the caller asks
+// for it. tools/ssd_fwd_ablation.py times it against copies with one of
+// its parts undone.
 //
-// Bound on the H100 at the LM path's shape (Bt 8, T 512, H 32, P 64,
-// N 128), forward: the arrays it must read and write (x, y 33.5 MB each,
-// B and C 2.1 MB each, the final state 8.4 MB; plus 67 MB of chunk states
-// when training) move in 24 us (44 us) at 3.35 TB/s. The products the
-// function needs at L = 64 are about 4.9 GFLOP, 73 us at the card's
-// 67 TFLOP/s float32 without tensor cores: C B^T once per (b, chunk),
-// since B and C are shared by the heads, and per head the masked product
-// with x, C h and the state update. The backward needs about 9.8 GFLOP,
-// 0.15 ms: dC and dB once on the head-summed dCB. So it is bound by
-// operations. This version does more than that: each (b, h) block forms
-// C B^T itself, and the backward's dB and dC products run per head
-// (5.9 and 13 GFLOP in all). It reads its operands from shared memory
-// with register tiles of up to 8 x 4 and does not use tensor cores (TF32
-// would round x, B and C to 10 bits); sharing C B^T across a row's heads
-// and wgmma are the levers for a later version.
+// Backward: one block of 256 threads per (b, h) reads the saved states
+// and runs the chunks in reverse, carrying dh (P x N) in shared memory, so
+// it never redoes the recurrence. It returns dx, ddt, and per-(b, h)
+// partials of dA and dD and per-head partials of dB and dC (Bt, H, T, N):
+// B and C are shared across heads, and the caller sums the partials over
+// heads in a fixed order, so the result does not depend on the order in
+// which blocks run. Every matrix product is written as: each warp owns
+// whole rows of the output (its operand is read at one address by all
+// lanes, a broadcast), and the lanes own consecutive columns. Every
+// shared-memory matrix has an odd row stride (cols + 1), so a column read
+// by consecutive lanes hits consecutive banks whichever index runs along
+// the lanes. It does not use tensor cores.
+//
+// Bounds on the H100 at the LM path's shape (Bt 8, T 512, H 32, P 64, N
+// 128). Forward: the products the function needs at L = 64 are 4.874
+// GFLOP (C B^T once per (b, chunk), and per head the masked product with
+// x, C h and the state update); by 3xTF32 at the card's 495 TFLOP/s of
+// TF32 that is 0.0295 ms, and the arrays it must read and write (x, y 33.5
+// MB each, B and C 2.1 MB each, the final state 8.4 MB; plus 67 MB of
+// chunk states when training) move in 0.0239 ms (0.0440 ms) at 3.35 TB/s.
+// At the hybrid path's (8, 512, 112, 64, N 64): 9.442 GFLOP, 0.0572 ms by
+// 3xTF32 against 0.0757 ms of bytes (0.1107 saving states). So it is bound
+// by operations at the LM shape and by bytes otherwise. It takes 0.169 ms
+// and 0.370 ms (0.178 and 0.389 saving states) on an H100 80GB HBM3 at
+// 700 W (chip_smoke.py's phase_ssd, call b7), 5.7x and 4.9x its bound; the
+// float32 FMA kernel it replaced took 0.550 and 1.621 ms. The backward
+// needs about 9.8 GFLOP, 0.15 ms at 67 TFLOP/s without tensor cores: dC
+// and dB once on the head-summed dCB, so it is bound by operations; it
+// does more (dB and dC per head, 5.9 and 13 GFLOP in all), reading its
+// operands from shared memory with register tiles of up to 8 x 4.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -240,13 +268,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
+constexpr int kFwdThreads = 512;  // the scan kernel's 16 warps
+
 // The forward's shared-memory tiles for state sizes N <= NMAX. A tile whose
 // fragments are read along its rows (lane -> row lane / 4, column lane % 4)
 // has a row stride of 4 mod 32; one read down its columns (lane -> row
 // lane % 4, column lane / 4), 8 mod 32: either way the 32 lanes hit 32
 // banks. Every stride is a multiple of 4 floats, so 16-byte copies align.
-constexpr int kFwdThreads = 512;  // the scan kernel's 16 warps
-
 template <int NMAX>
 struct FwdTiles {
   static constexpr int kLdX = kPMax + 8;  // x [u][p], read down columns

@@ -13,8 +13,10 @@ kernel against its oracle (float32 sums of products in another order);
 gradients 1e-5 of the largest entry (max|d| / max|ref|); the Mamba2 block
 2e-5 forward and 1e-4 of the largest gradient entry (the two frameworks'
 CPU matmuls also sum in another order). The CUDA kernels themselves run
-only on a card (the ``cuda``-marked test; chip_smoke.py holds them at the
-LM path's shapes).
+only on a card (the ``cuda``-marked tests; chip_smoke.py holds them at the
+LM paths' shapes); the plain chunk-start states those tests hold the
+forward's saved states against are checked here against the Pallas
+kernel.
 """
 import jax
 import jax.numpy as jnp

@@ -37,9 +37,10 @@ kernel (median of 20 CUDA-event times of 10 calls back to back, so that
 the card does not wait on the host's launches); the variants that compute
 the same function give their largest difference from the kernel's y. Prints
 the card's name and power limit first; exits non-zero without a card, or
-if a patch no longer applies to the source. The nvcc and timing helpers
-are scripts/flash_bwd_ablation.py's. tests/test_torch_kernels.py checks on
-the CPU that the patches apply to the source.
+if a patch no longer applies to the source. The patching, nvcc and timing
+helpers are tools/flash_fwd_ablation.py's and scripts/flash_bwd_ablation.py's.
+tests/test_torch_kernels.py checks on the CPU that the patches apply to the
+source.
 """
 from __future__ import annotations
 
@@ -49,9 +50,9 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "scripts"))
+sys.path.insert(0, str(ROOT / "tools"))
 
-import flash_bwd_ablation as BWD  # noqa: E402  (puts src on the path)
+from flash_fwd_ablation import BWD, patched  # noqa: E402  (src on the path)
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -129,16 +130,6 @@ VARIANTS["parallel over chunks (probe)"] = [
 APPEND = {"parallel over chunks (probe)": PROBE}
 EXACT = ("loads not overlapped", "C.B^T per head",
          "parallel over chunks (probe)")
-
-
-def patched(source: str, name: str, patches: list) -> str:
-    """source with each (old, new) of a variant applied in turn; each old
-    text must occur exactly once where it is applied."""
-    for old, new in patches:
-        if source.count(old) != 1:
-            raise SystemExit(f"{name}: patch no longer applies: {old!r}")
-        source = source.replace(old, new)
-    return source
 
 
 def build_all() -> dict:
