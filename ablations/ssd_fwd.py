@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of ``ssd_scan``'s forward kernels goes, on one card.
 
-    python3 tools/ssd_fwd_ablation.py
+    python3 ablations/ssd_fwd.py
 
 Builds copies of ``src/repro_torch/kernels/csrc/ssd_scan.cu`` with one
 part of the forward taken out or swapped, each by a text patch of the
@@ -27,7 +27,7 @@ path's shape (8, 512, 32, 64, N 128) and the hybrid path's (8, 512, 112,
   * "one MMA of three" (wrong sums): each product is big.big alone
     (1xTF32): what the two error-compensating MMAs cost;
   * "parallel over chunks (probe)": Mamba2's own split in place of the
-    scan kernel (tools/ssd_fwd_chunks_probe.cu): each chunk's state in
+    scan kernel (ablations/ssd_fwd_chunks_probe.cu): each chunk's state in
     parallel, a pass over the chunks that is elementwise on (P, N), then
     y in parallel; it writes and reads the chunks' states through device
     memory, and sums h in another order.
@@ -107,7 +107,7 @@ VARIANTS = {
 }
 # Mamba2's split, three kernels in place of the scan; its source is
 # appended to the kernel's
-PROBE = ROOT / "tools" / "ssd_fwd_chunks_probe.cu"
+PROBE = ROOT / "ablations" / "ssd_fwd_chunks_probe.cu"
 VARIANTS["parallel over chunks (probe)"] = [
     ("template <int NMAX>\nint launch_fwd(",
      "template <int NMAX>\n"

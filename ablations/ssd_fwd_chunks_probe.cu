@@ -1,5 +1,5 @@
 // The ssd_scan forward parallel over chunks, Mamba2's own split: a probe
-// that tools/ssd_fwd_ablation.py appends to csrc/ssd_scan.cu in place of
+// that ablations/ssd_fwd.py appends to csrc/ssd_scan.cu in place of
 // the scan kernel, after the prep kernel (C B^T once per (b, chunk), every
 // head's cumsum). Three launches:
 //

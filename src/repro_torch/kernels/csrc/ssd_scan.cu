@@ -52,7 +52,7 @@
 // for 16 warps), the prep kernel 254, no spills (nvcc -Xptxas -v, sm_90a,
 // CUDA 12.8). No atomics: the forward is bitwise reproducible. It saves
 // the state entering each chunk, (Bt, H, nc, P, N), when the caller asks
-// for it. tools/ssd_fwd_ablation.py times it against copies with one of
+// for it. ablations/ssd_fwd.py times it against copies with one of
 // its parts undone.
 //
 // Backward: one block of 256 threads per (b, h) reads the saved states

@@ -326,14 +326,14 @@ def test_flash_attention_ablation_patches_apply(direction, name):
     assert FWD_ABLATION.patched(source, name, patches) != source
 
 
-SSD_ABLATION = _load_script(Path(__file__).resolve().parents[1] / "tools"
-                            / "ssd_fwd_ablation.py")
+SSD_ABLATION = _load_script(Path(__file__).resolve().parents[1]
+                            / "ablations" / "ssd_fwd.py")
 
 
 @pytest.mark.parametrize("name", [name for name, patches
                                   in SSD_ABLATION.VARIANTS.items() if patches])
 def test_ssd_scan_ablation_patches_apply(name):
-    """tools/ssd_fwd_ablation.py builds copies of ssd_scan.cu patched by
+    """ablations/ssd_fwd.py builds copies of ssd_scan.cu patched by
     text: each text a variant replaces occurs exactly once in the
     committed source, and the copy differs from it."""
     source = (build.CSRC / "ssd_scan.cu").read_text()
