@@ -502,11 +502,12 @@ def phase_ssd(dev) -> list:
     fwd, bwd = _ssd_timing(dev, g, SSD_SHAPE)
     fwd_z, bwd_z = _ssd_timing(dev, g, SSD_ZAMBA_SHAPE)
     for nm, x, y in (("fwd", fwd, fwd_z), ("bwd", bwd, bwd_z)):
-        extra = [""] * 2
+        extra = [f", 3xTF32 ops {v['tf32x3_bound_ms']:.4f}, f32 FMAs "
+                 f"{v['f32_bound_ms']:.4f}" for v in (x, y)]
         if nm == "fwd":
-            extra = [f", 3xTF32 ops {v['tf32x3_bound_ms']:.4f}, saving states"
-                     f" {v['ms_saving_states']:.3f} ms against bound "
-                     f"{v['bound_ms_saving_states']:.4f}" for v in (x, y)]
+            extra = [e + f", saving states {v['ms_saving_states']:.3f} ms "
+                     f"against bound {v['bound_ms_saving_states']:.4f}"
+                     for e, v in zip(extra, (x, y))]
         log(f"ssd_scan timing {nm}: LM shape {x['ms']:.3f} ms (plain "
             f"{x['plain_ms']:.3f}, bound {x['bound_ms']:.4f} "
             f"{x['bound_by']}{extra[0]}, {x['gflop']:.3f} GFLOP); zamba2 "
@@ -541,10 +542,11 @@ def _ssd_timing(dev, g, shape) -> tuple:
     # the head-summed dCB (its tri·H additions); per head dx and dCB from
     # the masked product (2·tri·P) and the four state products
     # (4·L·N·P). What the backward kernel does beyond that (dB and dC per
-    # head) belongs to its design, not to the function. The forward
-    # computes by 3xTF32, three TF32 products for each f32 one, so its
-    # bound is those at 495 TFLOP/s or its bytes, the larger; with and
-    # without the chunk states the training call saves.
+    # head) belongs to its design, not to the function. Both directions
+    # compute by 3xTF32, three TF32 products for each f32 one, so each
+    # bound is those at 495 TFLOP/s or its bytes, the larger (the
+    # forward's with and without the chunk states the training call
+    # saves); the f32 FMA figure stands beside it.
     io_in = 4 * (2 * Bt * T * N + Bt * T * H * P + Bt * T * H + 2 * H)
     state_b = 4 * Bt * H * P * N
     tri = L * (L + 1) / 2
@@ -559,7 +561,7 @@ def _ssd_timing(dev, g, shape) -> tuple:
     # ddt, dB, dC, dA and dD written
     bb, bby = bound(io_in + 4 * Bt * T * H * P + nc * state_b
                     + 4 * (Bt * T * H * P + Bt * T * H + 2 * Bt * T * N
-                           + 2 * H), fl_bwd)
+                           + 2 * H), 3 * fl_bwd, PEAK_TF32)
     fwd = {"shape": [Bt, T, H, P, N], "gflop": fl_fwd / 1e9,
            "tf32x3_bound_ms": 3 * fl_fwd / PEAK_TF32 * 1e3,
            "f32_bound_ms": fl_fwd / PEAK_F32 * 1e3,
@@ -583,6 +585,8 @@ def _ssd_timing(dev, g, shape) -> tuple:
         torch.autograd.grad(y_plain, leaves, dy, retain_graph=True)
 
     bwd = {"shape": [Bt, T, H, P, N], "gflop": fl_bwd / 1e9,
+           "tf32x3_bound_ms": 3 * fl_bwd / PEAK_TF32 * 1e3,
+           "f32_bound_ms": fl_bwd / PEAK_F32 * 1e3,
            "ms": time_ms(lambda: SSD.ssd_scan_bwd_kernel(
                x, dt, A, B, C, D, states, dy), iters=20),
            "plain_ms": time_ms(plain_bwd, iters=10, warmup=2),

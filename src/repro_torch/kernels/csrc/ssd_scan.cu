@@ -93,82 +93,15 @@
 namespace {
 
 constexpr int kL = 64;         // chunk length
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;  // the prep kernel's 8 warps
 constexpr int kPMax = 64;      // head dim P <= 64
 constexpr int kNMax = 128;     // state size N <= 128
-constexpr int kLdP = kPMax + 1;
-constexpr int kLdN = kNMax + 1;
-constexpr int kLdL = kL + 1;
-constexpr int kRowsL = kL / kWarps;     // output rows per warp: L rows
-constexpr int kRowsP = kPMax / kWarps;  // output rows per warp: P rows
-constexpr int kColsL = kL / 32;         // columns per lane: L columns
-constexpr int kColsP = kPMax / 32;      // columns per lane: P columns
-constexpr int kColsN = kNMax / 32;      // columns per lane: N columns
-constexpr int kVec = 16;                // per-chunk vectors of length L
-
-constexpr size_t kBwdSmem =
-    sizeof(float) * (2 * kPMax * kLdN + 2 * kL * kLdP + 2 * kL * kLdN +
-                     2 * kL * kLdL + kVec * kL + kWarps);
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// Sum over the block; every thread gets the result. `red` holds kWarps
-// floats; the block synchronises inside.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) s += red[w];
-  return s;
-}
-
-// Stage one chunk of x (or dy) as [t][p], and B, C as [t][n], zero-padded
-// beyond the chunk's Lc rows and beyond P, N columns.
-__device__ void load_xp(const float* __restrict__ src, float* dst, size_t row0,
-                        int row_stride, int Lc, int P) {
-  for (int i = threadIdx.x; i < kL * kPMax; i += kThreads) {
-    const int t = i / kPMax, p = i % kPMax;
-    dst[t * kLdP + p] =
-        (t < Lc && p < P) ? src[row0 + (size_t)t * row_stride + p] : 0.f;
-  }
-}
-
-__device__ void load_bc(const float* __restrict__ Bm,
-                        const float* __restrict__ Cm, float* bs, float* cs,
-                        size_t row0, int Lc, int N) {
-  for (int i = threadIdx.x; i < kL * kNMax; i += kThreads) {
-    const int t = i / kNMax, n = i % kNMax;
-    float bv = 0.f, cv = 0.f;
-    if (t < Lc && n < N) {
-      const size_t o = row0 + (size_t)t * N + n;
-      bv = Bm[o];
-      cv = Cm[o];
-    }
-    bs[t * kLdN + n] = bv;
-    cs[t * kLdN + n] = cv;
-  }
-}
-
-// s_t = cumsum(dt_t * A) over the chunk, in order, rounded as
-// fl(fl(s_{t-1}) + fl(dt_t * A)) without contraction. Thread 0 only.
-__device__ void chunk_cumsum(const float* dts, float* ss, float Ah) {
-  if (threadIdx.x == 0) {
-    float acc = 0.f;
-    for (int t = 0; t < kL; ++t) {
-      acc = __fadd_rn(acc, __fmul_rn(dts[t], Ah));
-      ss[t] = acc;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -235,13 +168,37 @@ __device__ __forceinline__ Split<2> frag_bt(const float* x, int n0, int k0,
   return split(v);
 }
 
+// Offset of element (r, c) of a row-major tile of row stride LD. With SW
+// the tile is swizzled: LD is a multiple of 32, and column c of row r lies
+// at c ^ (8 (r % 4) + 4 (r / 4 % 2)). Fragments read along rows (8 rows of
+// 4 columns, ldmatrix's pattern) and down columns (4 rows of 8 columns)
+// then both hit 32 banks, with no padding; 4-aligned groups of 4 columns
+// stay together, for 16-byte copies and ldmatrix rows.
+template <int LD, bool SW = false>
+__device__ __forceinline__ int at(int r, int c) {
+  return r * LD + (SW ? c ^ (((r & 3) << 3) | (r & 4)) : c);
+}
+
 // B fragment of a row-major x[k][n]
-template <int LD>
+template <int LD, bool SW = false>
 __device__ __forceinline__ Split<2> frag_b(const float* x, int n0, int k0,
                                            int lane) {
-  const float* p = x + (k0 + (lane & 3)) * LD + n0 + (lane >> 2);
-  const float v[2] = {p[0], p[4 * LD]};
+  const int k = k0 + (lane & 3), n = n0 + (lane >> 2);
+  const float v[2] = {x[at<LD, SW>(k, n)], x[at<LD, SW>(k + 4, n)]};
   return split(v);
+}
+
+// A fragment of rows m0.. of x^T for a row-major x[k][m] (A[m][k] =
+// x[k][m]), columns k0.., read down x's columns; as floats, which the
+// caller may scale by row of x before the split.
+template <int LD, bool SW = false>
+__device__ __forceinline__ void frag_at(float (&v)[4], const float* x, int m0,
+                                        int k0, int lane) {
+  const int k = k0 + (lane & 3), m = m0 + (lane >> 2);
+  v[0] = x[at<LD, SW>(k, m)];
+  v[1] = x[at<LD, SW>(k, m + 8)];
+  v[2] = x[at<LD, SW>(k + 4, m)];
+  v[3] = x[at<LD, SW>(k + 4, m + 8)];
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -268,6 +225,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
+// wait until at most N of the groups committed last are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 constexpr int kFwdThreads = 512;  // the scan kernel's 16 warps
 
 // The forward's shared-memory tiles for state sizes N <= NMAX. A tile whose
@@ -291,10 +254,10 @@ struct FwdTiles {
 };
 
 // Copy rows [0, rows) and columns [0, cols) of a chunk into a zeroed
-// [kL][COLS] tile of row stride LD, by cp.async: 16 bytes a copy when
-// `vec` (cols % 4 == 0 and the rows 16-byte aligned), else 4. The caller
-// commits and waits.
-template <int COLS, int LD>
+// [kL][COLS] tile of row stride LD (swizzled with SW), by cp.async: 16
+// bytes a copy when `vec` (cols % 4 == 0 and the rows 16-byte aligned),
+// else 4. The caller commits and waits.
+template <int COLS, int LD, bool SW = false>
 __device__ __forceinline__ void stage_rows(float* dst,
                                            const float* __restrict__ src,
                                            size_t row0, int stride, int rows,
@@ -304,15 +267,15 @@ __device__ __forceinline__ void stage_rows(float* dst,
     for (int i = threadIdx.x; i < kL * Q4; i += blockDim.x) {
       const int r = i / Q4, c = 4 * (i % Q4);
       const bool ok = r < rows && c < cols;
-      cp_async16(dst + r * LD + c, ok ? src + row0 + (size_t)r * stride + c : src,
-                 ok);
+      cp_async16(dst + at<LD, SW>(r, c),
+                 ok ? src + row0 + (size_t)r * stride + c : src, ok);
     }
   } else {
     for (int i = threadIdx.x; i < kL * COLS; i += blockDim.x) {
       const int r = i / COLS, c = i % COLS;
       const bool ok = r < rows && c < cols;
-      cp_async4(dst + r * LD + c, ok ? src + row0 + (size_t)r * stride + c : src,
-                ok);
+      cp_async4(dst + at<LD, SW>(r, c),
+                ok ? src + row0 + (size_t)r * stride + c : src, ok);
     }
   }
 }
@@ -321,8 +284,9 @@ __device__ __forceinline__ void stage_rows(float* dst,
 // of 16 x 32 that reach the diagonal or below it (warp w: rows 16 (w /
 // 2).., columns 32 (w % 2)..), into cb (Bt, nc, L, L). Blocks (c, b, 1):
 // every head's cumsum s over the chunk, one thread a head with its 64
-// loads of dt in flight together, in chunk_cumsum's order, so that the
-// backward's s is the same bitwise, into s (Bt, nc, L, H).
+// loads of dt in flight together, summed in order as fl(fl(s_{t-1}) +
+// fl(dt_t A)) without contraction, into s (Bt, nc, L, H). The backward
+// launches this kernel again, so both directions use the same s bitwise.
 template <int NMAX>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_fwd_prep_kernel(const float* __restrict__ dt,
@@ -406,15 +370,16 @@ __device__ __forceinline__ void store_state(float* __restrict__ dst,
 // with `cols_first`, in the order {(g, i), (g, i + 4), (g + 8, i), (g + 8,
 // i + 4)}: the B fragments {b0, b1} of x^T's n-tiles m0.. and m0 + 8...
 // Each 8-row block reads 8 rows of 16 bytes: a row stride of 4 mod 32
-// floats puts them on 32 banks.
-template <int LD>
+// floats, or the swizzle (SW), puts them on 32 banks.
+template <int LD, bool SW = false>
 __device__ __forceinline__ void ldmatrix_a(float (&v)[4], const float* x,
                                            int m0, int k0, int lane,
                                            bool cols_first = false) {
   const int j = lane >> 3;  // the 8 x 4 block whose row this lane names
   const int hi_row = cols_first ? j >> 1 : j & 1;
   const int hi_col = cols_first ? j & 1 : j >> 1;
-  const float* row = x + (m0 + (lane & 7) + 8 * hi_row) * LD + k0 + 4 * hi_col;
+  const float* row =
+      x + at<LD, SW>(m0 + (lane & 7) + 8 * hi_row, k0 + 4 * hi_col);
   const unsigned a = (unsigned)__cvta_generic_to_shared(row);
   uint32_t r[4];
   asm volatile(
@@ -654,328 +619,559 @@ ssd_scan_fwd_scan_kernel(const float* __restrict__ x,
   store_state<F::kLdH>(fin + bh * (size_t)P * N, hs, P, N, vec);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+constexpr int kBwdThreads = 512;  // the backward's 16 warps
+
+// A warp's 16 x 8 Q accumulator tiles, rows r0.. and columns n0.., into the
+// rows [0, rows) and columns [0, cols) of a row-major dst of row stride
+// cols, 8 bytes a store when `vec` (cols % 4 == 0, dst 16-byte aligned).
+template <int Q>
+__device__ __forceinline__ void store_tile(float* __restrict__ dst,
+                                           const float (&acc)[Q][4], int r0,
+                                           int n0, int rows, int cols,
+                                           bool vec, int lane) {
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int k = 0; k < 4; k += 2) {
+      const int r = r0 + (lane >> 2) + (k ? 8 : 0);
+      const int n = n0 + 8 * q + 2 * (lane & 3);
+      if (r >= rows || n >= cols) continue;
+      float* o = dst + (size_t)r * cols + n;
+      if (vec)  // n + 1 < cols, and the pair is 8-byte aligned
+        *reinterpret_cast<float2*>(o) = make_float2(acc[q][k], acc[q][k + 1]);
+      else {
+        o[0] = acc[q][k];
+        if (n + 1 < cols) o[1] = acc[q][k + 1];
+      }
+    }
+}
+
+// The backward's shared-memory tiles for state sizes N <= NMAX, every one
+// swizzled (at<W, true>, W its width), and its vectors.
+template <int NMAX>
+struct BwdTiles {
+  static constexpr int kPN = kPMax * NMAX, kLN = kL * NMAX, kLP = kL * kPMax,
+                       kLL = kL * kL;
+  // two of: s, dt, w, exp(s), the diagonal of dM o s1 [L] each and the
+  // partial sums of dM o s1 by row and by column [4][L] each; the partial
+  // sums dw and C (dy h0) [4][L] each; one float a warp
+  static constexpr int kChunkVecs = 13 * kL;
+  static constexpr int kVecs = 2 * kChunkVecs + 8 * kL + kBwdThreads / 32;
+  // dh and h0; B and C; x and two of dy; C B^T (then s1) and dCB
+  static constexpr size_t kSmem =
+      sizeof(float) * (2 * kPN + 2 * kLN + 3 * kLP + 2 * kLL + kVecs);
+};
+
+// One block of 16 warps per (b, h), walking the chunks in reverse from the
+// saved chunk states, with dh (the gradient of the state leaving the
+// chunk) in shared memory. C B^T and s come from the prep kernel's scratch.
+// Per chunk, with s1 = C B^T o gate (u <= t) and dM = dy x^T:
+//   1. dM (warps 0-9: the 16 x 16 blocks on and below the diagonal), s1 and
+//      dCB = dM o gate o dt_u in place, the row and column sums of dM o s1;
+//      w_u and exp(s_t) (warps 10-11);
+//   2. dx = dt_u s1^T dy + w_u B dh^T + D dy, dw_u = sum_p x (B dh^T);
+//   3. dB = (w o x) dh + dCB^T C;
+//   4. dC = exp(s_t) dy h0 + dCB B, and sum_n C o (dy h0) for ds_t;
+//   5. dh = exp(total) dh + (exp(s) o dy)^T C, and sum dh o h0;
+//   6. warp 0: ds_t, its reverse cumsum and ddt, by shuffles.
+// Products 2-5: warp w takes row block 16 (w / 4).. and the quarter w % 4
+// of the columns, so each scheduler holds all four row blocks of a
+// triangle. Chunk c - 1's tiles load by cp.async as soon as chunk c is
+// done with their buffer: dy (two buffers) and s, dt at the top; C B^T
+// after 2; x after 3; B after 4; C and h0 after 5; each is waited for
+// just before its first use.
+template <int NMAX>
+__global__ void __launch_bounds__(kBwdThreads, 1)
 ssd_scan_bwd_kernel(const float* __restrict__ x,
                     const float* __restrict__ dt,
                     const float* __restrict__ A, const float* __restrict__ Bm,
                     const float* __restrict__ Cm, const float* __restrict__ D,
                     const float* __restrict__ states,
                     const float* __restrict__ dy,
-                    const float* __restrict__ dfin, float* __restrict__ dx,
+                    const float* __restrict__ dfin,
+                    const float* __restrict__ cb,
+                    const float* __restrict__ sc, float* __restrict__ dx,
                     float* __restrict__ ddt, float* __restrict__ dA_part,
                     float* __restrict__ dB_part, float* __restrict__ dC_part,
-                    float* __restrict__ dD_part, int T, int H, int P,
-                    int N) {
-  extern __shared__ float sm[];
-  float* h0 = sm;                   // [P][N]  state entering the chunk
-  float* dh = h0 + kPMax * kLdN;    // [P][N]  gradient of the state leaving it
-  float* xs = dh + kPMax * kLdN;    // [L][P]
-  float* dys = xs + kL * kLdP;      // [L][P]
-  float* bs = dys + kL * kLdP;      // [L][N]
-  float* cs = bs + kL * kLdN;       // [L][N]
-  float* s1 = cs + kL * kLdN;       // [L][L]  (C_t . B_u) exp(s_t - s_u), u <= t
-  float* s2 = s1 + kL * kLdL;       // [L][L]  dM, then dCB
-  float* ss = s2 + kL * kLdL;       // [L] cumulative log decay
-  float* dts = ss + kL;             // [L]
-  float* ws = dts + kL;             // [L] exp(total - s_u) dt_u
-  float* ddtm = ws + kL;            // [L] sum_t dM[t][u] s1[t][u]
-  float* rowe = ddtm + kL;          // [L] sum_u dM[t][u] M[t][u]
-  float* dwv = rowe + kL;           // [L] dL/dw_u
-  float* dsi = dwv + kL;            // [L] ds_t through the carried state
-  float* cole = dsi + kL;           // [L] sum_{t > u} dM[t][u] M[t][u]
-  float* red = ss + kVec * kL;      // [kWarps]
+                    float* __restrict__ dD_part, int T, int H, int P, int N) {
+  using G = BwdTiles<NMAX>;
+  constexpr int NQ = NMAX / 32;  // n-tiles of a warp's quarter of N
+  // product loops unrolled twice at NMAX 64, not at all at NMAX 128, where
+  // more in flight spills registers
+  constexpr int kUnroll = NMAX == 128 ? 1 : 2;
+  extern __shared__ __align__(16) float bsm[];
+  float* dhs = bsm;              // [P][N] dh
+  float* h0s = dhs + G::kPN;     // [P][N] the state entering the chunk
+  float* bs = h0s + G::kPN;      // [L][N]
+  float* cs = bs + G::kLN;       // [L][N]
+  float* xs = cs + G::kLN;       // [L][P]
+  float* dys = xs + G::kLP;      // two of [L][P]
+  float* s1 = dys + 2 * G::kLP;  // [L][L] C B^T, then s1
+  float* dcb = s1 + G::kLL;      // [L][L] dCB
+  float* vs = dcb + G::kLL;      // two of G::kChunkVecs, by chunk parity
+  float* dwp = vs + 2 * G::kChunkVecs;  // [4][L] dw_u, by quarter of P
+  float* dsp = dwp + 4 * kL;     // [4][L] sum_n C (dy h0), by quarter of N
+  float* red = dsp + 4 * kL;     // [16] sum dh o h0, by warp
+  // chunk c's vectors: s, dt, w_u = exp(total - s_u) dt_u, exp(s_t), the
+  // diagonal (dM o s1)[u][u], then [4][L] each: sum_{u < t} (dM o s1)
+  // dt_u by block of u, sum_{t > u} (dM o s1) by block of t
+  auto vec_of = [&](int c) { return vs + (c & 1) * G::kChunkVecs; };
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, i4 = lane & 3;
   const float Ah = A[h], Dh = D[h];
   const int nc = (T + kL - 1) / kL;
   const size_t bh = (size_t)b * H + h;
+  const bool vec = P % 4 == 0 && N % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(dy) |
+                     reinterpret_cast<uintptr_t>(Bm) |
+                     reinterpret_cast<uintptr_t>(Cm) |
+                     reinterpret_cast<uintptr_t>(states)) & 15) == 0;
 
-  for (int i = threadIdx.x; i < kPMax * kLdN; i += kThreads) {
-    const int p = i / kLdN, n = i % kLdN;
-    dh[i] = (dfin && p < P && n < N) ? dfin[(bh * P + p) * N + n] : 0.f;
+  auto xrow = [&](int c) { return (((size_t)b * T + c * kL) * H + h) * P; };
+  auto nrow = [&](int c) { return ((size_t)b * T + c * kL) * N; };
+  auto rows = [&](int c) { return min(kL, T - c * kL); };
+  auto load_dy = [&](int c) {  // dy, s and dt, into buffer c % 2
+    stage_rows<kPMax, kPMax, true>(dys + (c & 1) * G::kLP, dy, xrow(c), H * P,
+                                   rows(c), P, vec);
+    float* v = vec_of(c);
+    if (threadIdx.x < kL)
+      cp_async4(v + threadIdx.x,
+                sc + (((size_t)b * nc + c) * kL + threadIdx.x) * H + h, true);
+    else if (threadIdx.x < 2 * kL) {
+      const int t = threadIdx.x - kL;
+      const bool ok = t < rows(c);
+      cp_async4(v + kL + t, ok ? dt + ((size_t)b * T + c * kL + t) * H + h : dt,
+                ok);
+    }
+  };
+  auto load_cb = [&](int c) {  // C B^T as far as each row block's diagonal
+    const float* src = cb + ((size_t)b * nc + c) * kL * kL;
+    for (int i = threadIdx.x; i < kL * kL / 4; i += kBwdThreads) {
+      const int t = i / (kL / 4), u = 4 * (i % (kL / 4));
+      if (u < 16 * (t / 16 + 1))
+        cp_async16(s1 + at<kL, true>(t, u), src + t * kL + u, true);
+    }
+  };
+  auto load_x = [&](int c) {
+    stage_rows<kPMax, kPMax, true>(xs, x, xrow(c), H * P, rows(c), P, vec);
+  };
+  auto load_b = [&](int c) {
+    stage_rows<NMAX, NMAX, true>(bs, Bm, nrow(c), N, rows(c), N, vec);
+  };
+  auto load_ch = [&](int c) {
+    stage_rows<NMAX, NMAX, true>(cs, Cm, nrow(c), N, rows(c), N, vec);
+    stage_rows<NMAX, NMAX, true>(h0s, states, (bh * nc + c) * (size_t)P * N, N,
+                                 P, N, vec);
+  };
+  for (int i = threadIdx.x; i < G::kPN; i += kBwdThreads) {
+    const int p = i / NMAX, n = i % NMAX;
+    dhs[at<NMAX, true>(p, n)] =
+        (dfin && p < P && n < N) ? dfin[(bh * P + p) * N + n] : 0.f;
   }
+  load_dy(nc - 1);
+  load_cb(nc - 1);
+  load_x(nc - 1);
+  cp_async_commit();
+  load_b(nc - 1);
+  cp_async_commit();
+  load_ch(nc - 1);
+  cp_async_commit();
   float dA_acc = 0.f, dD_acc = 0.f;
+  // 6. chunk c's scalars: ds_t, its reverse cumsum da_t, ddt_t; lane l
+  // takes t = 2 l, 2 l + 1. total = s_{Lc-1}, so w_{Lc-1} = dt_{Lc-1} does
+  // not depend on s: its +dw w (through total) and -dw w (through s_{Lc-1})
+  // are both left out. One warp, beside chunk c - 1's step 1.
+  auto scalars = [&](int c) {
+    const int t0 = c * kL, Lc = rows(c);
+    const float* sv = vec_of(c);
+    const float *dtv = sv + kL, *ws = sv + 2 * kL, *es = sv + 3 * kL,
+                *dg = sv + 4 * kL, *rowp = sv + 5 * kL, *colp = sv + 9 * kL;
+    const float total = sv[kL - 1];
+    float dth = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdThreads / 32; ++w) dth += red[w];
+    float ds[2], ddtm[2], dwv[2], dwt = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int t = 2 * lane + j;
+      float rowe = 0.f, cole = 0.f, dw = 0.f, cg = 0.f;
+      for (int k = 0; k <= t / 16; ++k) rowe += rowp[k * kL + t];
+      for (int k = t / 16; k < 4; ++k) cole += colp[k * kL + t];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        dw += dwp[k * kL + t];
+        cg += dsp[k * kL + t];
+      }
+      dwv[j] = dw;
+      ddtm[j] = dg[t] + cole;
+      ds[j] = rowe - cole * dtv[t] + es[t] * cg;
+      if (t < Lc - 1) {
+        ds[j] -= dw * ws[t];
+        dwt += dw * ws[t];
+      }
+    }
+    const float dtot = expf(total) * dth + warp_sum(dwt);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (2 * lane + j == Lc - 1) ds[j] += dtot;
+    // da_t = sum_{tau >= t} ds_tau: a suffix scan over the lanes' pairs
+    float suf = ds[0] + ds[1];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_down_sync(0xffffffffu, suf, off);
+      if (lane + off < 32) suf += v;
+    }
+    const float later = __shfl_down_sync(0xffffffffu, suf, 1);
+    float da[2];
+    da[1] = ds[1] + (lane < 31 ? later : 0.f);
+    da[0] = ds[0] + da[1];
+    float dAc = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int t = 2 * lane + j;
+      if (t < Lc)
+        ddt[((size_t)b * T + t0 + t) * H + h] =
+            ddtm[j] + dwv[j] * expf(total - sv[t]) + da[j] * Ah;
+      dAc += da[j] * dtv[t];
+    }
+    dA_acc += warp_sum(dAc);
+  };
 
   for (int c = nc - 1; c >= 0; --c) {
-    const int t0 = c * kL;
-    const int Lc = min(kL, T - t0);
-    __syncthreads();
-    const size_t xrow0 = (((size_t)b * T + t0) * H + h) * P;
-    load_xp(x, xs, xrow0, H * P, Lc, P);
-    load_xp(dy, dys, xrow0, H * P, Lc, P);
-    load_bc(Bm, Cm, bs, cs, ((size_t)b * T + t0) * N, Lc, N);
+    const int t0 = c * kL, Lc = rows(c);
+    const float* dyc = dys + (c & 1) * G::kLP;
+    float* sv = vec_of(c);  // s, then dt, w, exp(s), ...
+    const float* dtv = sv + kL;
+    float *ws = sv + 2 * kL, *es = sv + 3 * kL, *dg = sv + 4 * kL,
+          *rowp = sv + 5 * kL, *colp = sv + 9 * kL;
+    cp_async_wait<2>();  // chunk c's dy, s, dt, C B^T and x are in
+    __syncthreads();     // and chunk c + 1's steps 2-5 are done
+
+    // 1. dM[t][u] = dy_t . x_u on the 16 x 16 blocks (R, Cb <= R), and per
+    // element u <= t: gate = exp(s_t - s_u), s1 = C B^T gate, dCB = dM gate
+    // dt_u, e = dM s1. ddt takes the column sums of e through M's dt_u
+    // factor, and ds the parts of both sums through the gate. The gate's
+    // diagonal (u = t) is exp(s_t - s_t): it adds e[t][t] to ds_t and takes
+    // it away again, so both sums leave it out rather than cancel it in
+    // rounding (beside O(1) diagonal terms the others can be e^-10 smaller).
+    if (warp < 10) {
+      const int R = warp < 1 ? 0 : warp < 3 ? 1 : warp < 6 ? 2 : 3;
+      const int Cb = warp - R * (R + 1) / 2;
+      float acc[2][4] = {};
+#pragma unroll (kUnroll)
+      for (int ks = 0; ks < kPMax / 8; ++ks) {
+        float a[4], xv[4];
+        ldmatrix_a<kPMax, true>(a, dyc, 16 * R, 8 * ks, lane);
+        // x's B fragments of both n-tiles: {b0, b1} of u 16 Cb.., then + 8
+        ldmatrix_a<kPMax, true>(xv, xs, 16 * Cb, 8 * ks, lane, true);
+        const Split<4> sa = split(a);
+        const float x0[2] = {xv[0], xv[1]}, x1[2] = {xv[2], xv[3]};
+        mma3(acc[0], sa, split(x0));
+        mma3(acc[1], sa, split(x1));
+      }
+      float rs[2] = {0.f, 0.f};             // rows g, g + 8
+      float cols[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // columns 8 q + 2 i4 + j
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int t = 16 * R + g + (k >> 1) * 8;
+          const int u = 16 * Cb + 8 * q + 2 * i4 + (k & 1);
+          float* cbp = s1 + at<kL, true>(t, u);
+          float sv1 = 0.f, dcv = 0.f, e = 0.f;
+          if (u <= t) {
+            const float gate = expf(sv[t] - sv[u]);
+            sv1 = *cbp * gate;
+            dcv = acc[q][k] * (gate * dtv[u]);
+            e = acc[q][k] * sv1;
+          }
+          *cbp = sv1;
+          dcb[at<kL, true>(t, u)] = dcv;
+          if (u == t)
+            dg[u] = e;
+          else {  // e = 0 above the diagonal
+            rs[k >> 1] += e * dtv[u];
+            cols[q][k & 1] += e;
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 1);
+        rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 2);
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+            cols[q][j] += __shfl_xor_sync(0xffffffffu, cols[q][j], off);
+      if (i4 == 0) {
+        rowp[Cb * kL + 16 * R + g] = rs[0];
+        rowp[Cb * kL + 16 * R + g + 8] = rs[1];
+      }
+      if (g == 0)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            colp[R * kL + 16 * Cb + 8 * q + 2 * i4 + j] = cols[q][j];
+    } else if (threadIdx.x < 320 + kL) {
+      const int u = threadIdx.x - 320;
+      ws[u] = expf(sv[kL - 1] - sv[u]) * dtv[u];
+      es[u] = expf(sv[u]);
+    } else if (warp == 15 && c + 1 < nc) {
+      scalars(c + 1);
+    }
+    cp_async_wait<1>();  // chunk c's B is in
+    __syncthreads();     // s1, dCB, w, exp(s) and the sums of 1 are in;
+                         // chunk c + 1's scalars are done with its buffers
+    if (c > 0) load_dy(c - 1);
+    cp_async_commit();
+
+    // 2. dx[u][p] = dt_u sum_{t >= u} s1[t][u] dy[t][p] + w_u r[u][p] + D
+    // dy[u][p], r = B dh^T; dw_u = sum_p x[u][p] r[u][p] (warp w: u rows 16
+    // (w / 4).., p columns 16 (w % 4)..)
+    auto dx_part = [&](auto u_c) {
+      constexpr int U = decltype(u_c)::value;
+      const int u0 = 16 * U, p0 = 16 * (warp & 3);
+      float da[2][4] = {}, dr[2][4] = {};
+      // s1[t][u] = 0 for t < u: from k-slice 2 U
+#pragma unroll (kUnroll)
+      for (int ks = 2 * U; ks < kL / 8; ++ks) {
+        float a[4];
+        frag_at<kL, true>(a, s1, u0, 8 * ks, lane);
+        const Split<4> sa = split(a);
+        mma3(da[0], sa, frag_b<kPMax, true>(dyc, p0, 8 * ks, lane));
+        mma3(da[1], sa, frag_b<kPMax, true>(dyc, p0 + 8, 8 * ks, lane));
+      }
+#pragma unroll (kUnroll)
+      for (int ks = 0; ks < NMAX / 8; ++ks) {
+        float a[4], hv[4];
+        ldmatrix_a<NMAX, true>(a, bs, u0, 8 * ks, lane);
+        // dh's B fragments of both n-tiles: {b0, b1} of p0.., then p0 + 8..
+        ldmatrix_a<NMAX, true>(hv, dhs, p0, 8 * ks, lane, true);
+        const Split<4> sa = split(a);
+        const float h0v[2] = {hv[0], hv[1]}, h1v[2] = {hv[2], hv[3]};
+        mma3(dr[0], sa, split(h0v));
+        mma3(dr[1], sa, split(h1v));
+      }
+      float dw[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int k = 0; k < 4; k += 2) {
+          const int u = u0 + g + (k ? 8 : 0), p = p0 + 8 * n + 2 * i4;
+          const float2 xv =
+              *reinterpret_cast<const float2*>(xs + at<kPMax, true>(u, p));
+          const float2 dv =
+              *reinterpret_cast<const float2*>(dyc + at<kPMax, true>(u, p));
+          dw[k >> 1] += xv.x * dr[n][k] + xv.y * dr[n][k + 1];
+          dD_acc += dv.x * xv.x + dv.y * xv.y;
+          const float dtu = dtv[u], wu = ws[u];
+          const float d0 = dtu * da[n][k] + wu * dr[n][k] + Dh * dv.x;
+          const float d1 = dtu * da[n][k + 1] + wu * dr[n][k + 1] + Dh * dv.y;
+          if (u >= Lc || p >= P) continue;
+          float* o = dx + xrow(c) + (size_t)u * H * P + p;
+          if (vec)  // P % 4 == 0: p + 1 < P, and the pair is 8-byte aligned
+            *reinterpret_cast<float2*>(o) = make_float2(d0, d1);
+          else {
+            o[0] = d0;
+            if (p + 1 < P) o[1] = d1;
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        dw[j] += __shfl_xor_sync(0xffffffffu, dw[j], 1);
+        dw[j] += __shfl_xor_sync(0xffffffffu, dw[j], 2);
+      }
+      if (i4 == 0) {
+        dwp[(warp & 3) * kL + u0 + g] = dw[0];
+        dwp[(warp & 3) * kL + u0 + g + 8] = dw[1];
+      }
+    };
+    switch (warp >> 2) {
+      case 0: dx_part(Int<0>()); break;
+      case 1: dx_part(Int<1>()); break;
+      case 2: dx_part(Int<2>()); break;
+      default: dx_part(Int<3>());
+    }
+    cp_async_wait<1>();  // chunk c's C and h0 are in
+    __syncthreads();     // every read of s1 is done
+    if (c > 0) load_cb(c - 1);
+    cp_async_commit();
+
+    // 3. dB[u][n] = w_u sum_p x[u][p] dh[p][n] + sum_{t >= u} dCB[t][u]
+    // C[t][n] (warp w: u rows 16 (w / 4).., n columns from (w % 4) NMAX / 4)
+    auto db_part = [&](auto u_c) {
+      constexpr int U = decltype(u_c)::value;
+      const int u0 = 16 * U, n0 = (warp & 3) * (NMAX / 4);
+      const float wa = ws[u0 + g], wb = ws[u0 + g + 8];
+      float acc[NQ][4] = {};
+#pragma unroll (kUnroll)
+      for (int ks = 0; ks < kPMax / 8; ++ks) {
+        float a[4];
+        ldmatrix_a<kPMax, true>(a, xs, u0, 8 * ks, lane);
+        a[0] *= wa;
+        a[1] *= wb;
+        a[2] *= wa;
+        a[3] *= wb;
+        const Split<4> sa = split(a);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          mma3(acc[q], sa, frag_b<NMAX, true>(dhs, n0 + 8 * q, 8 * ks, lane));
+      }
+#pragma unroll (kUnroll)
+      for (int ks = 2 * U; ks < kL / 8; ++ks) {
+        float a[4];
+        frag_at<kL, true>(a, dcb, u0, 8 * ks, lane);
+        const Split<4> sa = split(a);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          mma3(acc[q], sa, frag_b<NMAX, true>(cs, n0 + 8 * q, 8 * ks, lane));
+      }
+      store_tile(dB_part + (bh * T + t0) * N, acc, u0, n0, Lc, N, vec, lane);
+    };
+    switch (warp >> 2) {
+      case 0: db_part(Int<0>()); break;
+      case 1: db_part(Int<1>()); break;
+      case 2: db_part(Int<2>()); break;
+      default: db_part(Int<3>());
+    }
+    __syncthreads();  // every read of x is done
+    if (c > 0) load_x(c - 1);
+    cp_async_commit();
+
+    // 4. dC[t][n] = exp(s_t) gq[t][n] + sum_{u <= t} dCB[t][u] B[u][n], gq =
+    // dy h0; ds_t takes exp(s_t) sum_n C[t][n] gq[t][n] (warp w: t rows 16
+    // (w / 4).., n columns from (w % 4) NMAX / 4)
+    auto dc_part = [&](auto r_c) {
+      constexpr int R = decltype(r_c)::value;
+      const int r0 = 16 * R, n0 = (warp & 3) * (NMAX / 4);
+      float acc[NQ][4] = {};
+#pragma unroll (kUnroll)
+      for (int ks = 0; ks < kPMax / 8; ++ks) {
+        float a[4];
+        ldmatrix_a<kPMax, true>(a, dyc, r0, 8 * ks, lane);
+        const Split<4> sa = split(a);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          mma3(acc[q], sa, frag_b<NMAX, true>(h0s, n0 + 8 * q, 8 * ks, lane));
+      }
+      const float ea = es[r0 + g], eb = es[r0 + g + 8];
+      float cg[2] = {0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int n = n0 + 8 * q + 2 * i4;
+        const float2 c0 =
+            *reinterpret_cast<const float2*>(cs + at<NMAX, true>(r0 + g, n));
+        const float2 c1 = *reinterpret_cast<const float2*>(
+            cs + at<NMAX, true>(r0 + g + 8, n));
+        cg[0] += c0.x * acc[q][0] + c0.y * acc[q][1];
+        cg[1] += c1.x * acc[q][2] + c1.y * acc[q][3];
+        acc[q][0] *= ea;
+        acc[q][1] *= ea;
+        acc[q][2] *= eb;
+        acc[q][3] *= eb;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        cg[j] += __shfl_xor_sync(0xffffffffu, cg[j], 1);
+        cg[j] += __shfl_xor_sync(0xffffffffu, cg[j], 2);
+      }
+      if (i4 == 0) {
+        dsp[(warp & 3) * kL + r0 + g] = cg[0];
+        dsp[(warp & 3) * kL + r0 + g + 8] = cg[1];
+      }
+      // dCB[t][u] = 0 for u > t: row block R stops at k-slice 2 R + 1
+#pragma unroll (kUnroll)
+      for (int ku = 0; ku < 2 * R + 2; ++ku) {
+        float a[4];
+        ldmatrix_a<kL, true>(a, dcb, r0, 8 * ku, lane);
+        const Split<4> sa = split(a);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          mma3(acc[q], sa, frag_b<NMAX, true>(bs, n0 + 8 * q, 8 * ku, lane));
+      }
+      store_tile(dC_part + (bh * T + t0) * N, acc, r0, n0, Lc, N, vec, lane);
+    };
+    switch (warp >> 2) {
+      case 0: dc_part(Int<0>()); break;
+      case 1: dc_part(Int<1>()); break;
+      case 2: dc_part(Int<2>()); break;
+      default: dc_part(Int<3>());
+    }
+    __syncthreads();  // every read of B, and of the old dh, is done
+    if (c > 0) load_b(c - 1);
+    cp_async_commit();
+
+    // 5. dh[p][n] := exp(total) dh[p][n] + sum_t exp(s_t) dy[t][p] C[t][n],
+    // and sum dh o h0 with the old dh (warp w: p rows 16 (w / 4).., n
+    // columns from (w % 4) NMAX / 4; each warp reads only its own dh)
     {
-      const float* src = states + (bh * nc + c) * (size_t)P * N;
-      for (int i = threadIdx.x; i < kPMax * kLdN; i += kThreads) {
-        const int p = i / kLdN, n = i % kLdN;
-        h0[i] = (p < P && n < N) ? src[p * N + n] : 0.f;
+      const int p0 = 16 * (warp >> 2), n0 = (warp & 3) * (NMAX / 4);
+      const float dec = expf(sv[kL - 1]);
+      float acc[NQ][4];
+      float dth = 0.f;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int n = n0 + 8 * q + 2 * i4;
+        const int o0 = at<NMAX, true>(p0 + g, n), o1 = at<NMAX, true>(p0 + g + 8, n);
+        const float2 d0 = *reinterpret_cast<const float2*>(dhs + o0);
+        const float2 d1 = *reinterpret_cast<const float2*>(dhs + o1);
+        const float2 k0 = *reinterpret_cast<const float2*>(h0s + o0);
+        const float2 k1 = *reinterpret_cast<const float2*>(h0s + o1);
+        dth += d0.x * k0.x + d0.y * k0.y + d1.x * k1.x + d1.y * k1.y;
+        acc[q][0] = dec * d0.x;
+        acc[q][1] = dec * d0.y;
+        acc[q][2] = dec * d1.x;
+        acc[q][3] = dec * d1.y;
       }
+#pragma unroll (kUnroll)
+      for (int ks = 0; ks < kL / 8; ++ks) {
+        float a[4];
+        frag_at<kPMax, true>(a, dyc, p0, 8 * ks, lane);
+        const float e0 = es[8 * ks + i4], e1 = es[8 * ks + i4 + 4];
+        a[0] *= e0;
+        a[1] *= e0;
+        a[2] *= e1;
+        a[3] *= e1;
+        const Split<4> sa = split(a);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          mma3(acc[q], sa, frag_b<NMAX, true>(cs, n0 + 8 * q, 8 * ks, lane));
+      }
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int n = n0 + 8 * q + 2 * i4;
+        *reinterpret_cast<float2*>(dhs + at<NMAX, true>(p0 + g, n)) =
+            make_float2(acc[q][0], acc[q][1]);
+        *reinterpret_cast<float2*>(dhs + at<NMAX, true>(p0 + g + 8, n)) =
+            make_float2(acc[q][2], acc[q][3]);
+      }
+      dth = warp_sum(dth);
+      if (lane == 0) red[warp] = dth;
     }
-    if (threadIdx.x < kL)
-      dts[threadIdx.x] = threadIdx.x < Lc
-                             ? dt[((size_t)b * T + t0 + threadIdx.x) * H + h]
-                             : 0.f;
-    __syncthreads();
-    chunk_cumsum(dts, ss, Ah);
-    __syncthreads();
-    const float total = ss[kL - 1];
-    if (threadIdx.x < kL)
-      ws[threadIdx.x] = expf(total - ss[threadIdx.x]) * dts[threadIdx.x];
-
-    // s1[t][u] = (C_t . B_u) exp(s_t - s_u), s2[t][u] = dy_t . x_u (u <= t)
-    {
-      const int r0 = warp * kRowsL;
-      float acc[kRowsL][kColsL] = {};
-      for (int n = 0; n < N; ++n) {
-        float yv[kColsL];
-#pragma unroll
-        for (int j = 0; j < kColsL; ++j) yv[j] = bs[(lane + 32 * j) * kLdN + n];
-#pragma unroll
-        for (int i = 0; i < kRowsL; ++i) {
-          const float xv = cs[(r0 + i) * kLdN + n];
-#pragma unroll
-          for (int j = 0; j < kColsL; ++j) acc[i][j] = fmaf(xv, yv[j], acc[i][j]);
-        }
-      }
-      float dm[kRowsL][kColsL] = {};
-      for (int p = 0; p < P; ++p) {
-        float yv[kColsL];
-#pragma unroll
-        for (int j = 0; j < kColsL; ++j) yv[j] = xs[(lane + 32 * j) * kLdP + p];
-#pragma unroll
-        for (int i = 0; i < kRowsL; ++i) {
-          const float xv = dys[(r0 + i) * kLdP + p];
-#pragma unroll
-          for (int j = 0; j < kColsL; ++j) dm[i][j] = fmaf(xv, yv[j], dm[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsL; ++i) {
-        const int t = r0 + i;
-#pragma unroll
-        for (int j = 0; j < kColsL; ++j) {
-          const int u = lane + 32 * j;
-          const bool lower = u <= t;
-          s1[t * kLdL + u] = lower ? acc[i][j] * expf(ss[t] - ss[u]) : 0.f;
-          s2[t * kLdL + u] = lower ? dm[i][j] : 0.f;
-        }
-      }
-    }
-    __syncthreads();
-
-    // column and row sums of dM o s1: ddt through M's dt_u factor, and the
-    // parts of ds through the gate. The gate's diagonal (u = t) is
-    // exp(s_t - s_t): it adds E[t][t] to ds_t and takes it away again, so
-    // both sums leave it out rather than cancel it in rounding — beside
-    // O(1) diagonal terms the off-diagonal ones can be e^-10 smaller.
-    if (threadIdx.x < kL) {
-      const int u = threadIdx.x;
-      float acc = 0.f;
-      for (int t = u + 1; t < kL; ++t)
-        acc += s2[t * kLdL + u] * s1[t * kLdL + u];
-      ddtm[u] = s2[u * kLdL + u] * s1[u * kLdL + u] + acc;
-      cole[u] = acc * dts[u];
-    } else if (threadIdx.x < 2 * kL) {
-      const int t = threadIdx.x - kL;
-      float acc = 0.f;
-      for (int u = 0; u < t; ++u)
-        acc += s2[t * kLdL + u] * s1[t * kLdL + u] * dts[u];
-      rowe[t] = acc;
-    }
-    __syncthreads();
-    // s2 := dCB[t][u] = dM[t][u] exp(s_t - s_u) dt_u
-    for (int i = threadIdx.x; i < kL * kL; i += kThreads) {
-      const int t = i / kL, u = i % kL;
-      if (u <= t) s2[t * kLdL + u] *= expf(ss[t] - ss[u]) * dts[u];
-    }
-    __syncthreads();
-
-    // dx[u][p] = dt_u sum_t s1[t][u] dy[t][p] + w_u r[u][p] + D dy[u][p],
-    // r[u][p] = sum_n B[u][n] dh[p][n];  dw_u = sum_p x[u][p] r[u][p]
-    {
-      const int r0 = warp * kRowsL;
-      float a1[kRowsL][kColsP] = {};
-      float a2[kRowsL][kColsP] = {};
-      for (int t = r0; t < kL; ++t) {  // s1[t][u] = 0 for t < u
-        float yv[kColsP];
-#pragma unroll
-        for (int j = 0; j < kColsP; ++j) yv[j] = dys[t * kLdP + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kRowsL; ++i) {
-          const float xv = s1[t * kLdL + r0 + i];
-#pragma unroll
-          for (int j = 0; j < kColsP; ++j) a1[i][j] = fmaf(xv, yv[j], a1[i][j]);
-        }
-      }
-      for (int n = 0; n < N; ++n) {
-        float yv[kColsP];
-#pragma unroll
-        for (int j = 0; j < kColsP; ++j) yv[j] = dh[(lane + 32 * j) * kLdN + n];
-#pragma unroll
-        for (int i = 0; i < kRowsL; ++i) {
-          const float xv = bs[(r0 + i) * kLdN + n];
-#pragma unroll
-          for (int j = 0; j < kColsP; ++j) a2[i][j] = fmaf(xv, yv[j], a2[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsL; ++i) {
-        const int u = r0 + i;
-        float dw = 0.f;
-#pragma unroll
-        for (int j = 0; j < kColsP; ++j) {
-          const int p = lane + 32 * j;
-          const float xv = xs[u * kLdP + p], dyv = dys[u * kLdP + p];
-          dw += xv * a2[i][j];
-          dD_acc += dyv * xv;
-          if (u < Lc && p < P)
-            dx[xrow0 + (size_t)u * H * P + p] =
-                dts[u] * a1[i][j] + ws[u] * a2[i][j] + Dh * dyv;
-        }
-        dw = warp_sum(dw);
-        if (lane == 0) dwv[u] = dw;
-      }
-    }
-
-    // dB[u][n] = sum_p w_u x[u][p] dh[p][n] + sum_t dCB[t][u] C[t][n]
-    {
-      const int r0 = warp * kRowsL;
-      float acc[kRowsL][kColsN] = {};
-      for (int p = 0; p < P; ++p) {
-        float yv[kColsN];
-#pragma unroll
-        for (int j = 0; j < kColsN; ++j) yv[j] = dh[p * kLdN + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kRowsL; ++i) {
-          const float xv = ws[r0 + i] * xs[(r0 + i) * kLdP + p];
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) acc[i][j] = fmaf(xv, yv[j], acc[i][j]);
-        }
-      }
-      for (int t = r0; t < kL; ++t) {  // dCB[t][u] = 0 for t < u
-        float yv[kColsN];
-#pragma unroll
-        for (int j = 0; j < kColsN; ++j) yv[j] = cs[t * kLdN + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kRowsL; ++i) {
-          const float xv = s2[t * kLdL + r0 + i];
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) acc[i][j] = fmaf(xv, yv[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsL; ++i) {
-        const int u = r0 + i;
-        if (u >= Lc) continue;
-        float* row = dB_part + ((bh * T) + t0 + u) * N;
-#pragma unroll
-        for (int j = 0; j < kColsN; ++j) {
-          const int n = lane + 32 * j;
-          if (n < N) row[n] = acc[i][j];
-        }
-      }
-    }
-
-    // dC[t][n] = exp(s_t) g[t][n] + sum_u dCB[t][u] B[u][n],
-    // g[t][n] = sum_p dy[t][p] h0[p][n];  ds_t += exp(s_t) sum_n C[t][n] g[t][n]
-    {
-      const int r0 = warp * kRowsL;
-      float g[kRowsL][kColsN] = {};
-      float a2[kRowsL][kColsN] = {};
-      for (int p = 0; p < P; ++p) {
-        float yv[kColsN];
-#pragma unroll
-        for (int j = 0; j < kColsN; ++j) yv[j] = h0[p * kLdN + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kRowsL; ++i) {
-          const float xv = dys[(r0 + i) * kLdP + p];
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) g[i][j] = fmaf(xv, yv[j], g[i][j]);
-        }
-      }
-      const int umax = r0 + kRowsL;  // dCB[t][u] = 0 for u > t
-      for (int u = 0; u < umax; ++u) {
-        float yv[kColsN];
-#pragma unroll
-        for (int j = 0; j < kColsN; ++j) yv[j] = bs[u * kLdN + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kRowsL; ++i) {
-          const float xv = s2[(r0 + i) * kLdL + u];
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) a2[i][j] = fmaf(xv, yv[j], a2[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsL; ++i) {
-        const int t = r0 + i;
-        const float es = expf(ss[t]);
-        float cg = 0.f;
-        float* row = dC_part + ((bh * T) + t0 + t) * N;
-#pragma unroll
-        for (int j = 0; j < kColsN; ++j) {
-          const int n = lane + 32 * j;
-          cg += cs[t * kLdN + n] * g[i][j];
-          if (t < Lc && n < N) row[n] = es * g[i][j] + a2[i][j];
-        }
-        cg = warp_sum(cg);
-        if (lane == 0) dsi[t] = es * cg;
-      }
-    }
-    __syncthreads();  // every read of dh (the old one) is done
-
-    // dh[p][n] := exp(total) dh[p][n] + sum_t exp(s_t) dy[t][p] C[t][n];
-    // dtot_h = sum dh_old o h0
-    float dtot_h = 0.f;
-    {
-      const int r0 = warp * kRowsP;
-      float acc[kRowsP][kColsN] = {};
-      for (int t = 0; t < Lc; ++t) {
-        const float es = expf(ss[t]);
-        float yv[kColsN];
-#pragma unroll
-        for (int j = 0; j < kColsN; ++j) yv[j] = cs[t * kLdN + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kRowsP; ++i) {
-          const float xv = es * dys[t * kLdP + r0 + i];
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) acc[i][j] = fmaf(xv, yv[j], acc[i][j]);
-        }
-      }
-      const float dec = expf(total);
-#pragma unroll
-      for (int i = 0; i < kRowsP; ++i)
-#pragma unroll
-        for (int j = 0; j < kColsN; ++j) {
-          const int o = (r0 + i) * kLdN + lane + 32 * j;
-          dtot_h += dh[o] * h0[o];
-          dh[o] = dec * dh[o] + acc[i][j];
-        }
-    }
-    dtot_h = block_sum(dtot_h, red);  // synchronises: dwv, dsi, rowe ready
-
-    // the chunk's scalars, in order: ds_t, its reverse cumsum da_t, ddt_t.
-    // total = s_{Lc-1}, so w_{Lc-1} = dt_{Lc-1} does not depend on s: its
-    // +dw w (through total) and -dw w (through s_{Lc-1}) are both left out
-    if (threadIdx.x == 0) {
-      float dtot = expf(total) * dtot_h;
-      for (int u = 0; u < Lc - 1; ++u) dtot += dwv[u] * ws[u];
-      float acc = 0.f;
-      for (int t = Lc - 1; t >= 0; --t) {
-        float ds = rowe[t] - cole[t] + dsi[t];
-        ds += t == Lc - 1 ? dtot : -dwv[t] * ws[t];
-        acc += ds;  // da_t = sum_{tau >= t} ds_tau
-        ddt[((size_t)b * T + t0 + t) * H + h] =
-            ddtm[t] + dwv[t] * expf(total - ss[t]) + acc * Ah;
-        dA_acc += acc * dts[t];
-      }
-    }
+    __syncthreads();  // every sum is in; C and h0 are free
+    if (c > 0) load_ch(c - 1);
+    cp_async_commit();
   }
-  dD_acc = block_sum(dD_acc, red);
+  __syncthreads();
+  if (warp == 15) scalars(0);
+  dD_acc = warp_sum(dD_acc);
+  __syncthreads();  // warp 15 is done with red
+  if (lane == 0) red[warp] = dD_acc;
+  __syncthreads();
   if (threadIdx.x == 0) {
-    dA_part[bh] = dA_acc;
-    dD_part[bh] = dD_acc;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdThreads / 32; ++w) s += red[w];
+    dD_part[bh] = s;
   }
+  if (threadIdx.x == kBwdThreads - 32) dA_part[bh] = dA_acc;
 }
 
 int set_smem(const void* fn, size_t bytes) {
@@ -1006,14 +1202,40 @@ int launch_fwd(const float* x, const float* dt, const float* A, const float* B,
   return (int)cudaGetLastError();
 }
 
+template <int NMAX>
+int launch_bwd(const float* x, const float* dt, const float* A, const float* B,
+               const float* C, const float* D, const float* states,
+               const float* dy, const float* dfin, float* dx, float* ddt,
+               float* dA_part, float* dB_part, float* dC_part, float* dD_part,
+               float* scratch, int Bt, int T, int H, int P, int N,
+               cudaStream_t stream) {
+  using F = FwdTiles<NMAX>;
+  using G = BwdTiles<NMAX>;
+  static const int attr =
+      set_smem((const void*)ssd_scan_fwd_prep_kernel<NMAX>, F::kPrepSmem) |
+      set_smem((const void*)ssd_scan_bwd_kernel<NMAX>, G::kSmem);
+  if (attr) return attr;
+  const int nc = (T + kL - 1) / kL;
+  float* cb = scratch;                              // (Bt, nc, L, L)
+  float* s = scratch + (size_t)Bt * nc * kL * kL;   // (Bt, nc, L, H)
+  ssd_scan_fwd_prep_kernel<NMAX><<<dim3(nc, Bt, 2), kThreads, F::kPrepSmem,
+                                   stream>>>(dt, A, B, C, cb, s, T, H, N);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  ssd_scan_bwd_kernel<NMAX><<<dim3(H, Bt), kBwdThreads, G::kSmem, stream>>>(
+      x, dt, A, B, C, D, states, dy, dfin, cb, s, dx, ddt, dA_part, dB_part,
+      dC_part, dD_part, T, H, P, N);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ssd_scan_chunk() { return kL; }
 extern "C" int ssd_scan_max_p() { return kPMax; }
 extern "C" int ssd_scan_max_n() { return kNMax; }
 
-// The forward's scratch, in floats: C B^T for each (b, chunk) and every
-// head's cumsum, (Bt, ceil(T/64), 64, 64 + H).
+// The prep kernel's scratch, in floats, for either direction: C B^T for
+// each (b, chunk) and every head's cumsum, (Bt, ceil(T/64), 64, 64 + H).
 extern "C" long long ssd_scan_fwd_scratch_floats(int Bt, int T, int H) {
   return (long long)Bt * ((T + kL - 1) / kL) * kL * (kL + H);
 }
@@ -1039,19 +1261,23 @@ extern "C" int ssd_scan_fwd_f32(const float* x, const float* dt,
 // Backward: the forward's inputs, its chunk states, dy (Bt,T,H,P) and dfin
 // (Bt,H,P,N; null = zero) -> dx (Bt,T,H,P), ddt (Bt,T,H), and the partials
 // dA_part, dD_part (Bt,H), dB_part, dC_part (Bt,H,T,N) that the caller sums.
+// `scratch` holds ssd_scan_fwd_scratch_floats(Bt, T, H) floats, for the
+// prep kernel's C B^T and cumsums. Returns the cudaError_t of the launches.
 extern "C" int ssd_scan_bwd_f32(const float* x, const float* dt,
                                 const float* A, const float* B,
                                 const float* C, const float* D,
                                 const float* states, const float* dy,
                                 const float* dfin, float* dx, float* ddt,
                                 float* dA_part, float* dB_part,
-                                float* dC_part, float* dD_part, int Bt,
-                                int T, int H, int P, int N, void* stream) {
+                                float* dC_part, float* dD_part,
+                                float* scratch, int Bt, int T, int H, int P,
+                                int N, void* stream) {
   if (Bt <= 0 || H <= 0 || T <= 0) return 0;
-  static const int attr = set_smem((const void*)ssd_scan_bwd_kernel, kBwdSmem);
-  if (attr) return attr;
-  ssd_scan_bwd_kernel<<<dim3(H, Bt), kThreads, kBwdSmem, (cudaStream_t)stream>>>(
-      x, dt, A, B, C, D, states, dy, dfin, dx, ddt, dA_part, dB_part, dC_part,
-      dD_part, T, H, P, N);
-  return (int)cudaGetLastError();
+  return N <= 64
+             ? launch_bwd<64>(x, dt, A, B, C, D, states, dy, dfin, dx, ddt,
+                              dA_part, dB_part, dC_part, dD_part, scratch, Bt,
+                              T, H, P, N, (cudaStream_t)stream)
+             : launch_bwd<128>(x, dt, A, B, C, D, states, dy, dfin, dx, ddt,
+                               dA_part, dB_part, dC_part, dD_part, scratch,
+                               Bt, T, H, P, N, (cudaStream_t)stream);
 }

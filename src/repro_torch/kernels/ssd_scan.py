@@ -155,7 +155,7 @@ def _lib():
     lib = cuda_library("ssd_scan")
     lib.ssd_scan_fwd_f32.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     lib.ssd_scan_fwd_f32.restype = _I
-    lib.ssd_scan_bwd_f32.argtypes = [_P] * 15 + [_I] * 5 + [_P]
+    lib.ssd_scan_bwd_f32.argtypes = [_P] * 16 + [_I] * 5 + [_P]
     lib.ssd_scan_bwd_f32.restype = _I
     lib.ssd_scan_fwd_scratch_floats.argtypes = [_I] * 3
     lib.ssd_scan_fwd_scratch_floats.restype = ctypes.c_longlong
@@ -229,7 +229,8 @@ def ssd_scan_fwd_kernel(x, dt, A, B, C, D, save_states: bool = False
 
 
 def ssd_scan_bwd_kernel(x, dt, A, B, C, D, states, dy, dfin=None):
-    """Launch the backward kernel. Returns (dx, ddt, dA, dB, dC, dD); the
+    """Launch the backward kernels (the forward's prep kernel again, then
+    the backward scan). Returns (dx, ddt, dA, dB, dC, dD); the
     per-head partials of dB and dC and the per-batch partials of dA and dD
     are summed here, in a fixed order."""
     Bt, T, H, P, N = _check(x, dt, A, B, C, D)
@@ -244,14 +245,17 @@ def ssd_scan_bwd_kernel(x, dt, A, B, C, D, states, dy, dfin=None):
     dD_part = torch.empty((Bt, H), dtype=torch.float32, device=dev)
     dB_part = torch.empty((Bt, H, T, N), dtype=torch.float32, device=dev)
     dC_part = torch.empty((Bt, H, T, N), dtype=torch.float32, device=dev)
+    lib = _lib()
+    scratch = torch.empty(lib.ssd_scan_fwd_scratch_floats(Bt, T, H),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib().ssd_scan_bwd_f32(
+        err = lib.ssd_scan_bwd_f32(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), states.data_ptr(), dy.data_ptr(),
             dfin.data_ptr() if dfin is not None else None, dx.data_ptr(),
             ddt.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(),
-            dC_part.data_ptr(), dD_part.data_ptr(), Bt, T, H, P, N,
-            _stream(dev))
+            dC_part.data_ptr(), dD_part.data_ptr(), scratch.data_ptr(), Bt, T,
+            H, P, N, _stream(dev))
     if err:
         raise RuntimeError(
             f"ssd_scan backward launch failed: cudaError {err}")

@@ -341,6 +341,22 @@ def test_ssd_scan_ablation_patches_apply(name):
     assert SSD_ABLATION.patched(source, name, patches) != source
 
 
+SSD_BWD_ABLATION = _load_script(Path(__file__).resolve().parents[1]
+                                / "ablations" / "ssd_bwd.py")
+
+
+@pytest.mark.parametrize("name", [name for name, patches
+                                  in SSD_BWD_ABLATION.VARIANTS.items()
+                                  if patches])
+def test_ssd_scan_bwd_ablation_patches_apply(name):
+    """ablations/ssd_bwd.py builds copies of ssd_scan.cu patched by text:
+    each text a variant replaces occurs exactly once in the committed
+    source, and the copy differs from it."""
+    source = (build.CSRC / "ssd_scan.cu").read_text()
+    patches = SSD_BWD_ABLATION.VARIANTS[name]
+    assert SSD_BWD_ABLATION.patched(source, name, patches) != source
+
+
 @pytest.mark.cuda
 def test_flash_attention_forward_repeats(cuda):
     """The forward sums every row in a fixed order, with no atomics: two

@@ -253,6 +253,25 @@ def test_ssd_forward_repeats(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+def test_ssd_backward_repeats(cuda):
+    """The backward has no atomics: two calls on one input, with a final
+    state's gradient and a ragged T, agree bitwise in all six gradients."""
+    shape = (2, 300, 8, 64, 128)
+    ins = [torch.from_numpy(a).to(cuda)
+           for a in _kernel_inputs(shape, "model", seed=6)]
+    _, _, states = SSD.ssd_scan_fwd_kernel(*ins, save_states=True)
+    rng = np.random.default_rng(8)
+    dy = torch.from_numpy(rng.standard_normal(ins[0].shape,
+                                              dtype=np.float32)).to(cuda)
+    dfin = torch.from_numpy(rng.standard_normal(
+        (shape[0], shape[2], shape[3], shape[4]), dtype=np.float32)).to(cuda)
+    first = SSD.ssd_scan_bwd_kernel(*ins, states, dy, dfin)
+    second = SSD.ssd_scan_bwd_kernel(*ins, states, dy, dfin)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("Bt,T,H,P,N", [(1, 150, 2, 8, 4),
                                         (2, 130, 3, 16, 8)])
 def test_ssd_chunk_states_plain_matches_pallas(Bt, T, H, P, N):
