@@ -9,8 +9,8 @@ committed source, and times them beside the kernels themselves at the LM
 path's shape (8, 512, 32, 64, N 128) and the hybrid path's (8, 512, 112,
 64, N 64), f32, without a final state's gradient (as on the paths):
 
-  * "loads not overlapped": each thread waits for its copies of chunk
-    c - 1 as soon as it has issued them (no double buffering);
+  * "loads not overlapped": each thread waits for its copies as soon as
+    it has issued them (no double buffering);
   * "C.B^T per head": every (b, h) block forms C.B^T again for each chunk
     from its B and C tiles and drops it (so what the prep kernel saves);
   * "prep kernel alone" (no gradients): the first kernel, C.B^T once per
@@ -54,7 +54,9 @@ from repro_torch.kernels import build  # noqa: E402
 SHAPES = ssd_fwd.SHAPES
 OUT = ROOT / "build" / "ssd_bwd_ablation"
 REPEAT = 10  # calls a timing
-LOADS = ("dy", "cb", "x", "b", "ch")
+LOADS = ("if (c > 0) load_dy(c - 1)", "if (c > 0) load_cb(c - 1)",
+         "if (c > 0) load_x(c - 1)", "if (c > 0) load_b(c - 1)",
+         "load_ch(c)")
 CB_PER_HEAD = (
     "    {  // C B^T of this chunk again, from B and C, dropped\n"
     "      if (warp < 10) {\n"
@@ -82,9 +84,9 @@ AFTER_C = ("    cp_async_wait<1>();  // chunk c's C and h0 are in\n"
 VARIANTS = {
     "kernel": [],
     "loads not overlapped": [
-        (f"    if (c > 0) load_{n}(c - 1);\n    cp_async_commit();\n",
-         f"    if (c > 0) load_{n}(c - 1);\n    cp_async_commit();\n"
-         "    cp_async_wait_all();\n") for n in LOADS],
+        (f"    {n};\n    cp_async_commit();\n",
+         f"    {n};\n    cp_async_commit();\n    cp_async_wait_all();\n")
+        for n in LOADS],
     "C.B^T per head": [(AFTER_C, AFTER_C + CB_PER_HEAD)],
     "prep kernel alone": [("  ssd_scan_bwd_kernel<NMAX><<<",
                            "  if (Bt < 0) ssd_scan_bwd_kernel<NMAX><<<")],

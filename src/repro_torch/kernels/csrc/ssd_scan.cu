@@ -673,13 +673,16 @@ struct BwdTiles {
 //   3. dB = (w o x) dh + dCB^T C;
 //   4. dC = exp(s_t) dy h0 + dCB B, and sum_n C o (dy h0) for ds_t;
 //   5. dh = exp(total) dh + (exp(s) o dy)^T C, and sum dh o h0;
-//   6. warp 0: ds_t, its reverse cumsum and ddt, by shuffles.
+//   6. one warp: ds_t, its reverse cumsum and ddt, by shuffles.
 // Products 2-5: warp w takes row block 16 (w / 4).. and the quarter w % 4
 // of the columns, so each scheduler holds all four row blocks of a
-// triangle. Chunk c - 1's tiles load by cp.async as soon as chunk c is
-// done with their buffer: dy (two buffers) and s, dt at the top; C B^T
-// after 2; x after 3; B after 4; C and h0 after 5; each is waited for
-// just before its first use.
+// triangle. Four barriers a chunk: before 1, 2, 3 and 5. Tiles load by
+// cp.async as soon as their buffer is free, and each is waited for just
+// before its first use: chunk c - 1's dy (two buffers), s and dt after 1,
+// C B^T after 2, x and B after 4; chunk c's C and h0 at its top, while 1
+// and 2 run. Step 6 of chunk c runs on warp 15 beside chunk c - 1's step 1,
+// so the vectors of a chunk (s, dt, w, exp(s), the sums of 1) have two
+// buffers, by the chunk's parity.
 template <int NMAX>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 ssd_scan_bwd_kernel(const float* __restrict__ x,
@@ -777,8 +780,6 @@ ssd_scan_bwd_kernel(const float* __restrict__ x,
   cp_async_commit();
   load_b(nc - 1);
   cp_async_commit();
-  load_ch(nc - 1);
-  cp_async_commit();
   float dA_acc = 0.f, dD_acc = 0.f;
   // 6. chunk c's scalars: ds_t, its reverse cumsum da_t, ddt_t; lane l
   // takes t = 2 l, 2 l + 1. total = s_{Lc-1}, so w_{Lc-1} = dt_{Lc-1} does
@@ -847,8 +848,10 @@ ssd_scan_bwd_kernel(const float* __restrict__ x,
     const float* dtv = sv + kL;
     float *ws = sv + 2 * kL, *es = sv + 3 * kL, *dg = sv + 4 * kL,
           *rowp = sv + 5 * kL, *colp = sv + 9 * kL;
-    cp_async_wait<2>();  // chunk c's dy, s, dt, C B^T and x are in
+    cp_async_wait<1>();  // chunk c's dy, s, dt, C B^T and x are in
     __syncthreads();     // and chunk c + 1's steps 2-5 are done
+    load_ch(c);
+    cp_async_commit();
 
     // 1. dM[t][u] = dy_t . x_u on the 16 x 16 blocks (R, Cb <= R), and per
     // element u <= t: gate = exp(s_t - s_u), s1 = C B^T gate, dCB = dM gate
@@ -1041,9 +1044,6 @@ ssd_scan_bwd_kernel(const float* __restrict__ x,
       case 2: db_part(Int<2>()); break;
       default: db_part(Int<3>());
     }
-    __syncthreads();  // every read of x is done
-    if (c > 0) load_x(c - 1);
-    cp_async_commit();
 
     // 4. dC[t][n] = exp(s_t) gq[t][n] + sum_{u <= t} dCB[t][u] B[u][n], gq =
     // dy h0; ds_t takes exp(s_t) sum_n C[t][n] gq[t][n] (warp w: t rows 16
@@ -1104,7 +1104,9 @@ ssd_scan_bwd_kernel(const float* __restrict__ x,
       case 2: dc_part(Int<2>()); break;
       default: dc_part(Int<3>());
     }
-    __syncthreads();  // every read of B, and of the old dh, is done
+    __syncthreads();  // every read of x, B and the old dh is done
+    if (c > 0) load_x(c - 1);
+    cp_async_commit();
     if (c > 0) load_b(c - 1);
     cp_async_commit();
 
@@ -1155,9 +1157,6 @@ ssd_scan_bwd_kernel(const float* __restrict__ x,
       dth = warp_sum(dth);
       if (lane == 0) red[warp] = dth;
     }
-    __syncthreads();  // every sum is in; C and h0 are free
-    if (c > 0) load_ch(c - 1);
-    cp_async_commit();
   }
   __syncthreads();
   if (warp == 15) scalars(0);
