@@ -20,9 +20,17 @@ path's shape (8, 512, 32, 64, N 128) and the hybrid path's (8, 512, 112,
   * "no dh update" (wrong sums): dh is only decayed, never gains the
     chunk's (exp(s) o dy)^T C;
   * "no dB/dC state terms" (wrong sums): dB without (w o x) dh and dC
-    without dy h0, so their intra-chunk products alone.
+    without dy h0, so their intra-chunk products alone;
+  * "six barriers a chunk": chunk c - 1's C and h0 load after chunk c's
+    step 5 and its x after step 3, each behind a barrier of its own;
+  * "loops fully unrolled", "unrolled twice at NMAX 128", "not unrolled
+    at NMAX 64": the product loops' other unroll choices;
+  * "no step 1" ... "no step 6" (wrong sums): the kernel with one of its
+    six steps (dM and the gate; dx; dB; dC; the dh update; the scalar
+    pass) left out.
 
-Each variant is timed twice, in the order kernel ... last, last ...
+Prints each variant's registers and spills (nvcc -Xptxas -v). Each
+variant is timed twice, in the order kernel ... last, last ...
 kernel (median of 20 CUDA-event times of 10 calls back to back, so that
 the card does not wait on the host's launches); the variants that compute
 the same function give their largest difference from the kernel's
@@ -92,12 +100,12 @@ VARIANTS = {
                            "  if (Bt < 0) ssd_scan_bwd_kernel<NMAX><<<")],
     "one MMA of three": [("  mma_tf32(c, a.small, b.big);\n"
                           "  mma_tf32(c, a.big, b.small);\n", "")],
-    "no dh update": [("      for (int ks = 0; ks < kL / 8; ++ks) {\n"
-                      "        float a[4];\n"
-                      "        frag_at<kPMax, true>(a, dyc, p0, 8 * ks, lane);",
-                      "      for (int ks = 0; ks < (T < 0 ? kL / 8 : 0); ++ks) {\n"
-                      "        float a[4];\n"
-                      "        frag_at<kPMax, true>(a, dyc, p0, 8 * ks, lane);")],
+    "no dh update": [
+        ("      for (int ks = 0; ks < kL / 8; ++ks) {\n        float a[4];\n"
+         "        frag_at<kPMax, true>(a, dyc, p0, 8 * ks, lane);",
+         "      for (int ks = 0; ks < (T < 0 ? kL / 8 : 0); ++ks) {\n"
+         "        float a[4];\n"
+         "        frag_at<kPMax, true>(a, dyc, p0, 8 * ks, lane);")],
     "no dB/dC state terms": [
         ("      for (int ks = 0; ks < kPMax / 8; ++ks) {\n"
          "        float a[4];\n"
@@ -107,7 +115,47 @@ VARIANTS = {
          f"        ldmatrix_a<kPMax, true>(a, {t}, {r}, 8 * ks, lane);")
         for t, r in (("xs", "u0"), ("dyc", "r0"))],
 }
-EXACT = ("loads not overlapped", "C.B^T per head")
+SWITCH = "    switch (warp >> 2) {{\n      case 0: {}(Int<0>()); break;"
+VARIANTS.update({
+    "six barriers a chunk": [
+        ("  load_b(nc - 1);\n  cp_async_commit();\n",
+         "  load_b(nc - 1);\n  cp_async_commit();\n"
+         "  load_ch(nc - 1);\n  cp_async_commit();\n"),
+        ("    cp_async_wait<1>();  // chunk c's dy, s, dt, C B^T and x are in\n"
+         "    __syncthreads();     // and chunk c + 1's steps 2-5 are done\n"
+         "    load_ch(c);\n    cp_async_commit();\n",
+         "    cp_async_wait<2>();\n    __syncthreads();\n"),
+        ("    // 4. dC[t][n] = ",
+         "    __syncthreads();\n    if (c > 0) load_x(c - 1);\n"
+         "    cp_async_commit();\n    // 4. dC[t][n] = "),
+        ("    __syncthreads();  // every read of x, B and the old dh is done\n"
+         "    if (c > 0) load_x(c - 1);\n    cp_async_commit();\n",
+         "    __syncthreads();\n"),
+        ("      if (lane == 0) red[warp] = dth;\n    }\n  }\n",
+         "      if (lane == 0) red[warp] = dth;\n    }\n    __syncthreads();\n"
+         "    if (c > 0) load_ch(c - 1);\n    cp_async_commit();\n  }\n")],
+    "loops fully unrolled": [("kUnroll = NMAX == 128 ? 1 : 2;",
+                              "kUnroll = 64;")],
+    "unrolled twice at NMAX 128": [("kUnroll = NMAX == 128 ? 1 : 2;",
+                                    "kUnroll = 2;")],
+    "not unrolled at NMAX 64": [("kUnroll = NMAX == 128 ? 1 : 2;",
+                                 "kUnroll = 1;")],
+    "no step 1": [("    if (warp < 10) {\n",
+                   "    if (T < 0 && warp < 10) {\n")],
+    **{f"no step {i}": [(SWITCH.format(part), "    if (T < 0)"
+                         + SWITCH.format(part)[4:])]
+       for i, part in ((2, "dx_part"), (3, "db_part"), (4, "dc_part"))},
+    "no step 5": [("    {\n      const int p0 = 16 * (warp >> 2), n0 =",
+                   "    if (T < 0) {\n"
+                   "      const int p0 = 16 * (warp >> 2), n0 =")],
+    "no step 6": [("    } else if (warp == 15 && c + 1 < nc) {",
+                   "    } else if (T < 0 && warp == 15 && c + 1 < nc) {"),
+                  ("  if (warp == 15) scalars(0);",
+                   "  if (T < 0 && warp == 15) scalars(0);")],
+})
+EXACT = ("loads not overlapped", "C.B^T per head", "six barriers a chunk",
+         "loops fully unrolled", "unrolled twice at NMAX 128",
+         "not unrolled at NMAX 64")
 patched = ssd_fwd.patched
 
 
@@ -126,10 +174,14 @@ def build_all() -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{log.decode()}")
-        spills = [ln.strip() for ln in log.decode().splitlines()
-                  if "spill" in ln and " 0 bytes spill stores" not in ln]
-        if spills:
-            print(f"{name}: {spills}", flush=True)
+        fn = ""
+        for ln in log.decode().splitlines():
+            if "Compiling entry function" in ln:
+                fn = ("NMAX 128" if "Li128E" in ln else "NMAX 64") \
+                    if "ssd_scan_bwd_kernel" in ln else ""
+            elif fn and ("registers" in ln or "spill stores" in ln):
+                print(f"{name}, {fn}: {ln.split(':', 1)[-1].strip()}",
+                      flush=True)
         lib = ctypes.CDLL(str(lib_path))
         lib.ssd_scan_fwd_f32.argtypes = ([ctypes.c_void_p] * 10
                                          + [ctypes.c_int] * 5

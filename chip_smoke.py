@@ -243,6 +243,9 @@ RESNET_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
 LM_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "ssd_scan_fwd",
               "ssd_scan_bwd")
 ZAMBA_KERNELS = LM_KERNELS + ("flash_attention_fwd", "flash_attention_bwd")
+# kernels that several wrappers launch, once a call each: ssd_scan's prep
+# kernel (C·Bᵀ and the cumsums) runs in the forward and in the backward
+SHARED_KERNELS = {"ssd_scan_prep_kernel": ("ssd_scan_fwd", "ssd_scan_bwd")}
 
 RECORD: dict = {}
 
@@ -1126,10 +1129,14 @@ def phase_profile(trainer, first: int, steps: int, name: str) -> dict:
     ours = {}
     for info, _ in ops.KERNELS:
         # a wrapper's call launches its CUDA kernel (<name>_kernel) or each
-        # of its kernels (<name>_<part>_kernel) once
+        # of its kernels (<name>_<part>_kernel) once, and once each kernel
+        # of SHARED_KERNELS that names it, whose time a launch is its mean
         rows = [e for e in kernels if f"{info['name']}_" in e.key]
         n = max((e.count for e in rows), default=0)
-        total = sum(e.self_device_time_total for e in rows)
+        total = sum(e.self_device_time_total for e in rows) + sum(
+            n * e.self_device_time_total / e.count for e in kernels
+            for key, users in SHARED_KERNELS.items()
+            if key in e.key and info["name"] in users)
         ours[info["name"]] = {"calls": n, "device_us": total,
                               "us_per_call": total / n if n else None}
     log(f"profile {name}: {steps} steps, wall {wall_us / 1e3:.1f} ms, "

@@ -33,40 +33,54 @@
 // products for each f32 one, about 21 bits kept a product, as in
 // flash_attention.cu). A prep kernel forms C B^T once per (b, chunk), since
 // B and C are shared by the heads, into a scratch of (Bt, nc, 64, 64), and
-// every head's cumsum s, one thread a head in the backward's order (so both
-// directions agree on s bitwise), into (Bt, nc, 64, H): 1.5 MB at the LM
-// path's shape, 2.9 MB at the hybrid path's, read back from L2. The scan
-// kernel is a block of 16 warps per (b, h). Per chunk: y = M x + (exp(s_t)
-// C) h^T + D x, warp w taking rows 16 (w / 4).. and p columns 16 (w %
-// 4).., so each scheduler's 4 warps hold the 4 row blocks of M x's
-// triangle; then h = exp(total) h + x^T (w o B), warp w taking p rows 16
-// (w / 4).. and n columns from (w % 4) N / 4. Chunk c + 1's x, C B^T, s,
-// dt and B load by 16-byte cp.async into a second buffer while chunk c
-// computes its y; after y, every thread turns C B^T into M = C B^T o gate
-// o dt_u in place (each gate once), with w_u and exp(s_t) beside it, and
-// chunk c + 1's C loads into the one C buffer. Tiles read along rows (C,
-// M, h) have a row stride of 4 mod 32 and are read by ldmatrix; tiles
-// read down columns (x, B), 8 mod 32: no bank conflicts. Templated on NMAX
-// = 64 or 128 (N <= NMAX): shared memory 144,384 B and 209,920 B a scan
-// block, so one block an SM; 124 and 109 registers a thread (at most 128
-// for 16 warps), the prep kernel 254, no spills (nvcc -Xptxas -v, sm_90a,
-// CUDA 12.8). No atomics: the forward is bitwise reproducible. It saves
-// the state entering each chunk, (Bt, H, nc, P, N), when the caller asks
-// for it. ablations/ssd_fwd.py times it against copies with one of
-// its parts undone.
+// every head's cumsum s, one thread a head in order (the backward launches
+// it again, so both directions agree on s bitwise), into (Bt, nc, 64, H):
+// 1.5 MB at the LM path's shape, 2.9 MB at the hybrid path's, read back from
+// L2. The scan kernel is a block of 16 warps per (b, h). Per chunk: y = M x
+// + (exp(s_t) C) h^T + D x, warp w taking rows 16 (w / 4).. and p columns 16
+// (w % 4).., so each scheduler's 4 warps hold the 4 row blocks of M x's
+// triangle; then h = exp(total) h + x^T (w o B), warp w taking p rows 16 (w
+// / 4).. and n columns from (w % 4) N / 4. Chunk c + 1's x, C B^T, s, dt and
+// B load by 16-byte cp.async into a second buffer while chunk c computes its
+// y; after y, every thread turns C B^T into M = C B^T o gate o dt_u in place
+// (each gate once), with w_u and exp(s_t) beside it, and chunk c + 1's C
+// loads into the one C buffer. Tiles read along rows (C, M, h) have a row
+// stride of 4 mod 32 and are read by ldmatrix; tiles read down columns (x,
+// B), 8 mod 32: no bank conflicts. Templated on NMAX = 64 or 128 (N <=
+// NMAX): shared memory 144,384 B and 209,920 B a scan block, so one block an
+// SM; 124 and 109 registers a thread (at most 128 for 16 warps), the prep
+// kernel 254, no spills (nvcc -Xptxas -v, sm_90a, CUDA 12.8). No atomics:
+// the forward is bitwise reproducible. It saves the state entering each
+// chunk, (Bt, H, nc, P, N), when the caller asks for it.
+// ablations/ssd_fwd.py times it against copies with one of its parts undone.
 //
-// Backward: one block of 256 threads per (b, h) reads the saved states
-// and runs the chunks in reverse, carrying dh (P x N) in shared memory, so
-// it never redoes the recurrence. It returns dx, ddt, and per-(b, h)
-// partials of dA and dD and per-head partials of dB and dC (Bt, H, T, N):
-// B and C are shared across heads, and the caller sums the partials over
-// heads in a fixed order, so the result does not depend on the order in
-// which blocks run. Every matrix product is written as: each warp owns
-// whole rows of the output (its operand is read at one address by all
-// lanes, a broadcast), and the lanes own consecutive columns. Every
-// shared-memory matrix has an odd row stride (cols + 1), so a column read
-// by consecutive lanes hits consecutive banks whichever index runs along
-// the lanes. It does not use tensor cores.
+// Backward: two kernels, every product on the tensor cores by 3xTF32 as
+// in the forward. The forward's prep kernel runs again for C B^T and s (8
+// to 14 us of a call, ablations/ssd_bwd.py): the backward then needs only
+// the inputs, the saved chunk states and dy, as its wrapper is called, no
+// tensor more is saved, and s is the forward's bitwise. A block of 16
+// warps per (b, h) reads the saved states and runs the chunks in reverse,
+// carrying dh (P x N) in shared memory, so it never redoes the recurrence.
+// Per chunk: dM = dy x^T on the 16 x 16 blocks on and below the diagonal;
+// s1 = C B^T o gate and dCB = dM o gate o dt_u formed once from dM's
+// accumulators, each gate exponentiated once; dx = dt_u s1^T dy + w_u B
+// dh^T + D dy; dB = (w o x) dh + dCB^T C; dC = exp(s_t) dy h0 + dCB B; dh =
+// exp(total) dh + (exp(s) o dy)^T C. The row and column sums of dM o s1 go
+// by shuffles, and ds, its reverse cumsum and ddt by one warp's suffix scan
+// beside the next chunk's first step. The gate's diagonal terms, which
+// cancel exactly, are left out: at dt A = -10 a step their rounding would
+// swamp dA. It returns dx, ddt, per-(b, h) partials of dA and dD and
+// per-head partials of dB and dC (Bt, H, T, N): B and C are shared across
+// heads, and the caller sums the partials over heads in a fixed order. No
+// atomics: the backward is bitwise reproducible. dy, B, dh and dCB are read
+// along rows by some products and down columns by others, where no padded
+// stride serves both, so every tile is swizzled (at<W, true>) and neither
+// read meets a bank conflict. Templated on NMAX = 64 or 128: shared memory
+// 156,224 B and 221,760 B a block, so one block an SM; 124 and 127
+// registers a thread, no spills (nvcc -Xptxas -v, sm_90a, CUDA 12.8), with
+// the product loops unrolled twice at NMAX 64 and not at 128, where more
+// in flight spilled. ablations/ssd_bwd.py times it against copies with one
+// of its parts undone.
 //
 // Bounds on the H100 at the LM path's shape (Bt 8, T 512, H 32, P 64, N
 // 128). Forward: the products the function needs at L = 64 are 4.874
@@ -81,10 +95,17 @@
 // and 0.370 ms (0.178 and 0.389 saving states) on an H100 80GB HBM3 at
 // 700 W (chip_smoke.py's phase_ssd, call b7), 5.7x and 4.9x its bound; the
 // float32 FMA kernel it replaced took 0.550 and 1.621 ms. The backward
-// needs about 9.8 GFLOP, 0.15 ms at 67 TFLOP/s without tensor cores: dC
-// and dB once on the head-summed dCB, so it is bound by operations; it
-// does more (dB and dC per head, 5.9 and 13 GFLOP in all), reading its
-// operands from shared memory with register tiles of up to 8 x 4.
+// needs 9.787 GFLOP at the LM shape (C B^T again, and dB and dC once on
+// the head-summed dCB; per head dM, dx's masked product and the four state
+// products): 0.0593 ms by 3xTF32, against 177.2 MB of inputs, dy, chunk
+// states and gradients, 0.0529 ms, so it is bound by operations; at the
+// hybrid shape 18.92 GFLOP, 0.1146 ms, against 477.6 MB, 0.1426 ms, bound
+// by bytes. It does more: dB and dC per head, 12.6 and 24.4 GFLOP of f32
+// products at the two shapes. It takes 0.464 ms and 0.937 ms with its
+// wrapper's head sums (the kernels alone 0.39 and 0.82 ms) on an H100 80GB
+// HBM3 at 700 W (chip_smoke.py's phase_ssd and ablations/ssd_bwd.py, call
+// c), 7.8x and 6.6x its bound; the float32 FMA kernel it replaced took
+// 0.990 and 3.015 ms.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -289,11 +310,11 @@ __device__ __forceinline__ void stage_rows(float* dst,
 // launches this kernel again, so both directions use the same s bitwise.
 template <int NMAX>
 __global__ void __launch_bounds__(kThreads)
-ssd_scan_fwd_prep_kernel(const float* __restrict__ dt,
-                         const float* __restrict__ A,
-                         const float* __restrict__ Bm,
-                         const float* __restrict__ Cm, float* __restrict__ cb,
-                         float* __restrict__ s, int T, int H, int N) {
+ssd_scan_prep_kernel(const float* __restrict__ dt,
+                     const float* __restrict__ A,
+                     const float* __restrict__ Bm,
+                     const float* __restrict__ Cm, float* __restrict__ cb,
+                     float* __restrict__ s, int T, int H, int N) {
   const int c = blockIdx.x, b = blockIdx.y, nc = gridDim.x;
   const int t0 = c * kL, Lc = min(kL, T - t0);
   const size_t bc = (size_t)b * nc + c;
@@ -1121,7 +1142,8 @@ ssd_scan_bwd_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int q = 0; q < NQ; ++q) {
         const int n = n0 + 8 * q + 2 * i4;
-        const int o0 = at<NMAX, true>(p0 + g, n), o1 = at<NMAX, true>(p0 + g + 8, n);
+        const int o0 = at<NMAX, true>(p0 + g, n);
+        const int o1 = at<NMAX, true>(p0 + g + 8, n);
         const float2 d0 = *reinterpret_cast<const float2*>(dhs + o0);
         const float2 d1 = *reinterpret_cast<const float2*>(dhs + o1);
         const float2 k0 = *reinterpret_cast<const float2*>(h0s + o0);
@@ -1185,14 +1207,14 @@ int launch_fwd(const float* x, const float* dt, const float* A, const float* B,
                int N, cudaStream_t stream) {
   using F = FwdTiles<NMAX>;
   static const int attr =
-      set_smem((const void*)ssd_scan_fwd_prep_kernel<NMAX>, F::kPrepSmem) |
+      set_smem((const void*)ssd_scan_prep_kernel<NMAX>, F::kPrepSmem) |
       set_smem((const void*)ssd_scan_fwd_scan_kernel<NMAX>, F::kSmem);
   if (attr) return attr;
   const int nc = (T + kL - 1) / kL;
   float* cb = scratch;                              // (Bt, nc, L, L)
   float* s = scratch + (size_t)Bt * nc * kL * kL;   // (Bt, nc, L, H)
-  ssd_scan_fwd_prep_kernel<NMAX><<<dim3(nc, Bt, 2), kThreads, F::kPrepSmem,
-                                   stream>>>(dt, A, B, C, cb, s, T, H, N);
+  ssd_scan_prep_kernel<NMAX><<<dim3(nc, Bt, 2), kThreads, F::kPrepSmem,
+                               stream>>>(dt, A, B, C, cb, s, T, H, N);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   ssd_scan_fwd_scan_kernel<NMAX><<<dim3(H, Bt), kFwdThreads, F::kSmem,
@@ -1211,14 +1233,14 @@ int launch_bwd(const float* x, const float* dt, const float* A, const float* B,
   using F = FwdTiles<NMAX>;
   using G = BwdTiles<NMAX>;
   static const int attr =
-      set_smem((const void*)ssd_scan_fwd_prep_kernel<NMAX>, F::kPrepSmem) |
+      set_smem((const void*)ssd_scan_prep_kernel<NMAX>, F::kPrepSmem) |
       set_smem((const void*)ssd_scan_bwd_kernel<NMAX>, G::kSmem);
   if (attr) return attr;
   const int nc = (T + kL - 1) / kL;
   float* cb = scratch;                              // (Bt, nc, L, L)
   float* s = scratch + (size_t)Bt * nc * kL * kL;   // (Bt, nc, L, H)
-  ssd_scan_fwd_prep_kernel<NMAX><<<dim3(nc, Bt, 2), kThreads, F::kPrepSmem,
-                                   stream>>>(dt, A, B, C, cb, s, T, H, N);
+  ssd_scan_prep_kernel<NMAX><<<dim3(nc, Bt, 2), kThreads, F::kPrepSmem,
+                               stream>>>(dt, A, B, C, cb, s, T, H, N);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   ssd_scan_bwd_kernel<NMAX><<<dim3(H, Bt), kBwdThreads, G::kSmem, stream>>>(

@@ -229,8 +229,8 @@ def ssd_scan_fwd_kernel(x, dt, A, B, C, D, save_states: bool = False
 
 
 def ssd_scan_bwd_kernel(x, dt, A, B, C, D, states, dy, dfin=None):
-    """Launch the backward kernels (the forward's prep kernel again, then
-    the backward scan). Returns (dx, ddt, dA, dB, dC, dD); the
+    """Launch the backward kernels (the prep kernel again, then the
+    backward scan). Returns (dx, ddt, dA, dB, dC, dD); the
     per-head partials of dB and dC and the per-batch partials of dA and dD
     are summed here, in a fixed order."""
     Bt, T, H, P, N = _check(x, dt, A, B, C, D)
