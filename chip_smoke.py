@@ -15,7 +15,8 @@ the checkout (into ``build/``), then
      forward and backward — against its plain PyTorch version on the card,
      at the main paths' shapes and at edge cases, and times kernel, plain
      version and one library yardstick with CUDA events (median of
-     repeated calls);
+     repeated calls), and the launch floor (a one-element fill's device
+     time under the profiler);
   4. checks the fused wire encodes on the card byte for byte against the
      host: the fixed top-k frame at the ResNet path's shape against the
      numpy host path, the adaptive delta-compressed frame at the LM path's
@@ -284,7 +285,10 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_F32):
 
 
 def maxerr(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+    """Largest |a - b|, where equal entries (equal infinities too) count 0."""
+    a, b = a.float(), b.float()
+    d = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    return float(d.max()) if a.numel() else 0.0
 
 
 def close(a, b, rtol, atol) -> bool:
@@ -341,8 +345,10 @@ def _topk_timing(x: torch.Tensor, k: int, iters: int) -> dict:
 
 def phase_topk(dev) -> dict:
     """topk_wire against its plain version (values and indices exact, lse
-    within TOL_LSE), at both paths' shapes and at the edges; timed at the
-    LM path's publish shape, with the ResNet path's beside it."""
+    within TOL_LSE), at the three paths' shapes and at the edges (rows off
+    16 bytes, ties, -inf, k up to V and past the one-pass kernel's 256);
+    timed at the LM path's publish shape, with the hybrid and ResNet
+    paths' beside it; then the launch floor."""
     g = torch.Generator(device=dev).manual_seed(0)
     rows = 4 * H * BATCH  # W·H·B of one ResNet publish
     err = 0.0
@@ -350,21 +356,41 @@ def phase_topk(dev) -> dict:
                                    device=dev) * 3, TOPK_K),
              ("lm", torch.randn(LM_TOPK_ROWS, LM_VOCAB, generator=g,
                                 device=dev) * 3, LM_COMM["topk"]),
-             # the hybrid path's publish: a 128 KB row, staged in shared
-             # memory beside the kernel's scratch
+             # the hybrid path's publish: 128 KB rows, streamed once from
+             # device memory as the LM path's 201 KB rows are
              ("zamba2", torch.randn(LM_TOPK_ROWS, ZAMBA_VOCAB, generator=g,
                                     device=dev) * 3, LM_COMM["topk"]),
              ("large", torch.randn(rows, 32768, generator=g, device=dev) * 3,
               TOPK_K),
-             # either side of where the row stops fitting in shared memory
-             # beside the kernel's static scratch
+             # 12,000 and 12,288 columns, named for the shared-memory
+             # staging an earlier kernel had: 12,288 fills every group of
+             # float4s a warp loads at once, 12,000 ends in a masked one
              ("smem row", torch.randn(64, 12000, generator=g, device=dev),
               TOPK_K),
              ("48 KB row", torch.randn(64, 12288, generator=g, device=dev),
               TOPK_K),
              ("ties", torch.randint(-3, 3, (64, NUM_LABELS), generator=g,
                                     device=dev).float(), TOPK_K),
-             ("k=V", torch.randn(8, 40, generator=g, device=dev), 40)]
+             ("k=V", torch.randn(8, 40, generator=g, device=dev), 40),
+             # GPT-2's vocabulary: every row but the first starts off a
+             # 16-byte boundary (a scalar head and tail around the float4s)
+             ("V=50,257", torch.randn(512, 50257, generator=g, device=dev)
+              * 3, LM_COMM["topk"]),
+             ("k=32 at 50,280", torch.randn(512, LM_VOCAB, generator=g,
+                                            device=dev) * 3, 32),
+             # above the paths' k: a warp's list of k + 256 entries
+             ("k=64", torch.randn(512, ZAMBA_VOCAB, generator=g, device=dev)
+              * 3, 64),
+             # above the one-pass kernel's largest k (256): the rank kernel
+             ("k=512", torch.randn(16, ZAMBA_VOCAB, generator=g, device=dev)
+              * 3, 512),
+             ("ties at 50,280", torch.randint(-3, 3, (64, LM_VOCAB),
+                                              generator=g,
+                                              device=dev).float(),
+              LM_COMM["topk"]),
+             ("-inf columns", _with_neg_inf(torch.randn(
+                 64, LM_VOCAB, generator=g, device=dev) * 3),
+              LM_COMM["topk"])]
     for name, x, k in cases:
         v, i, lse = TOPK.topk_wire_kernel(x, k)
         pv, pi, plse = TOPK.topk_wire_plain(x, k)
@@ -383,8 +409,44 @@ def phase_topk(dev) -> dict:
         f"{lm['bound_ms']:.4f}); zamba2 shape {zamba['ms']:.3f} ms (plain "
         f"{zamba['plain_ms']:.3f}, library {zamba['library_ms']:.3f}, bound "
         f"{zamba['bound_ms']:.4f}); ResNet shape {resnet['ms']:.3f} ms")
+    RECORD["launch_floor"] = floor = _launch_floor(dev)
+    log(f"launch floor: a one-element fill takes {floor['device_us']:.2f} us "
+        f"of device time under the profiler ({floor['launches']} launches), "
+        f"{floor['ms'] * 1e3:.2f} us a call by CUDA events")
     return {**TOPK.INFO, **lm, "max_abs_err": err,
             "at_zamba2_shape": zamba, "at_resnet_shape": resnet}
+
+
+def _with_neg_inf(x: torch.Tensor) -> torch.Tensor:
+    """Every 7th column -inf; row 1 all -inf (lse -inf, the k lowest
+    columns); row 2 -inf from column 3 on, so two finite values and then
+    -inf entries, lowest columns first, fill its top k."""
+    x[:, ::7] = -math.inf
+    x[1] = -math.inf
+    x[2, 3:] = -math.inf
+    return x
+
+
+def _launch_floor(dev) -> dict:
+    """The least device time of a launch: a one-element fill, 100 times
+    under torch.profiler as the path rounds are profiled (device us a
+    call), and its CUDA-event median a call beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            t.fill_(1.0)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    n = sum(e.count for e in rows)
+    us = sum(e.self_device_time_total for e in rows)
+    return {"device_us": us / n, "launches": n,
+            "ms": time_ms(lambda: t.fill_(1.0), iters=200)}
 
 def _ssd_inputs(dev, g, Bt, T, H, P, N, kind):
     """Inputs of one ssd_scan case: the model's A = -(1..H); dt around

@@ -89,10 +89,20 @@ def test_emb_dist_plain_matches_pallas(B, E):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("B,V,k", [(4, 130, 8), (7, 1024, 32), (2, 64, 4),
-                                   (3, 40, 40)])
-def test_topk_wire_plain_matches_pallas(B, V, k):
-    x = _logits(B, V, 6)
+@pytest.mark.parametrize("B,V,k,ties", [
+    pytest.param(4, 130, 8, False, id="4-130-8"),
+    pytest.param(7, 1024, 32, False, id="7-1024-32"),
+    pytest.param(2, 64, 4, False, id="2-64-4"),
+    pytest.param(3, 40, 40, False, id="3-40-40"),
+    # an odd V: in a (B, V) f32 array every row but the first starts off
+    # 16 bytes, which the CUDA kernel reads by a scalar head and tail
+    pytest.param(3, 1001, 8, False, id="3-1001-8"),
+    # integer rows a few thousand wide: most entries tie with others
+    pytest.param(4, 3000, 8, True, id="4-3000-8-ties"),
+    pytest.param(4, 3000, 32, True, id="4-3000-32-ties")])
+def test_topk_wire_plain_matches_pallas(B, V, k, ties):
+    x = (np.random.default_rng(6).integers(-3, 3, (B, V)).astype(np.float32)
+         if ties else _logits(B, V, 6))
     v, i, lse = jax_topk_wire(jnp.asarray(x), k, block_rows=4,
                               interpret=True)
     pv, pi, plse = TOPK.topk_wire_plain(torch.from_numpy(x), k)
@@ -228,6 +238,39 @@ def test_topk_wire_kernel_matches_plain(cuda):
     torch.testing.assert_close(lse, plse, rtol=1e-6, atol=1e-6)
 
 
+def _neg_inf_rows(B, V, seed):
+    """Every 7th column -inf, row 1 all -inf, row 2 -inf from column 3."""
+    x = _logits(B, V, seed)
+    x[:, ::7] = -np.inf
+    x[1] = -np.inf
+    x[2, 3:] = -np.inf
+    return x
+
+
+# the one-pass kernel's edges, as chip_smoke.phase_topk holds them
+TOPK_KERNEL_CASES = {
+    "V=50257": (lambda: _logits(64, 50257, 20), 8),
+    "k=32 at V=50280": (lambda: _logits(64, 50280, 21), 32),
+    "k=64 at V=32000": (lambda: _logits(64, 32000, 22), 64),
+    "k=512 at V=32000": (lambda: _logits(8, 32000, 23), 512),
+    "ties at V=50280": (lambda: np.random.default_rng(24).integers(
+        -3, 3, (64, 50280)).astype(np.float32), 8),
+    "-inf columns": (lambda: _neg_inf_rows(16, 50280, 25), 8),
+    "V=3": (lambda: _logits(9, 3, 26), 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TOPK_KERNEL_CASES))
+def test_topk_wire_kernel_edges(cuda, name):
+    make, k = TOPK_KERNEL_CASES[name]
+    x = torch.from_numpy(make()).to(cuda)
+    v, i, lse = TOPK.topk_wire_kernel(x, k)
+    pv, pi, plse = TOPK.topk_wire_plain(x, k)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    torch.testing.assert_close(lse, plse, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.cuda
 def test_triton_kernels_match_plain(cuda):
     s = torch.from_numpy(_logits(64, 1000, 12)).to(cuda)
@@ -355,6 +398,22 @@ def test_ssd_scan_bwd_ablation_patches_apply(name):
     source = (build.CSRC / "ssd_scan.cu").read_text()
     patches = SSD_BWD_ABLATION.VARIANTS[name]
     assert SSD_BWD_ABLATION.patched(source, name, patches) != source
+
+
+TOPK_ABLATION = _load_script(Path(__file__).resolve().parents[1]
+                             / "ablations" / "topk_wire.py")
+
+
+@pytest.mark.parametrize("name", [name for name, patches
+                                  in TOPK_ABLATION.VARIANTS.items()
+                                  if patches])
+def test_topk_wire_ablation_patches_apply(name):
+    """ablations/topk_wire.py builds copies of topk_wire.cu patched by
+    text: each text a variant replaces occurs exactly once in the
+    committed source, and the copy differs from it."""
+    source = (build.CSRC / "topk_wire.cu").read_text()
+    patches = TOPK_ABLATION.VARIANTS[name]
+    assert TOPK_ABLATION.patched(source, name, patches) != source
 
 
 @pytest.mark.cuda
