@@ -28,16 +28,25 @@ the checkout (into ``build/``), then
      ResNet-18 clients (width 64, 1000 classes, 4 aux heads) exchanging
      top-k predictions, 12 steps and one evaluate(), then one profiled
      publish round;
-  6. drives the LM path: K=3 full-width, full-depth mamba2-370m clients
+  6. drives the experiment API (`repro_torch.exp`): (a) the same fleet as
+     an ExperimentSpec through Experiment(spec).run(), 12 steps with a
+     checkpoint every 6 (the launch counts set to 0 just before and read
+     just after; topk_wire, dist_ce and emb_dist must launch); (b) step
+     6's checkpoint restored into a fresh adapter, bitwise, its pools
+     reseeded at step 6, then steps 6-11; (c) FedAvg, FedMD and supervised
+     pooled and separate at full width, 4 steps each, FedAvg's average
+     held against the float64 mean; (d) examples/port_quickstart.py's spec
+     (400 steps), whose best aux head must beat the main head in β_sh;
+  7. drives the LM path: K=3 full-width, full-depth mamba2-370m clients
      (48 layers, d_model 1024, vocab 50280, 2 aux heads) exchanging
      entropy-adaptive, delta-compressed next-token predictions, 12 steps
      and one evaluate(), then one profiled publish round;
-  7. drives the hybrid path the same way: K=3 full-width zamba2-7b
+  8. drives the hybrid path the same way: K=3 full-width zamba2-7b
      clients (d_model 3584, Mamba2 with the shared attention block and the
      dense FFN every 6th layer, vocab 32000) cut in depth to one period of
      six layers. Every kernel's launch count is set to 0 just before each
      path and read just after;
-  8. prints one ``{"kernels": [...]}`` line and, last, the device line
+  9. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -47,9 +56,11 @@ and the profiles' tables to ``chiprun_out/profile_{resnet,lm,zamba2}.txt``.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -70,6 +81,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (DecentralizedTrainer, MHDConfig,  # noqa: E402
                               RunConfig, complete_graph, mhd_total_loss)
 from repro_torch import data  # noqa: E402
+from repro_torch import exp as EXP  # noqa: E402
 from repro_torch import lm  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import dist_ce as DCE  # noqa: E402
@@ -77,7 +89,9 @@ from repro_torch.kernels import emb_dist as EMB  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels import topk_wire as TOPK  # noqa: E402
-from repro_torch.models import build_bundle  # noqa: E402
+from repro_torch.checkpoint.io import (load_pytree,  # noqa: E402
+                                       params_from_jax, params_to_jax)
+from repro_torch.models import build_bundle, resnet18  # noqa: E402
 from repro_torch.models.config import patterned_stages  # noqa: E402
 from repro_torch.optim import OptimizerConfig, make_optimizer  # noqa: E402
 
@@ -124,6 +138,42 @@ def path_data(D):
         num_clients=K, num_labels=NUM_LABELS, labels_per_client=250,
         skew=100.0, gamma_pub=0.1, seed=0))
     return ds, part
+
+
+# the experiment path: the ResNet path's fleet, data, MHD and wire as an
+# ExperimentSpec through Experiment(spec).run(), with a checkpoint every 6
+# steps; then a restore, the three baselines at 4 steps each, and the
+# quickstart (examples/port_quickstart.py) on the card
+EXP_CKPT_EVERY, EXP_BASELINE_STEPS, FEDAVG_EVERY = 6, 4, 2
+EXP_CKPT_DIR = ROOT / "build" / "exp_checkpoints"
+TOL_FEDAVG = 1e-6  # |average - float64 mean| / max |float64 mean|, a leaf
+
+
+def exp_spec(algo: str, params: dict, steps: int, aux_heads: int = 0,
+             **train) -> "EXP.ExperimentSpec":
+    """A spec at the ResNet path's settings: its data, partition,
+    optimizer and batches; ResNet-18 clients (width 64) registered as
+    ``resnet18``; the top-k wire for MHD and the params setting (no wire)
+    for the baselines, which have none."""
+    wire = EXP.WireSpec(**dict(COMM, exchange="prediction_topk")) \
+        if algo == "mhd" else EXP.WireSpec()
+    return EXP.ExperimentSpec(
+        name=f"chip_smoke_{algo}",
+        algorithm=EXP.AlgorithmSpec(algo, params),
+        data=EXP.DataSpec(num_labels=NUM_LABELS, samples_per_label=8,
+                          image_size=32, noise=1.0, test_samples_per_label=2,
+                          seed=0),
+        partition=EXP.PartitionSpec(labels_per_client=250, skew=100.0,
+                                    gamma_pub=0.1),
+        clients=EXP.ExperimentSpec.uniform_fleet(
+            K, arch="resnet18", aux_heads=aux_heads, width=CFG.width),
+        wire=wire,
+        optimizer=EXP.OptimizerSpec(**{k: v for k, v in OPTIMIZER.items()
+                                       if k != "total_steps"}),
+        train=EXP.TrainSpec(steps=steps, batch_size=BATCH,
+                            public_batch_size=BATCH,
+                            eval_batch_size=RUN["eval_batch_size"], seed=0,
+                            **train))
 
 
 # the LM path: K=3 full-width, full-depth mamba2-370m clients (48 layers,
@@ -1217,6 +1267,230 @@ def phase_profile(trainer, first: int, steps: int, name: str) -> dict:
             "launches": sum(e.count for e in kernels)}
 
 
+def _finite(metrics: dict, what: str) -> None:
+    for k, v in metrics.items():
+        check(math.isfinite(v), f"{what}: {k} finite ({v})")
+
+
+def _timed_run(exp, **kw) -> tuple:
+    """``exp.run()`` with the host time between consecutive steps' metrics
+    (each step reads its metrics back, so the card is done with it)."""
+    stamps, steps = [time.perf_counter()], []
+
+    def on_step(t, m):
+        stamps.append(time.perf_counter())
+        steps.append(m)
+
+    res = exp.run(on_step=on_step, **kw)
+    return res, steps, [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def _exp_mhd(dev, triple, resnet_med: float) -> dict:
+    """(a) MHD through Experiment(spec).run() at the ResNet path's
+    settings, a checkpoint every 6 steps; every launch count set to 0
+    just before and read just after."""
+    spec = exp_spec("mhd", MHD, STEPS, aux_heads=H - 1,
+                    checkpoint_dir=str(EXP_CKPT_DIR),
+                    checkpoint_every=EXP_CKPT_EVERY)
+    ops.reset_launch_counts()
+    res, steps, step_s = _timed_run(EXP.Experiment(spec, data=triple,
+                                                   device=dev))
+    counts = ops.launch_counts()
+    check(len(steps) == STEPS, "exp path: one metrics dict a step")
+    for t, m in enumerate(steps):
+        _finite(m, f"exp path: step {t}")
+    distilled = [[int(m[f"c{i}/distill_active"]) for m in steps]
+                 for i in range(K)]
+    check(distilled == REFERENCE_DISTILLED,
+          f"exp path: distilled {distilled} != the ResNet path's schedule")
+    heads = ["main"] + [f"aux{h}" for h in range(1, H)]
+    for head in heads:
+        for b in ("beta_sh", "beta_priv"):
+            check(f"mean/{head}/{b}" in res.metrics,
+                  f"exp path: final mean/{head}/{b}")
+    _finite(res.metrics, "exp path: final metrics")
+    for name in RESNET_KERNELS:
+        check(counts[name] > 0, f"exp path: kernel {name} launched "
+                                f"({counts[name]})")
+    for step in (EXP_CKPT_EVERY, STEPS):
+        for i in range(K):
+            check((EXP_CKPT_DIR / f"client_{i}" / f"step_{step:010d}" /
+                   "state.npz").is_file(), f"exp path: checkpoint {i}@{step}")
+    med = statistics.median(step_s[1:])
+    log(f"exp path: Experiment(spec).run(), {STEPS} steps, step time median "
+        f"{med * 1e3:.1f} ms (the ResNet path's direct trainer "
+        f"{resnet_med * 1e3:.1f} ms; runner over direct "
+        f"{(med - resnet_med) * 1e3:+.1f} ms; first "
+        f"{step_s[0] * 1e3:.1f} ms; the checkpoint step "
+        f"{step_s[EXP_CKPT_EVERY] * 1e3:.1f} ms); runner's us_per_step "
+        f"{res.us_per_step:.0f}; launches {counts}")
+    log(f"exp path: distill_active {distilled}; " + ", ".join(
+        f"mean/{h}/beta_sh={res.metrics[f'mean/{h}/beta_sh']:.4f}"
+        for h in heads))
+    return {"counts": counts, "step_s": step_s,
+            "us_per_step": res.us_per_step, "distilled": distilled,
+            "beta": {k: v for k, v in res.metrics.items()
+                     if k.startswith("mean/")}}
+
+
+def _exp_restore(dev, triple) -> dict:
+    """(b) step 6's checkpoint restored into a freshly set-up adapter:
+    params and optimizer state bitwise equal to the files (in the port's
+    layout on the card, and in the reference's after params_to_jax), the
+    pools reseeded at step 6; then steps 6-11."""
+    spec = exp_spec("mhd", MHD, STEPS, aux_heads=H - 1)
+    algo = EXP.make_algorithm(spec)
+    algo.setup(EXP.Experiment(spec, data=triple,
+                              device=dev).build_bindings())
+    t0 = time.perf_counter()
+    check(algo.restore(str(EXP_CKPT_DIR), EXP_CKPT_EVERY) == EXP_CKPT_EVERY,
+          "exp restore: step")
+    restore_s = time.perf_counter() - t0
+    n_leaves = 0
+    for c in algo.trainer.clients:
+        saved = load_pytree(str(
+            EXP_CKPT_DIR / f"client_{c.client_id}" /
+            f"step_{EXP_CKPT_EVERY:010d}" / "state.npz"))
+        for prefix, tree in (("params", c.params),
+                             ("opt/momentum", c.opt_state["momentum"])):
+            want = {k[len(prefix) + 1:]: v for k, v in saved.items()
+                    if k.startswith(prefix + "/")}
+            check(want.keys() == tree.keys(), f"exp restore: {prefix} keys")
+            on_card = params_from_jax(want, device=dev)
+            for k, v in params_to_jax(tree).items():
+                check(tree[k].device == dev and tree[k].dtype == torch.float32
+                      and torch.equal(tree[k], on_card[k])
+                      and np.array_equal(v, want[k]),
+                      f"exp restore: client {c.client_id} {prefix}/{k} "
+                      f"bitwise")
+                n_leaves += 1
+        check(len(c.pool) > 0 and all(e.step == EXP_CKPT_EVERY
+                                      for e in c.pool.entries),
+              f"exp restore: client {c.client_id} pool reseeded at step "
+              f"{EXP_CKPT_EVERY} ({[e.step for e in c.pool.entries]})")
+    steps = [algo.step(t) for t in range(EXP_CKPT_EVERY, STEPS)]
+    for t, m in zip(range(EXP_CKPT_EVERY, STEPS), steps):
+        _finite(m, f"exp restore: step {t}")
+    log(f"exp restore: step {EXP_CKPT_EVERY} into a fresh adapter in "
+        f"{restore_s:.2f} s (reseed publish included); {n_leaves} leaves "
+        f"bitwise equal to the files; pools reseeded at step "
+        f"{EXP_CKPT_EVERY}; steps {EXP_CKPT_EVERY}-{STEPS - 1} finite, "
+        f"losses {[round(steps[-1][f'c{i}/loss'], 4) for i in range(K)]}")
+    return {"restore_s": restore_s, "leaves": n_leaves}
+
+
+def _exp_baselines(dev, triple) -> dict:
+    """(c) FedAvg (averaging every 2 steps), FedMD, and supervised pooled
+    and separate at full width through Experiment(spec).run(). FedAvg's
+    average is held against the float64 mean of the params the clients
+    held just before it, computed on the card."""
+    import repro_torch.core.fedavg as FA
+
+    tree_mean, means = FA.tree_mean, []
+
+    def recording_mean(trees):
+        means.append({k: sum(t[k].double() for t in trees) / len(trees)
+                      for k in trees[0]})
+        return tree_mean(trees)
+
+    out = {}
+    cases = [("fedavg", {"average_every": FEDAVG_EVERY}),
+             ("fedmd", {}), ("supervised", {"scope": "pooled"}),
+             ("supervised", {"scope": "separate"})]
+    for algo, params in cases:
+        label = params.get("scope", algo)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        FA.tree_mean = recording_mean
+        try:
+            res, steps, step_s = _timed_run(EXP.Experiment(
+                exp_spec(algo, params, EXP_BASELINE_STEPS), data=triple,
+                device=dev))
+        finally:
+            FA.tree_mean = tree_mean
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for t, m in enumerate(steps):
+            _finite(m, f"{label}: step {t}")
+        check("mean/main/beta_sh" in res.metrics, f"{label}: β metrics")
+        _finite(res.metrics, f"{label}: final metrics")
+        rel = None
+        if algo == "fedavg":
+            # one mean a step that averages, and one for the final
+            # evaluate() (of the global model, the last step's average)
+            rounds = EXP_BASELINE_STEPS // FEDAVG_EVERY
+            check(len(means) == rounds + 1,
+                  f"fedavg: {len(means)} means for {rounds} averages")
+            rel = 0.0
+            for p in res.trainer.client_params:
+                for k, want in means[rounds - 1].items():
+                    d = (p[k].double() - want).abs().max()
+                    rel = max(rel, float(d / want.abs().max().clamp_min(
+                        1e-30)))
+            check(rel <= TOL_FEDAVG, f"fedavg: average vs the float64 mean "
+                                     f"{rel:.3g} > {TOL_FEDAVG}")
+        med = statistics.median(step_s[1:])
+        log(f"{label}: {EXP_BASELINE_STEPS} steps, {med * 1e3:.1f} ms a "
+            f"step (median; first {step_s[0] * 1e3:.1f} ms), card memory "
+            f"peak {peak:.2f} GiB; mean/main/beta_sh="
+            f"{res.metrics['mean/main/beta_sh']:.4f}"
+            + ("" if rel is None else
+               f"; average vs float64 mean max rel {rel:.3g}"))
+        out[label] = {"step_s": step_s, "peak_gib": peak,
+                      "fedavg_rel": rel,
+                      "beta_sh": res.metrics["mean/main/beta_sh"]}
+        del res
+    return out
+
+
+def _exp_quickstart(dev) -> dict:
+    """(d) examples/port_quickstart.py's spec on the card: the best aux
+    head's β_sh must beat the main head's (the paper's claim)."""
+    path = ROOT / "examples" / "port_quickstart.py"
+    mod_spec = importlib.util.spec_from_file_location("port_quickstart",
+                                                      path)
+    qs = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(qs)
+    t0 = time.perf_counter()
+    res = EXP.Experiment(qs.build_spec(), device=dev).run()
+    wall = time.perf_counter() - t0
+    ev = res.metrics
+    _finite(ev, "quickstart")
+    aux = max((h for h in qs.HEADS if h != "main"),
+              key=lambda h: ev[f"mean/{h}/beta_sh"])
+    log(f"quickstart: {res.spec.train.steps} steps in {wall:.1f} s "
+        f"({res.us_per_step / 1e3:.1f} ms a step by the runner)\n"
+        + qs.beta_table(ev))
+    check(ev[f"mean/{aux}/beta_sh"] > ev["mean/main/beta_sh"],
+          f"quickstart: {aux} β_sh {ev[f'mean/{aux}/beta_sh']:.3f} does not "
+          f"beat main {ev['mean/main/beta_sh']:.3f}")
+    return {"wall_s": wall, "us_per_step": res.us_per_step,
+            "beta": {k: v for k, v in ev.items() if k.startswith("mean/")}}
+
+
+def phase_exp_path(dev, resnet_med: float) -> dict:
+    """The experiment API on the card: (a) MHD through
+    Experiment(spec).run() at the ResNet path's settings, (b) a restore of
+    its step-6 checkpoint, (c) the three baselines, (d) the quickstart."""
+    if "resnet18" not in EXP.CLIENT_ARCHS:
+        EXP.CLIENT_ARCHS.register("resnet18")(
+            lambda num_labels, aux_heads, width: resnet18(
+                num_labels, num_aux_heads=aux_heads, width=width))
+    shutil.rmtree(EXP_CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    spec = exp_spec("mhd", MHD, STEPS)
+    triple = EXP.materialize_data(spec.data, spec.partition, K)
+    out = {"mhd": _exp_mhd(dev, triple, resnet_med)}
+    torch.cuda.empty_cache()
+    out["restore"] = _exp_restore(dev, triple)
+    shutil.rmtree(EXP_CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["baselines"] = _exp_baselines(dev, triple)
+    out["quickstart"] = _exp_quickstart(dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"exp phase: {out['seconds']:.1f} s")
+    return out
+
+
 def phase_adaptive_wire(dev) -> None:
     """The adaptive, delta-compressed wire at the LM path's frame shape
     (W=4 windows, H=3 heads, 1024 positions, V=50280): the frame encoded
@@ -1380,6 +1654,8 @@ def main() -> int:
     RECORD["profile_resnet"] = phase_profile(trainer, STEPS, S_P, "resnet")
     del trainer
     torch.cuda.empty_cache()
+    exp_path = phase_exp_path(dev, statistics.median(resnet["step_s"][1:]))
+    torch.cuda.empty_cache()
     ops.reset_launch_counts()
     trainer, lm_path = phase_lm_path(dev, LM_CFG, "lm", LM_KERNELS)
     RECORD["profile_lm"] = phase_profile(trainer, LM_STEPS, LM_S_P, "lm")
@@ -1397,12 +1673,14 @@ def main() -> int:
     RECORD["profile_zamba2"] = phase_profile(trainer, LM_STEPS, LM_S_P,
                                              "zamba2")
     del trainer
-    paths = {"resnet": resnet, "lm": lm_path, "zamba2": zamba_path}
+    paths = {"resnet": resnet, "exp": exp_path["mhd"], "lm": lm_path,
+             "zamba2": zamba_path}
     for k in kernels:
         k["launches_by_path"] = {p: r["counts"][k["name"]]
                                  for p, r in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-    RECORD.update(kernels=kernels, resnet_path=resnet, lm_path=lm_path,
+    RECORD.update(kernels=kernels, resnet_path=resnet, exp_path=exp_path,
+                  lm_path=lm_path,
                   zamba2_path=zamba_path,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"

@@ -1,5 +1,6 @@
 """The paper's primary contribution in PyTorch: Multi-Headed Distillation
-for decentralized learning (the baselines are a later slice)."""
+for decentralized learning, plus its baselines (FedAvg, FedMD,
+supervised)."""
 from repro_torch.core.evaluation import (
     fleet_beta_metrics,
     label_histogram,
@@ -21,11 +22,17 @@ from repro_torch.core.mhd import (
     normalized,
 )
 from repro_torch.core.runtime import DecentralizedTrainer, RunConfig
+from repro_torch.core.fedavg import FedAvgTrainer, train_fedavg
+from repro_torch.core.fedmd import FedMDTrainer, train_fedmd
+from repro_torch.core.supervised import SupervisedTrainer, train_supervised
 
 __all__ = [
     "DecentralizedTrainer",
+    "FedAvgTrainer",
+    "FedMDTrainer",
     "MHDConfig",
     "RunConfig",
+    "SupervisedTrainer",
     "chain_graph",
     "complete_graph",
     "cycle_graph",
@@ -39,4 +46,7 @@ __all__ = [
     "multi_head_distillation_loss",
     "normalized",
     "per_label_head_accuracy",
+    "train_fedavg",
+    "train_fedmd",
+    "train_supervised",
 ]

@@ -21,8 +21,9 @@ pull, the pool sample, the pool seeds, the public and private streams), so
 given the same initial parameters both packages choose the same teachers
 at the same steps. Not ported yet: ``local_clients``, ``membership``,
 ``init_scheme="per_client"``, the scheduler's op-granular entry points
-and its ``max_staleness`` gate, and checkpointing; they raise or are
-absent.
+and its ``max_staleness`` gate; they raise or are absent. ``save`` /
+``restore`` persist each client's (params, opt_state) in the reference's
+per-client layout (`repro_torch.checkpoint.io.save_client_states`).
 
 Runs on the GPU unless ``device="cpu"`` is passed.
 """
@@ -68,6 +69,30 @@ def client_loss(bundle: ModelBundle, params, private_batch, public_batch,
     if out_priv.get("aux_loss") is not None:
         loss = loss + out_priv["aux_loss"]
     return loss, metrics
+
+
+def batch_to_device(batch: Dict[str, np.ndarray],
+                    device: torch.device) -> Dict[str, Tensor]:
+    """A host batch of numpy arrays as tensors on ``device``."""
+    return {k: torch.from_numpy(np.require(v, requirements="CW")).to(device)
+            for k, v in batch.items()}
+
+
+def init_fleet(bundles: Sequence[ModelBundle], seed: int,
+               device: torch.device) -> List[Dict[str, Tensor]]:
+    """Each bundle's initial params from one CPU generator chained through
+    the fleet, so the draw does not depend on the device; moved to
+    ``device``. Every trainer of the port draws its clients this way."""
+    gen = torch.Generator().manual_seed(seed)
+    return [{k: v.to(device) for k, v in b.init(gen).items()}
+            for b in bundles]
+
+
+def read_metrics(metrics: Dict[str, Tensor]) -> Dict[str, float]:
+    """Every metric tensor of a step read back to the host at once."""
+    vals = torch.stack([v.detach().float().reshape(())
+                        for v in metrics.values()]).tolist()
+    return dict(zip(metrics, vals))
 
 
 @dataclasses.dataclass
@@ -151,11 +176,8 @@ class DecentralizedTrainer:
 
         self.local_ids = list(range(len(bundles)))
         self.clients: List[ClientState] = []
-        # one CPU generator chained through every client's init, so the
-        # draw does not depend on the device
-        gen = torch.Generator().manual_seed(run_cfg.seed)
-        for i, bundle in enumerate(bundles):
-            params = {k: v.to(self.device) for k, v in bundle.init(gen).items()}
+        inits = init_fleet(bundles, run_cfg.seed, self.device)
+        for i, (bundle, params) in enumerate(zip(bundles, inits)):
             self.clients.append(ClientState(
                 client_id=i,
                 bundle=bundle,
@@ -172,12 +194,6 @@ class DecentralizedTrainer:
             ))
         self.local = list(self.clients)
         self._seed_pools(step=0)
-
-    # -- host → device ------------------------------------------------------
-
-    def _batch(self, batch_np: Dict[str, np.ndarray]) -> Dict[str, Tensor]:
-        return {k: torch.from_numpy(np.require(v, requirements="CW"))
-                .to(self.device) for k, v in batch_np.items()}
 
     # -- per-client steps ---------------------------------------------------
 
@@ -319,7 +335,8 @@ class DecentralizedTrainer:
             W = self.horizon
             ids = np.stack([self.public.sample_ids(step + w)
                             for w in range(W)])
-            batches = [self._batch(self.public.sample(step + w))
+            batches = [batch_to_device(self.public.sample(step + w),
+                                       self.device)
                        for w in range(W)]
             for c in todo:
                 t_fwd = trace.now()
@@ -354,8 +371,8 @@ class DecentralizedTrainer:
                         f"sample-id mismatch in message from client "
                         f"{msg.src} at public step {msg.t0 + w}")
             # densified once per received window, kept on the device
-            return PredictionWindow(msg.t0, self._batch(
-                self.codec.densify(msg)))
+            return PredictionWindow(msg.t0, batch_to_device(
+                self.codec.densify(msg), self.device))
 
     # -- teacher assembly ---------------------------------------------------
 
@@ -404,7 +421,7 @@ class DecentralizedTrainer:
         t_step = trace.now()
         if self.exchange != "params":
             self.bus.advance(c.client_id, t)
-        private_batch = self._batch(c.private_iter.next())
+        private_batch = batch_to_device(c.private_iter.next(), self.device)
         teachers, skipped = self._stack_teachers(c, public_batch, t)
         t_up = trace.now()
         if teachers is None:
@@ -418,10 +435,8 @@ class DecentralizedTrainer:
                                            teachers, t, rng)
 
         def resolve() -> Dict[str, float]:
-            names = list(metrics)
-            vals = torch.stack([metrics[k].detach().float().reshape(())
-                                for k in names]).tolist()
-            out = {f"c{c.client_id}/{k}": v for k, v in zip(names, vals)}
+            out = {f"c{c.client_id}/{k}": v
+                   for k, v in read_metrics(metrics).items()}
             trace.complete(
                 "runtime/supervised" if teachers is None
                 else "runtime/distill",
@@ -439,7 +454,7 @@ class DecentralizedTrainer:
         return resolve if defer else resolve()
 
     def step(self, t: int) -> Dict[str, float]:
-        public_batch = self._batch(self.public.sample(t))
+        public_batch = batch_to_device(self.public.sample(t), self.device)
         # queue every client's update, run the communication phase while
         # the device computes, then read the metrics (resolved LIFO so the
         # per-client trace spans nest)
@@ -468,6 +483,38 @@ class DecentralizedTrainer:
                 if eval_hook:
                     eval_hook(t + 1, ev)
         return history
+
+    # -- checkpointing ------------------------------------------------------
+
+    def save(self, directory: str, step: int) -> None:
+        """Persist every client's (params, opt_state), one directory a
+        client — a decentralized run is resumable per client."""
+        from repro_torch.checkpoint.io import save_client_states
+
+        save_client_states(directory, step,
+                           [(c.params, c.opt_state) for c in self.clients],
+                           ids=[c.client_id for c in self.clients])
+
+    def restore(self, directory: str, step: Optional[int] = None) -> int:
+        """Load every client's (params, opt_state) onto ``self.device`` and
+        reseed the pools at the restored step. Pools, mailboxes and the
+        data streams are not part of a checkpoint."""
+        from repro_torch.checkpoint.io import restore_client_states
+
+        restored_step, states = restore_client_states(
+            directory, [(c.params, c.opt_state) for c in self.clients], step,
+            ids=[c.client_id for c in self.clients])
+        for c, (params, opt_state) in zip(self.clients, states):
+            c.params = params
+            c.opt_state = opt_state
+        if self.exchange != "params":
+            # construction-time windows are expired at the restored step —
+            # drop them (and any stale pulls) so reseeding actually lands
+            for c in self.clients:
+                c.pool.entries.clear()
+            self._pending = {c.client_id: {} for c in self.clients}
+        self._seed_pools(step=restored_step)
+        return int(restored_step)
 
     # -- evaluation (β_priv / β_sh, paper §4.2.1) ---------------------------
 

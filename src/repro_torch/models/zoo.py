@@ -23,6 +23,7 @@ class ModelBundle:
     # reference's params through `checkpoint.io.params_from_jax`.)
     init: Callable[[torch.Generator], Dict[str, torch.Tensor]]
     apply: Callable[..., Dict[str, Any]]  # (params, batch) -> outputs
+    loss: Callable[..., Any]  # (params, batch) -> (loss, metrics)
 
     @property
     def is_lm(self) -> bool:
@@ -45,7 +46,14 @@ def _resnet_bundle(cfg: RN.ResNetConfig, dtype) -> ModelBundle:
     def apply(params, batch):
         return RN.apply_resnet(params, cfg, batch["images"])
 
-    return ModelBundle(name=cfg.name, config=cfg, init=init, apply=apply)
+    def loss(params, batch):
+        out = apply(params, batch)
+        ce = TF.softmax_xent(out["logits"].float(), batch["labels"])
+        acc = (out["logits"].argmax(-1) == batch["labels"]).float().mean()
+        return ce, {"ce": ce, "acc": acc}
+
+    return ModelBundle(name=cfg.name, config=cfg, init=init, apply=apply,
+                       loss=loss)
 
 
 def _lm_bundle(cfg: ModelConfig, dtype) -> ModelBundle:
@@ -57,4 +65,8 @@ def _lm_bundle(cfg: ModelConfig, dtype) -> ModelBundle:
     def apply(params, batch):
         return TF.apply_lm(params, cfg, batch)
 
-    return ModelBundle(name=cfg.name, config=cfg, init=init, apply=apply)
+    def loss(params, batch):
+        return TF.lm_loss(params, cfg, batch)
+
+    return ModelBundle(name=cfg.name, config=cfg, init=init, apply=apply,
+                       loss=loss)
