@@ -37,16 +37,27 @@ the checkout (into ``build/``), then
      pooled and separate at full width, 4 steps each, FedAvg's average
      held against the float64 mean; (d) examples/port_quickstart.py's spec
      (400 steps), whose best aux head must beat the main head in β_sh;
-  7. drives the LM path: K=3 full-width, full-depth mamba2-370m clients
+  7. drives the fleet layers (`phase_fleet_path`, on the experiment
+     path's ``resnet18`` and the ResNet path's data): (a) the `gossip`
+     preset with 4 ResNet-18 clients, 40 wall ticks under lockstep and
+     under the scoreboard, client 3 paced at 4x a measured client step;
+     (b) lockstep == scoreboard == sync, every param leaf bitwise, K=3
+     over 8 steps; (c) a fleet snapshot at wall 6 under rates (1, 1, 4),
+     restored into a fresh adapter and continued bitwise, both policies;
+     (d) the `churn_ring` preset with 5 clients (join, two kills, a
+     restart from a snapshot and a fresh one, the rewire) with a trace,
+     whose host time is split by phase. (b) and (c) run cuDNN in its
+     deterministic mode, for their own runs only;
+  8. drives the LM path: K=3 full-width, full-depth mamba2-370m clients
      (48 layers, d_model 1024, vocab 50280, 2 aux heads) exchanging
      entropy-adaptive, delta-compressed next-token predictions, 12 steps
      and one evaluate(), then one profiled publish round;
-  8. drives the hybrid path the same way: K=3 full-width zamba2-7b
+  9. drives the hybrid path the same way: K=3 full-width zamba2-7b
      clients (d_model 3584, Mamba2 with the shared attention block and the
      dense FFN every 6th layer, vocab 32000) cut in depth to one period of
      six layers. Every kernel's launch count is set to 0 just before each
      path and read just after;
-  9. prints one ``{"kernels": [...]}`` line and, last, the device line
+  10. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -1491,6 +1502,306 @@ def phase_exp_path(dev, resnet_med: float) -> dict:
     return out
 
 
+# the fleet path: the gossip and churn_ring presets at full ResNet-18 width
+# on the ResNet path's data (1000 classes, 32x32, 8 images a class), the
+# schedulers against the sync loop, and fleet snapshots
+FLEET_TICKS = 40  # (a) wall ticks under each policy
+FLEET_EQ_STEPS = 8  # (b) the bitwise anchor's steps
+FLEET_SKEW_TICKS, FLEET_SKEW_CUT = 12, 6  # (c) a cut between pool rounds
+FLEET_CHURN_STEPS = 20  # (d)
+FLEET_DIR = ROOT / "build" / "fleet"
+FLEET_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
+                 "emb_dist_bwd")
+
+
+class Deterministic:
+    """cuDNN's deterministic algorithms (and no autotuning) for a run that
+    is compared bit for bit; the earlier settings come back after it."""
+
+    def __enter__(self):
+        self._saved = (torch.backends.cudnn.deterministic,
+                       torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self._saved
+
+
+def fleet_preset(name: str, steps: int, **train) -> "EXP.ExperimentSpec":
+    """A preset at full ResNet-18 width (``resnet18``, width 64, its aux
+    heads) on the ResNet path's data: its algorithm, topology, schedule,
+    transport, wire, gate and batches as they are; the labels split over
+    its clients; ``steps`` in place of its own."""
+    spec = EXP.get_preset(name)
+    k = spec.num_clients
+    return dataclasses.replace(
+        spec,
+        data=EXP.DataSpec(num_labels=NUM_LABELS, samples_per_label=8,
+                          image_size=32, noise=1.0, test_samples_per_label=2,
+                          seed=0),
+        partition=dataclasses.replace(spec.partition,
+                                      labels_per_client=NUM_LABELS // k),
+        clients=EXP.ExperimentSpec.uniform_fleet(
+            k, arch="resnet18", aux_heads=spec.clients[0].aux_heads,
+            width=CFG.width),
+        train=dataclasses.replace(spec.train, steps=steps, **train))
+
+
+def _params_equal(a, b) -> int:
+    """Every param leaf of two trainers' clients compared bit for bit;
+    returns the number of leaves (raises on the first difference)."""
+    n = 0
+    for ca, cb in zip(a.clients, b.clients):
+        for k, v in ca.params.items():
+            check(torch.equal(v, cb.params[k]),
+                  f"client {ca.client_id} {k} bitwise")
+            n += 1
+    return n
+
+
+def _fleet_gossip(dev) -> dict:
+    """(a) `gossip` with 4 ResNet-18 clients, 40 wall ticks under lockstep
+    and under the scoreboard, client 3 paced at 4x a measured client
+    step."""
+    base = fleet_preset("gossip", FLEET_TICKS)
+    triple = EXP.materialize_data(base.data, base.partition,
+                                  base.num_clients)
+    warm = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, steps=4))
+    _, _, tick_s = _timed_run(EXP.Experiment(warm, data=triple, device=dev))
+    # ticks 1-3: the three fast clients step, the straggler does not
+    client_ms = statistics.median(tick_s[1:]) / 3 * 1e3
+    pace_ms = 4 * client_ms
+    out = {"client_step_ms": client_ms, "pace_ms": pace_ms}
+    for mode in ("lockstep", "scoreboard"):
+        spec = dataclasses.replace(base, schedule=dataclasses.replace(
+            base.schedule, mode=mode, pace_ms=(0.0, 0.0, 0.0, pace_ms)))
+        t0 = time.perf_counter()
+        res, steps, tick_s = _timed_run(EXP.Experiment(spec, data=triple,
+                                                       device=dev))
+        wall = time.perf_counter() - t0
+        sched = res.scheduler
+        check(sched.mode == mode, f"gossip {mode}: scheduler")
+        for t, m in enumerate(steps):
+            _finite(m, f"gossip {mode}: tick {t}")
+        _finite(res.metrics, f"gossip {mode}: final metrics")
+        local = list(sched.local_steps)
+        check(local[3] >= FLEET_TICKS // 4 and
+              min(local[:3]) >= FLEET_TICKS,
+              f"gossip {mode}: local steps {local}")
+        meter = res.trainer.meter
+        fresh = sched.freshness_report()
+        row = {
+            "wall_s": wall, "tick_ms_median":
+                statistics.median(tick_s[1:]) * 1e3,
+            "tick_ms": [x * 1e3 for x in tick_s],
+            "local_steps": local,
+            "fast_done_s": max(sched.resolved_at[:3]) - t0,
+            "straggler_done_s": sched.resolved_at[3] - t0,
+            "stale_skipped": sum(m.get(f"c{i}/stale_skipped", 0.0)
+                                 for m in steps for i in range(4)),
+            "distill_active": sum(m.get(f"c{i}/distill_active", 0.0)
+                                  for m in steps for i in range(4)),
+            "offered_bytes": meter.total_bytes,
+            "delivered_bytes": meter.delivered_bytes,
+            "dropped_messages": res.transport.dropped_count,
+            "messages": dict(meter.summary()),
+            "freshness": {str(c): f for c, f in fresh.items()},
+            "stats": dict(sched.stats)}
+        check(meter.delivered_bytes <= meter.total_bytes,
+              f"gossip {mode}: delivered <= offered")
+        out[mode] = row
+        log(f"fleet (a) gossip {mode}: {FLEET_TICKS} ticks in {wall:.2f} s, "
+            f"tick median {row['tick_ms_median']:.1f} ms, local steps "
+            f"{local}, fast clients done {row['fast_done_s']:.2f} s, "
+            f"straggler {row['straggler_done_s']:.2f} s; stale_skipped "
+            f"{row['stale_skipped']:.0f}, distill_active "
+            f"{row['distill_active']:.0f}; bytes offered "
+            f"{meter.total_bytes}, delivered {meter.delivered_bytes}, "
+            f"messages dropped {row['dropped_messages']}; stats "
+            f"{row['stats']}")
+        log(f"fleet (a) gossip {mode}: meter {row['messages']}; freshness "
+            f"{fresh}")
+    log(f"fleet (a): a client step {client_ms:.1f} ms (median of the "
+        f"unpaced ticks 1-3 over their 3 clients), pace_ms of client 3 "
+        f"{pace_ms:.1f}")
+    return out
+
+
+def _fleet_anchor(dev, triple) -> dict:
+    """(b) K=3 ResNet-18, 8 steps, equal rates, loopback, unbounded
+    staleness and run-ahead: lockstep == scoreboard == sync, every param
+    leaf and every step metric, in deterministic cuDNN mode."""
+    runs = {}
+    with Deterministic():
+        for mode in ("sync", "lockstep", "scoreboard"):
+            spec = exp_spec("mhd", MHD, FLEET_EQ_STEPS, aux_heads=H - 1)
+            spec = dataclasses.replace(spec,
+                                       schedule=EXP.ScheduleSpec(mode=mode))
+            res, steps, _ = _timed_run(EXP.Experiment(spec, data=triple,
+                                                      device=dev))
+            runs[mode] = (res, [{k: v for k, v in m.items()
+                                 if not k.endswith("local_step")}
+                                for m in steps])
+    sync_res, sync_steps = runs["sync"]
+    leaves = 0
+    for mode in ("lockstep", "scoreboard"):
+        res, steps = runs[mode]
+        check(steps == sync_steps, f"fleet (b): {mode} step metrics == sync")
+        check(res.metrics == sync_res.metrics,
+              f"fleet (b): {mode} final metrics == sync")
+        leaves = _params_equal(res.trainer, sync_res.trainer)
+    log(f"fleet (b): lockstep == scoreboard == sync over {FLEET_EQ_STEPS} "
+        f"steps, {leaves} param leaves and every step metric bitwise "
+        f"(cudnn.deterministic)")
+    return {"leaves": leaves}
+
+
+def _fleet_skew_snapshot(dev, triple) -> dict:
+    """(c) rates (1, 1, 4): a fleet snapshot at wall 6 — between the
+    straggler's pool rounds (every 16 ticks) and not a multiple of S_P —
+    restored into a fresh adapter; the continued run equals the
+    uninterrupted one bitwise, under both policies."""
+    out = {}
+    for mode in ("lockstep", "scoreboard"):
+        spec = exp_spec("mhd", MHD, FLEET_SKEW_TICKS, aux_heads=H - 1)
+        spec = dataclasses.replace(
+            spec, schedule=EXP.ScheduleSpec(mode=mode, rates=(1, 1, 4)),
+            wire=dataclasses.replace(spec.wire, horizon=4 * S_P))
+        d = FLEET_DIR / f"skew_{mode}"
+        shutil.rmtree(d, ignore_errors=True)
+
+        def adapter():
+            algo = EXP.make_algorithm(spec)
+            algo.setup(EXP.Experiment(spec, data=triple,
+                                      device=dev).build_bindings())
+            return algo
+
+        with Deterministic():
+            a = adapter()
+            full = []
+            for t in range(FLEET_SKEW_TICKS):
+                if t == FLEET_SKEW_CUT:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    a.snapshot(str(d), FLEET_SKEW_CUT)
+                    save_s = time.perf_counter() - t0
+                full.append(a.step(t))
+            b = adapter()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(b.restore_snapshot(str(d)) == FLEET_SKEW_CUT,
+                  f"fleet (c) {mode}: restored step")
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(b.scheduler.local_steps == [FLEET_SKEW_CUT] * 2 + [2],
+                  f"fleet (c) {mode}: clocks {b.scheduler.local_steps}")
+            rest = [b.step(t) for t in range(FLEET_SKEW_CUT,
+                                             FLEET_SKEW_TICKS)]
+        check(rest == full[FLEET_SKEW_CUT:],
+              f"fleet (c) {mode}: continued metrics == uninterrupted")
+        leaves = _params_equal(a.trainer, b.trainer)
+        nbytes = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+        out[mode] = {"save_s": save_s, "restore_s": restore_s,
+                     "bytes": nbytes, "leaves": leaves,
+                     "local_steps": list(b.scheduler.local_steps)}
+        log(f"fleet (c) {mode}: snapshot at wall {FLEET_SKEW_CUT} under "
+            f"rates (1, 1, 4): save {save_s:.3f} s, restore "
+            f"{restore_s:.3f} s, {nbytes / 2**20:.1f} MiB on disk; ticks "
+            f"{FLEET_SKEW_CUT}-{FLEET_SKEW_TICKS - 1} and {leaves} leaves "
+            f"bitwise equal to the uninterrupted run; local steps "
+            f"{b.scheduler.local_steps}")
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def _fleet_churn(dev) -> dict:
+    """(d) `churn_ring` with 5 ResNet-18 clients: client 4 joins, client
+    1 is killed and restarts from a fleet snapshot, client 2 is killed and
+    restarts fresh, the ring rewires to two hops; traced."""
+    from repro_torch.obs import load_trace
+    from repro_torch.obs.metrics import phase_attribution
+
+    snap_dir, trace_dir = FLEET_DIR / "churn_snapshots", FLEET_DIR / "trace"
+    for d in (snap_dir, trace_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    base = fleet_preset("churn_ring", FLEET_CHURN_STEPS,
+                        snapshot_dir=str(snap_dir), snapshot_every=8,
+                        trace_dir=str(trace_dir))
+    rewire = next(ev for ev in base.churn.events if ev.kind == "rewire")
+    events = (EXP.ChurnEventSpec(kind="join", step=4, client=4),
+              EXP.ChurnEventSpec(kind="kill", step=8, client=1),
+              EXP.ChurnEventSpec(kind="kill", step=10, client=2),
+              EXP.ChurnEventSpec(kind="restart", step=12, client=1,
+                                 from_snapshot=True),
+              EXP.ChurnEventSpec(kind="restart", step=16, client=2,
+                                 from_snapshot=False),
+              dataclasses.replace(rewire, step=18))
+    spec = dataclasses.replace(base, churn=EXP.ChurnSpec(events=events))
+    triple = EXP.materialize_data(spec.data, spec.partition,
+                                  spec.num_clients)
+    res, steps, step_s = _timed_run(EXP.Experiment(spec, data=triple,
+                                                   device=dev))
+    for t, m in enumerate(steps):
+        _finite(m, f"churn: step {t}")
+    alive = [m["fleet/alive"] for m in steps]
+    check(alive == [4.0] * 4 + [5.0] * 4 + [4.0] * 2 + [3.0] * 2 +
+          [4.0] * 4 + [5.0] * 4, f"churn: alive {alive}")
+    applied = res.algorithm.churn.applied
+    check(applied[3] == "restart(c1)@12 from snapshot step 8" and
+          applied[4] == "restart(c2)@16 fresh", f"churn: applied {applied}")
+    check(any(m.get("c1/distill_active", 0.0) for m in steps[13:]),
+          "churn: the restored client distills again")
+    meter = res.trainer.meter
+    check(meter.tombstoned_bytes > 0, "churn: mail to the dead tombstoned")
+    check(meter.delivered_bytes + meter.tombstoned_bytes ==
+          meter.total_bytes, "churn: every offered byte accounted")
+    trace = load_trace(str(trace_dir / "trace.json"))
+    phases = phase_attribution(trace["traceEvents"])
+    row = next(iter(phases.values()))
+    obs = {k: v for k, v in res.metrics.items() if k.startswith("obs/")}
+    check(obs.get("obs/trace/dropped") == 0.0, "churn: no trace dropped")
+    log(f"fleet (d) churn_ring: {FLEET_CHURN_STEPS} steps, step median "
+        f"{statistics.median(step_s[1:]) * 1e3:.1f} ms; applied {applied}; "
+        f"alive {alive}; tombstoned {meter.tombstoned_bytes} B of "
+        f"{meter.total_bytes} offered")
+    log("fleet (d) host time by phase (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in row.items() if v))
+    return {"step_s": step_s, "applied": applied, "alive": alive,
+            "phases": row, "trace_events": len(trace["traceEvents"]),
+            "tombstoned_bytes": meter.tombstoned_bytes,
+            "offered_bytes": meter.total_bytes}
+
+
+def phase_fleet_path(dev) -> dict:
+    """The fleet layers on the card: (a) `gossip` under lockstep and
+    scoreboard with a paced straggler, (b) lockstep == scoreboard == sync
+    bitwise, (c) a mid-cadence snapshot under 4x skew resumed bitwise, (d)
+    `churn_ring` with joins, kills, both restarts, the rewire and a trace.
+    Every launch count is set to 0 just before and read just after; the
+    ResNet path's kernels must have launched. Needs `phase_exp_path`'s
+    ``resnet18`` registration."""
+    t0 = time.perf_counter()
+    spec = exp_spec("mhd", MHD, STEPS)
+    triple = EXP.materialize_data(spec.data, spec.partition, K)
+    ops.reset_launch_counts()
+    out = {"gossip": _fleet_gossip(dev)}
+    torch.cuda.empty_cache()
+    out["anchor"] = _fleet_anchor(dev, triple)
+    out["skew_snapshot"] = _fleet_skew_snapshot(dev, triple)
+    torch.cuda.empty_cache()
+    out["churn"] = _fleet_churn(dev)
+    out["counts"] = ops.launch_counts()
+    for name in FLEET_KERNELS:
+        check(out["counts"][name] > 0,
+              f"fleet path: kernel {name} launched ({out['counts'][name]})")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"fleet phase: {out['seconds']:.1f} s; launches {out['counts']}")
+    return out
+
+
 def phase_adaptive_wire(dev) -> None:
     """The adaptive, delta-compressed wire at the LM path's frame shape
     (W=4 windows, H=3 heads, 1024 positions, V=50280): the frame encoded
@@ -1656,6 +1967,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     exp_path = phase_exp_path(dev, statistics.median(resnet["step_s"][1:]))
     torch.cuda.empty_cache()
+    fleet_path = phase_fleet_path(dev)
+    torch.cuda.empty_cache()
     ops.reset_launch_counts()
     trainer, lm_path = phase_lm_path(dev, LM_CFG, "lm", LM_KERNELS)
     RECORD["profile_lm"] = phase_profile(trainer, LM_STEPS, LM_S_P, "lm")
@@ -1673,14 +1986,14 @@ def main() -> int:
     RECORD["profile_zamba2"] = phase_profile(trainer, LM_STEPS, LM_S_P,
                                              "zamba2")
     del trainer
-    paths = {"resnet": resnet, "exp": exp_path["mhd"], "lm": lm_path,
-             "zamba2": zamba_path}
+    paths = {"resnet": resnet, "exp": exp_path["mhd"], "fleet": fleet_path,
+             "lm": lm_path, "zamba2": zamba_path}
     for k in kernels:
         k["launches_by_path"] = {p: r["counts"][k["name"]]
                                  for p, r in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     RECORD.update(kernels=kernels, resnet_path=resnet, exp_path=exp_path,
-                  lm_path=lm_path,
+                  fleet_path=fleet_path, lm_path=lm_path,
                   zamba2_path=zamba_path,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"

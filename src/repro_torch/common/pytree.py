@@ -1,5 +1,6 @@
 """Leafwise arithmetic over the port's flat parameter dicts (the part of
-``repro/common/pytree.py`` the baselines use), so FedAvg reads as math."""
+``repro/common/pytree.py`` the baselines and the benchmarks use), so
+FedAvg reads as math."""
 from __future__ import annotations
 
 from typing import Dict, Mapping, Sequence
@@ -27,3 +28,8 @@ def tree_mean(trees: Sequence[Mapping[str, torch.Tensor]]) -> Params:
     for t in trees[1:]:
         out = tree_add(out, t)
     return tree_scale(out, 1.0 / n)
+
+
+def tree_size(tree: Mapping[str, torch.Tensor]) -> int:
+    """Total number of parameters."""
+    return sum(int(v.numel()) for v in tree.values())

@@ -22,16 +22,29 @@ from repro_torch.core.mhd import (
     normalized,
 )
 from repro_torch.core.runtime import DecentralizedTrainer, RunConfig
+from repro_torch.core.scheduler import (
+    AsyncScheduler,
+    GossipPacer,
+    ScheduleConfig,
+    Scoreboard,
+    ScoreboardScheduler,
+    run_async,
+)
 from repro_torch.core.fedavg import FedAvgTrainer, train_fedavg
 from repro_torch.core.fedmd import FedMDTrainer, train_fedmd
 from repro_torch.core.supervised import SupervisedTrainer, train_supervised
 
 __all__ = [
+    "AsyncScheduler",
     "DecentralizedTrainer",
     "FedAvgTrainer",
     "FedMDTrainer",
+    "GossipPacer",
     "MHDConfig",
     "RunConfig",
+    "ScheduleConfig",
+    "Scoreboard",
+    "ScoreboardScheduler",
     "SupervisedTrainer",
     "chain_graph",
     "complete_graph",
@@ -46,6 +59,7 @@ __all__ = [
     "multi_head_distillation_loss",
     "normalized",
     "per_label_head_accuracy",
+    "run_async",
     "train_fedavg",
     "train_fedmd",
     "train_supervised",

@@ -1,5 +1,5 @@
-"""Decentralized MHD runtime (paper §4.1), in PyTorch — port of the
-synchronous path of ``repro/core/runtime.py``.
+"""Decentralized MHD runtime (paper §4.1), in PyTorch — port of
+``repro/core/runtime.py``.
 
 K clients, each with private data, an optimizer and a rolling pool P_i of
 stale teachers (N_P entries, refreshed from graph neighbours every S_P
@@ -16,14 +16,27 @@ Exchange modes (``exchange=``):
     the next public batches (`repro_torch.comm`, on the ``topk_wire``
     kernel), students decode mail, params never leave a client.
 
+Stepping models: ``step(t)`` is the synchronous loop; `core/scheduler`
+drives the op-granular entry points below (``step_client(defer=True)``,
+``publish_clients``, ``pull_client``, ``comm_pump``) on per-client
+cadences, in lockstep or out of order. Bounded staleness
+(``RunConfig.max_staleness``): a sampled teacher older than the bound
+never teaches, and a client whose whole sample is stale takes the
+supervised step. The fleet surface (``local_clients``, ``membership``,
+``deactivate_client`` / ``activate_client`` / ``reinit_client``) is what
+`repro_torch.fleet` drives for churn and snapshots.
+
 The numpy rng draws and their order are the reference's (the neighbour
 pull, the pool sample, the pool seeds, the public and private streams), so
 given the same initial parameters both packages choose the same teachers
-at the same steps. Not ported yet: ``local_clients``, ``membership``,
-``init_scheme="per_client"``, the scheduler's op-granular entry points
-and its ``max_staleness`` gate; they raise or are absent. ``save`` /
-``restore`` persist each client's (params, opt_state) in the reference's
-per-client layout (`repro_torch.checkpoint.io.save_client_states`).
+at the same steps. Initial parameters are torch draws, which cannot
+replay the reference's ``jax.random`` streams: ``init_scheme="legacy"``
+chains one CPU generator through the fleet (`init_fleet`), and
+``"per_client"`` (and ``reinit_client``) seed one CPU generator per client
+from ``(seed, client id)`` (`client_generator`), so a client's draw is the
+same in every process. ``save`` / ``restore`` persist each client's
+(params, opt_state) in the reference's per-client layout
+(`repro_torch.checkpoint.io.save_client_states`).
 
 Runs on the GPU unless ``device="cpu"`` is passed.
 """
@@ -88,6 +101,17 @@ def init_fleet(bundles: Sequence[ModelBundle], seed: int,
             for b in bundles]
 
 
+def client_generator(seed: int, client_id: int) -> torch.Generator:
+    """Client ``client_id``'s own CPU generator, seeded from ``(seed,
+    client_id)`` alone: its draw does not depend on which other clients a
+    process materializes (``init_scheme="per_client"``,
+    ``reinit_client``)."""
+    words = np.random.SeedSequence((int(seed), int(client_id))
+                                   ).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed(
+        (int(words[0]) << 32) | int(words[1]))
+
+
 def read_metrics(metrics: Dict[str, Tensor]) -> Dict[str, float]:
     """Every metric tensor of a step read back to the host at once."""
     vals = torch.stack([v.detach().float().reshape(())
@@ -103,13 +127,16 @@ class RunConfig:
     eval_every: int = 200
     eval_batch_size: int = 256
     seed: int = 0
+    # bounded-staleness gate: the oldest pool entry (in steps, or wall
+    # ticks under the scheduler) that may still teach; None = unbounded
+    max_staleness: Optional[int] = None
 
 
 @dataclasses.dataclass
 class ClientState:
     client_id: int
     bundle: ModelBundle
-    params: Dict[str, Tensor]
+    params: Optional[Dict[str, Tensor]]  # None: not driven by this process
     opt_state: Any
     pool: CheckpointPool
     private_iter: BatchIterator
@@ -136,12 +163,27 @@ class DecentralizedTrainer:
         membership: Optional[Any] = None,
         device: Optional[Any] = None,
     ):
-        if local_clients is not None or membership is not None or \
-                init_scheme != "legacy":
-            raise NotImplementedError(
-                "local_clients, membership and init_scheme='per_client' "
-                "belong to the multi-process and fleet layers, a later "
-                "slice of the port")
+        # ``local_clients``: the clients this process drives (one trainer
+        # a process in a multi-process fleet; remote clients exist only as
+        # mailbox senders). ``init_scheme``: "legacy" draws every client
+        # from one chained generator, "per_client" only the local ones,
+        # each from its own (`client_generator`). ``membership``
+        # (`repro_torch.fleet.Membership`): clients dead at step 0 start
+        # deactivated and the bus tombstones mail addressed to the dead;
+        # the churn itself is applied from outside (`fleet.ChurnDriver`).
+        if local_clients is not None and exchange == "params":
+            raise ValueError(
+                "local_clients requires a prediction exchange: the legacy "
+                "params mode reads neighbor parameters from shared memory, "
+                "which other processes don't have")
+        if init_scheme not in ("legacy", "per_client"):
+            raise ValueError(f"unknown init_scheme {init_scheme!r}; "
+                             "known: legacy, per_client")
+        if init_scheme == "per_client" and exchange == "params":
+            raise ValueError(
+                "init_scheme='per_client' skips materializing non-local "
+                "clients; the legacy params exchange reads every client's "
+                "raw params and needs the legacy scheme")
         self.device = resolve_device(device)
         if not callable(graph):
             validate_adjacency(graph)
@@ -168,21 +210,40 @@ class DecentralizedTrainer:
             self.meter = CommMeter()
             self.bus = PredictionBus(
                 transport if transport is not None else LoopbackTransport(),
-                self.graph_fn, len(bundles), meter=self.meter)
+                self.graph_fn, len(bundles), meter=self.meter,
+                membership=membership)
             self.horizon = self.comm_cfg.horizon or mhd_cfg.pool_update_every
             pool_cls = PredictionPool
             self._pending: Dict[int, Dict[int, int]] = {
                 i: {} for i in range(len(bundles))}
 
-        self.local_ids = list(range(len(bundles)))
+        if local_clients is None:
+            self.local_ids = list(range(len(bundles)))
+        else:
+            self.local_ids = sorted({int(c) for c in local_clients})
+            if any(i < 0 or i >= len(bundles) for i in self.local_ids):
+                raise ValueError(f"local_clients {self.local_ids} out of "
+                                 f"range for {len(bundles)} clients")
+        self._arrays = arrays
+        self._client_indices = list(client_indices)
+        # the clients whose params this process drew (per_client: the
+        # local ones only)
+        self.initialized_clients: List[int] = []
+        if init_scheme == "legacy":
+            inits = init_fleet(bundles, run_cfg.seed, self.device)
+        else:
+            inits = [self._client_init(b, i) if i in self.local_ids
+                     else None for i, b in enumerate(bundles)]
         self.clients: List[ClientState] = []
-        inits = init_fleet(bundles, run_cfg.seed, self.device)
         for i, (bundle, params) in enumerate(zip(bundles, inits)):
+            if params is not None:
+                self.initialized_clients.append(i)
             self.clients.append(ClientState(
                 client_id=i,
                 bundle=bundle,
                 params=params,
-                opt_state=optimizer.init(params),
+                opt_state=(None if params is None
+                           else optimizer.init(params)),
                 pool=pool_cls(mhd_cfg.pool_size, mhd_cfg.pool_update_every,
                               seed=run_cfg.seed + 101 * i),
                 private_iter=BatchIterator(arrays, client_indices[i],
@@ -192,8 +253,21 @@ class DecentralizedTrainer:
                 label_hist=label_histogram(arrays["labels"],
                                            client_indices[i], num_labels),
             ))
-        self.local = list(self.clients)
+        # clients dead at wall step 0 (scripted late joiners) start
+        # deactivated: they neither step nor publish until activated
+        self._dead: set = set()
+        if membership is not None:
+            alive0 = membership.alive(0)
+            self._dead = {i for i in range(len(bundles)) if i not in alive0}
+        self.local = [self.clients[i] for i in self.local_ids
+                      if i not in self._dead]
         self._seed_pools(step=0)
+
+    def _client_init(self, bundle: ModelBundle,
+                     cid: int) -> Dict[str, Tensor]:
+        """Client ``cid``'s params from its own generator, on the device."""
+        gen = client_generator(self.run_cfg.seed, cid)
+        return {k: v.to(self.device) for k, v in bundle.init(gen).items()}
 
     # -- per-client steps ---------------------------------------------------
 
@@ -261,11 +335,69 @@ class DecentralizedTrainer:
                 if entry is not None:
                     c.pool.insert(entry)
 
+    # -- client churn (repro_torch.fleet) ----------------------------------
+
+    @property
+    def active_ids(self) -> List[int]:
+        """The locally driven clients currently alive (stepping order)."""
+        return [c.client_id for c in self.local]
+
+    def _require_local(self, cid: int) -> ClientState:
+        if cid not in self.local_ids:
+            raise ValueError(
+                f"client {cid} is not driven by this process "
+                f"(local: {self.local_ids})")
+        return self.clients[cid]
+
+    def deactivate_client(self, cid: int) -> None:
+        """Kill one locally driven client: it stops stepping, publishing
+        and pulling, and its mailbox, pending pulls and teacher pool die
+        with it (params and optimizer state survive only in snapshots).
+        Idempotent."""
+        cid = int(cid)
+        self._require_local(cid)
+        self._dead.add(cid)
+        self.local = [c for c in self.local if c.client_id != cid]
+        if self.exchange != "params":
+            self.bus.clear_mailbox(cid)
+            self._pending[cid] = {}
+        self.clients[cid].pool.entries.clear()
+
+    def activate_client(self, cid: int) -> None:
+        """(Re)activate a locally driven client whose state exists —
+        restored from a snapshot (`repro_torch.fleet.snapshot`) or drawn
+        by ``reinit_client``."""
+        cid = int(cid)
+        c = self._require_local(cid)
+        if c.params is None:
+            raise ValueError(
+                f"client {cid} has no materialized state; restore it from "
+                "a snapshot or call reinit_client first")
+        self._dead.discard(cid)
+        self.local = [self.clients[i] for i in self.local_ids
+                      if i not in self._dead]
+
+    def reinit_client(self, cid: int) -> None:
+        """Fresh state for a joining or restarting client, as a relaunched
+        process would build it: params from the client's own generator
+        (`client_generator`, whatever the fleet's ``init_scheme``), fresh
+        optimizer state, its private stream rewound to the start and a
+        freshly seeded pool."""
+        cid = int(cid)
+        c = self._require_local(cid)
+        c.params = self._client_init(c.bundle, cid)
+        c.opt_state = self.optimizer.init(c.params)
+        c.private_iter = BatchIterator(
+            self._arrays, self._client_indices[cid], self.run_cfg.batch_size,
+            seed=client_stream_seed(self.run_cfg.seed, cid))
+        c.pool = type(c.pool)(self.mhd_cfg.pool_size,
+                              self.mhd_cfg.pool_update_every,
+                              seed=self.run_cfg.seed + 101 * cid)
+        self.initialized_clients.append(cid)
+
     def _maybe_update_pools(self, step: int) -> None:
         if step % self.mhd_cfg.pool_update_every != 0:
-            if self.exchange != "params":
-                self.bus.deliver(step)
-                self._resolve_pending(step)
+            self._comm_tick(step)
             return
         if self.exchange != "params":
             self._publish_round(step)
@@ -274,11 +406,40 @@ class DecentralizedTrainer:
         for c in self.local:
             self._pull_client(c, step, adj)
 
+    def _comm_tick(self, step: int) -> None:
+        """Between pool rounds: drain in-flight mail and complete late
+        pulls (nothing to do in the params mode)."""
+        if self.exchange != "params":
+            self.bus.deliver(step)
+            self._resolve_pending(step)
+
+    # -- op-granular entry points (core/scheduler.py) -----------------------
+    # The scheduler issues a client's progress as LocalStep / Publish /
+    # Pull / Resolve ops; these are the surfaces it drives
+    # (``step_client(defer=True)`` is the LocalStep + Resolve pair).
+
+    def comm_pump(self, step: int) -> None:
+        """The transport pump op: deliver in-flight mail at wall tick
+        ``step`` and complete late pulls."""
+        self._comm_tick(step)
+
+    def publish_clients(self, client_ids: Sequence[int], step: int) -> int:
+        """The Publish op for a group of clients (they share the window's
+        public batches); delivery is the pump's job. Returns the number
+        of clients that had a receiver under G_t."""
+        return self._publish_clients(list(client_ids), step)
+
+    def pull_client(self, client_id: int, step: int,
+                    adj: Optional[Adjacency] = None) -> None:
+        """The Pull op: one pool-refresh pull for one client."""
+        self._pull_client(self.clients[client_id], step, adj)
+
     def _pull_client(self, client: ClientState, step: int,
-                     adj: Adjacency) -> None:
+                     adj: Optional[Adjacency] = None) -> None:
         """One pool-refresh pull: draw a random in-neighbour (shared rng,
         consumed in client-id order) and insert its entry if usable."""
-        nbrs = adj[client.client_id]
+        nbrs = (adj if adj is not None
+                else self.graph_fn(step))[client.client_id]
         if not nbrs:
             return
         j = int(self.rng.choice(list(nbrs)))
@@ -325,38 +486,50 @@ class DecentralizedTrainer:
 
     def _publish_round(self, step: int) -> None:
         """Every client with a subscriber encodes and publishes, then mail
-        is delivered."""
+        is delivered (every round drains the transport, subscribed or
+        not)."""
+        self._publish_clients(None, step)
+        self.bus.deliver(step)
+
+    def _publish_clients(self, client_ids: Optional[Sequence[int]],
+                         step: int) -> int:
+        """The selected clients (None = every active local one) encode
+        their predictions on the next ``horizon`` public batches and
+        publish them; the caller delivers. Returns the number that had a
+        receiver under G_t. A publisher whose outputs the codec refuses
+        (non-finite) is skipped and metered."""
         from repro_torch.comm import NonFiniteError
 
         adj = self.graph_fn(step)
         subscribed = {j for nbrs in adj for j in nbrs}
-        todo = [c for c in self.local if c.client_id in subscribed]
-        if todo:
-            W = self.horizon
-            ids = np.stack([self.public.sample_ids(step + w)
-                            for w in range(W)])
-            batches = [batch_to_device(self.public.sample(step + w),
-                                       self.device)
-                       for w in range(W)]
-            for c in todo:
-                t_fwd = trace.now()
-                apply_fn = self._teacher_apply(c.bundle)
-                frames = [apply_fn(c.params, b) for b in batches]
-                outs = {key: torch.stack([f[key] for f in frames]).float()
-                        for key in ("embedding", "logits", "aux_logits")}
-                trace.complete("publish/forward", t_fwd, client=c.client_id,
-                               step=step, window=W)
-                t_enc = trace.now()
-                try:
-                    payload = self.codec.encode(c.client_id, step, step, ids,
-                                                outs)
-                except NonFiniteError:
-                    self.meter.rejected_publishes += 1
-                    continue
-                trace.complete("publish/encode", t_enc, client=c.client_id,
-                               step=step, nbytes=len(payload))
-                self.bus.publish(c.client_id, payload, step)
-        self.bus.deliver(step)
+        selected = self.local if client_ids is None else \
+            [self.clients[i] for i in client_ids]
+        todo = [c for c in selected if c.client_id in subscribed]
+        if not todo:
+            return 0
+        W = self.horizon
+        ids = np.stack([self.public.sample_ids(step + w) for w in range(W)])
+        batches = [batch_to_device(self.public.sample(step + w), self.device)
+                   for w in range(W)]
+        for c in todo:
+            t_fwd = trace.now()
+            apply_fn = self._teacher_apply(c.bundle)
+            frames = [apply_fn(c.params, b) for b in batches]
+            outs = {key: torch.stack([f[key] for f in frames]).float()
+                    for key in ("embedding", "logits", "aux_logits")}
+            trace.complete("publish/forward", t_fwd, client=c.client_id,
+                           step=step, window=W)
+            t_enc = trace.now()
+            try:
+                payload = self.codec.encode(c.client_id, step, step, ids,
+                                            outs)
+            except NonFiniteError:
+                self.meter.rejected_publishes += 1
+                continue
+            trace.complete("publish/encode", t_enc, client=c.client_id,
+                           step=step, nbytes=len(payload))
+            self.bus.publish(c.client_id, payload, step)
+        return len(todo)
 
     def _decode_window(self, mail) -> Any:
         from repro_torch.comm import PredictionWindow
@@ -378,14 +551,17 @@ class DecentralizedTrainer:
 
     def _stack_teachers(self, client: ClientState, public_batch,
                         step: int) -> Tuple[Optional[Dict[str, Tensor]], int]:
-        """Sample Δ pool entries, drop the expired prediction windows, and
-        stack the survivors' public-batch outputs. Returns ``(teachers,
-        skipped)``; teachers is None when nothing survived (supervised
-        fallback)."""
+        """Sample Δ pool entries, drop the expired prediction windows and
+        the entries the bounded-staleness gate rejects, and stack the
+        survivors' public-batch outputs. Returns ``(teachers, skipped)``;
+        teachers is None when nothing survived (supervised fallback)."""
         entries = client.pool.sample(self.mhd_cfg.delta)
         sampled = len(entries)
         if self.exchange != "params":
             entries = client.pool.usable(entries, step)
+        ms = self.run_cfg.max_staleness
+        if ms is not None:
+            entries = [e for e in entries if step - e.step <= ms]
         skipped = sampled - len(entries)
         if skipped:
             trace.instant("runtime/gate_skip", client=client.client_id,
@@ -411,13 +587,19 @@ class DecentralizedTrainer:
     # -- training loop ------------------------------------------------------
 
     def step_client(self, c: ClientState, public_batch, t: int,
-                    defer: bool = False):
-        """One local optimization step for client ``c`` at step t.
+                    opt_step: Optional[int] = None, defer: bool = False):
+        """One local optimization step for client ``c`` at (wall) step t.
+
+        ``opt_step`` is the client's optimizer and LR-schedule step — its
+        local step count under the scheduler; None = t (the synchronous
+        loop, where the two clocks coincide). The bus clock, the
+        confidence rng's seed and the trace use the wall step t.
 
         ``defer=True`` returns a zero-arg *resolve* callable: the update is
         queued on the device, and the one host sync that reads its metrics
-        happens only when the callable runs — the synchronous loop runs
-        the communication phase in between."""
+        happens only when the callable runs — the caller runs the
+        communication phase in between."""
+        opt_step = t if opt_step is None else opt_step
         t_step = trace.now()
         if self.exchange != "params":
             self.bus.advance(c.client_id, t)
@@ -425,14 +607,14 @@ class DecentralizedTrainer:
         teachers, skipped = self._stack_teachers(c, public_batch, t)
         t_up = trace.now()
         if teachers is None:
-            metrics = self._supervised_update(c, private_batch, t)
+            metrics = self._supervised_update(c, private_batch, opt_step)
         else:
             rng = None
             if self.mhd_cfg.confidence == "random":
                 rng = torch.Generator(device=self.device).manual_seed(
                     (t << 10) + c.client_id)
             metrics = self._distill_update(c, private_batch, public_batch,
-                                           teachers, t, rng)
+                                           teachers, opt_step, rng)
 
         def resolve() -> Dict[str, float]:
             out = {f"c{c.client_id}/{k}": v
@@ -487,24 +669,28 @@ class DecentralizedTrainer:
     # -- checkpointing ------------------------------------------------------
 
     def save(self, directory: str, step: int) -> None:
-        """Persist every client's (params, opt_state), one directory a
-        client — a decentralized run is resumable per client."""
+        """Persist every materialized client's (params, opt_state), one
+        directory a client — a decentralized run is resumable per client
+        (under ``init_scheme="per_client"`` a process saves its own)."""
         from repro_torch.checkpoint.io import save_client_states
 
+        have = [c for c in self.clients if c.params is not None]
         save_client_states(directory, step,
-                           [(c.params, c.opt_state) for c in self.clients],
-                           ids=[c.client_id for c in self.clients])
+                           [(c.params, c.opt_state) for c in have],
+                           ids=[c.client_id for c in have])
 
     def restore(self, directory: str, step: Optional[int] = None) -> int:
-        """Load every client's (params, opt_state) onto ``self.device`` and
-        reseed the pools at the restored step. Pools, mailboxes and the
-        data streams are not part of a checkpoint."""
+        """Load every materialized client's (params, opt_state) onto
+        ``self.device`` and reseed the pools at the restored step. Pools,
+        mailboxes and the data streams are not part of a checkpoint (the
+        fleet snapshot, `repro_torch.fleet.snapshot`, holds them)."""
         from repro_torch.checkpoint.io import restore_client_states
 
+        have = [c for c in self.clients if c.params is not None]
         restored_step, states = restore_client_states(
-            directory, [(c.params, c.opt_state) for c in self.clients], step,
-            ids=[c.client_id for c in self.clients])
-        for c, (params, opt_state) in zip(self.clients, states):
+            directory, [(c.params, c.opt_state) for c in have], step,
+            ids=[c.client_id for c in have])
+        for c, (params, opt_state) in zip(have, states):
             c.params = params
             c.opt_state = opt_state
         if self.exchange != "params":

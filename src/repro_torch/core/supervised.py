@@ -164,3 +164,28 @@ class SupervisedTrainer:
         self.params = [p for p, _ in states]
         self.opt_states = [s for _, s in states]
         return restored
+
+
+@torch.no_grad()
+def eval_per_label_accuracy(bundle: ModelBundle, params, arrays, num_labels,
+                            batch_size: int = 256, head: str = "main"):
+    """Per-label accuracy vector over a test set (main head, or aux head
+    ``"aux<h>"``), on the device that holds ``params``. Returns
+    ``(per_label, present)``."""
+    device = next(iter(params.values())).device
+    labels = arrays["labels"]
+    correct = np.zeros(num_labels)
+    count = np.zeros(num_labels)
+    for s in range(0, labels.shape[0], batch_size):
+        batch = batch_to_device({k: v[s:s + batch_size]
+                                 for k, v in arrays.items()
+                                 if k != "labels"}, device)
+        out = bundle.apply(params, batch)
+        logits = out["logits"] if head == "main" \
+            else out["aux_logits"][int(head[3:]) - 1]
+        pred = logits.argmax(-1).cpu().numpy()
+        lab = labels[s:s + batch_size]
+        np.add.at(count, lab, 1)
+        np.add.at(correct, lab[pred == lab], 1)
+    per_label = correct / np.maximum(count, 1)
+    return per_label, count > 0

@@ -5,17 +5,16 @@ Each adapter translates spec blocks into one concrete trainer's
 constructor, on ``Bindings.device``, and forwards the
 step/evaluate/save surface:
 
-  mhd         -> `core.runtime.DecentralizedTrainer` (sync)
+  mhd         -> `core.runtime.DecentralizedTrainer` (sync) or the same
+                 trainer driven by `core.scheduler.AsyncScheduler`
+                 (lockstep) / `ScoreboardScheduler` (out-of-order), with
+                 a `fleet.ChurnDriver` when the spec scripts churn
   fedmd       -> `core.fedmd.FedMDTrainer` (central consensus server)
   fedavg      -> `core.fedavg.FedAvgTrainer` (weight averaging)
   supervised  -> `core.supervised.SupervisedTrainer` (pooled | separate)
 
 Unknown ``AlgorithmSpec.params`` keys raise — a typo'd knob must never
-silently run the default. What the reference runs and the port does not
-yet — the lockstep and scoreboard schedules, churn timelines, a subset of
-the fleet per process (``local_clients``), ``init_scheme="per_client"``,
-the staleness gate and the fleet snapshots — raises NotImplementedError
-naming its ROADMAP item; nothing falls back quietly to the sync loop.
+silently run the default.
 """
 from __future__ import annotations
 
@@ -26,14 +25,6 @@ from typing import Any, Dict, Optional
 from repro_torch.core.mhd import MHDConfig
 from repro_torch.exp.algorithm import ALGORITHMS, Bindings, Capabilities
 from repro_torch.exp.spec import ExperimentSpec
-
-_FLEET_LAYERS = ("ROADMAP Queue 1 item 12 (core/scheduler.py, fleet/ and "
-                 "the trainer's fleet methods)")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {_FLEET_LAYERS}")
-
 
 def _take_params(spec: ExperimentSpec, allowed: Dict[str, Any],
                  kind: str) -> Dict[str, Any]:
@@ -92,21 +83,31 @@ class _AdapterBase:
     def restore(self, directory: str, step: Optional[int] = None) -> int:
         return self.trainer.restore(directory, step)
 
-    # -- fleet snapshots (the reference's repro.fleet.snapshot) ----------
+    # -- fleet snapshots (repro_torch.fleet.snapshot) --------------------
 
     def snapshot(self, directory: str, step: int) -> None:
-        raise _not_ported("the fleet snapshot (TrainSpec.snapshot_every)")
+        """Full fleet snapshot — the bitwise-resume and churn-restart unit
+        (``save`` persists params and optimizer state only)."""
+        from repro_torch.fleet.snapshot import save_fleet
+
+        save_fleet(directory, step, self.trainer,
+                   scheduler=getattr(self, "scheduler", None))
 
     def restore_snapshot(self, directory: str,
                          step: Optional[int] = None) -> int:
-        raise _not_ported("the fleet snapshot (restore_snapshot)")
+        from repro_torch.fleet.snapshot import restore_fleet
+
+        return restore_fleet(directory, self.trainer,
+                             scheduler=getattr(self, "scheduler", None),
+                             step=step)
 
 
 @ALGORITHMS.register("mhd")
 class MHDAdapter(_AdapterBase):
-    """The paper's Multi-Headed Distillation runtime, the synchronous loop
-    (the capabilities are the reference's: the spec checks stay the
-    same, and what the port lacks raises at setup)."""
+    """The paper's Multi-Headed Distillation runtime. Non-sync schedules
+    wrap the trainer in a scheduler — `AsyncScheduler` for lockstep,
+    `ScoreboardScheduler` for out-of-order issue; ``step(t)`` is then one
+    wall tick."""
 
     name = "mhd"
     capabilities = Capabilities(needs_public_pool=True, supports_async=True,
@@ -119,7 +120,10 @@ class MHDAdapter(_AdapterBase):
 
     def __init__(self, spec: ExperimentSpec):
         super().__init__(spec)
+        self.scheduler = None
         self.transport = None
+        self.membership = None
+        self.churn = None
 
     def _resolve_params(self, spec: ExperimentSpec) -> Dict[str, Any]:
         defaults = dict(self.MHD_DEFAULTS)
@@ -138,27 +142,18 @@ class MHDAdapter(_AdapterBase):
         return params
 
     def setup(self, bindings: Bindings) -> None:
-        from repro_torch.core import DecentralizedTrainer, RunConfig
+        from repro_torch.core import (AsyncScheduler, DecentralizedTrainer,
+                                      RunConfig, ScheduleConfig,
+                                      ScoreboardScheduler)
 
         spec = self.spec
-        if spec.schedule.mode != "sync":
-            raise _not_ported(f"schedule mode {spec.schedule.mode!r}")
-        if spec.churn.events:
-            raise _not_ported("a churn timeline (ChurnSpec.events)")
-        if bindings.local_clients is not None:
-            raise _not_ported("driving a subset of the fleet per process "
-                              "(Bindings.local_clients)")
-        if spec.init_scheme != "legacy":
-            raise _not_ported(f"init_scheme {spec.init_scheme!r}")
-        if spec.train.max_staleness is not None:
-            raise _not_ported("the staleness gate (train.max_staleness)")
         mhd_cfg = MHDConfig(**self.params)
         run_cfg = RunConfig(
             steps=spec.train.steps, batch_size=spec.train.batch_size,
             public_batch_size=spec.train.public_batch_size,
             eval_every=0,  # the runner owns eval cadence
             eval_batch_size=spec.train.eval_batch_size,
-            seed=spec.train.seed)
+            seed=spec.train.seed, max_staleness=spec.train.max_staleness)
         comm_cfg = None
         if spec.wire.exchange != "params":
             from repro_torch.comm import CommConfig
@@ -170,13 +165,53 @@ class MHDAdapter(_AdapterBase):
                 budget_bytes_per_token=spec.wire.budget_bytes_per_token,
                 compression=spec.wire.compression)
         self.transport = bindings.transport
+        graph = bindings.graph
+        if spec.churn.events:
+            from repro_torch.fleet import Membership, events_from_spec
+
+            events = events_from_spec(spec.churn)
+            self.membership = Membership(bindings.graph,
+                                         spec.num_clients, events)
+            graph = self.membership.graph_view
         self.trainer = DecentralizedTrainer(
             bindings.bundles, bindings.optimizer, mhd_cfg, run_cfg,
             bindings.arrays, bindings.partition.client_indices,
-            bindings.partition.public_indices, bindings.graph,
+            bindings.partition.public_indices, graph,
             bindings.num_labels, exchange=spec.wire.exchange,
             comm=comm_cfg, transport=bindings.transport,
+            local_clients=bindings.local_clients,
+            init_scheme=spec.init_scheme, membership=self.membership,
             device=bindings.device)
+        if spec.schedule.mode != "sync":
+            rates = spec.schedule.rates or \
+                tuple([1] * len(bindings.bundles))
+            pace = None
+            if spec.schedule.pace_ms is not None:
+                pace = tuple(p / 1000.0 for p in spec.schedule.pace_ms)
+            cfg = ScheduleConfig(tuple(rates),
+                                 runahead=spec.schedule.runahead,
+                                 pace_s=pace)
+            cls = (ScoreboardScheduler
+                   if spec.schedule.mode == "scoreboard"
+                   else AsyncScheduler)
+            self.scheduler = cls(self.trainer, cfg)
+        if spec.churn.events:
+            from repro_torch.fleet import ChurnDriver
+
+            self.churn = ChurnDriver(self.trainer, events,
+                                     snapshot_dir=spec.train.snapshot_dir)
+
+    def step(self, t: int) -> Dict[str, float]:
+        if self.churn is not None:
+            self.churn.before_step(t)
+        if self.scheduler is not None:
+            metrics = self.scheduler.tick()
+        else:
+            metrics = self.trainer.step(t)
+        if self.membership is not None:
+            metrics["fleet/epoch"] = float(self.membership.epoch(t))
+            metrics["fleet/alive"] = float(len(self.trainer.local))
+        return metrics
 
 
 @ALGORITHMS.register("fedmd")

@@ -5,21 +5,23 @@
 optimizer, graph, transport), instantiates the registered `Algorithm`
 adapter, and owns the loop: stepping, the unified metric namespace
 (``c{i}/...`` step metrics, ``mean/...`` eval metrics, ``comm/...``
-meters), the eval-history cadence, and checkpointing. The result's
-``metrics``/``history`` are JSON-serializable; live objects (the trainer,
-transport) ride out-of-band on `ExperimentResult`.
+meters), the eval-history cadence, checkpointing, fleet snapshots
+(``train.snapshot_every``) and tracing (``train.trace_dir``: a Chrome
+trace and the ``obs/`` metrics). The result's ``metrics``/``history`` are
+JSON-serializable; live objects (the trainer, transport, scheduler) ride
+out-of-band on `ExperimentResult`.
 
 Runs on the GPU unless ``device="cpu"`` is passed: the device is resolved
 when the `Experiment` is made, and every trainer, batch and evaluation
-lives there. Not ported yet, and raising NotImplementedError naming its
-ROADMAP item before anything is built: ``train.trace_dir`` (the trace
-export and metrics of ``obs/``) and ``train.snapshot_every`` (the fleet
-snapshots), both Queue 1 item 12.
+lives there. The ``obs/roofline/...`` rows of a traced run are not
+ported (ROADMAP Queue 1 item 15): a traced result has every other
+``obs/`` metric of the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -176,6 +178,10 @@ class ExperimentResult:
         return getattr(self.algorithm, "trainer", None)
 
     @property
+    def scheduler(self) -> Any:
+        return getattr(self.algorithm, "scheduler", None)
+
+    @property
     def transport(self) -> Any:
         return getattr(self.algorithm, "transport", None)
 
@@ -261,18 +267,17 @@ class Experiment:
         spec = self.spec
         algo = make_algorithm(spec)
         self._check_capabilities(algo)
-        train = spec.train
-        later = "is not ported yet: ROADMAP Queue 1 item 12"
-        if train.trace_dir:
-            raise NotImplementedError(
-                f"train.trace_dir {later} (obs/export.py, obs/metrics.py)")
-        if train.snapshot_every:
-            raise NotImplementedError(
-                f"train.snapshot_every {later} (fleet/snapshot.py)")
         bindings = self.build_bindings()
 
+        train = spec.train
         history: List[Tuple[int, Dict[str, float]]] = []
         step_seconds = 0.0
+        tracer = None
+        if train.trace_dir:
+            from repro_torch.obs import trace
+
+            os.makedirs(train.trace_dir, exist_ok=True)
+            tracer = trace.enable(process_name=spec.name)
         try:
             algo.setup(bindings)
             for t in range(train.steps):
@@ -289,6 +294,9 @@ class Experiment:
                 if train.checkpoint_dir and train.checkpoint_every and \
                         (t + 1) % train.checkpoint_every == 0:
                     algo.save(train.checkpoint_dir, t + 1)
+                if train.snapshot_dir and train.snapshot_every and \
+                        (t + 1) % train.snapshot_every == 0:
+                    algo.snapshot(train.snapshot_dir, t + 1)
 
             if not history or history[-1][0] != train.steps:
                 ev = algo.evaluate(bindings.test_arrays)
@@ -302,9 +310,24 @@ class Experiment:
         finally:
             if bindings.transport is not None:
                 bindings.transport.close()
+            if tracer is not None:
+                from repro_torch.obs import trace
+
+                trace.disable()  # events stay on the tracer object
 
         metrics = dict(history[-1][1])
         metrics.update(_comm_metrics(algo))
+        if tracer is not None:
+            from repro_torch.obs import collect_obs, write_trace
+
+            write_trace(os.path.join(train.trace_dir, "trace.json"),
+                        tracer, meta={"spec_name": spec.name,
+                                      "steps": train.steps})
+            obs = collect_obs(
+                trainer=getattr(algo, "trainer", None),
+                scheduler=getattr(algo, "scheduler", None),
+                tracer=tracer)
+            metrics.update(obs.to_metrics())
         return ExperimentResult(
             spec=spec, metrics=metrics, history=history,
             us_per_step=step_seconds / max(train.steps, 1) * 1e6,

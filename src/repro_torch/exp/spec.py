@@ -329,9 +329,9 @@ class TrainSpec:
 
     ``checkpoint_*`` is the plain params-only checkpoint
     (`checkpoint/io`); ``snapshot_*`` is the full *fleet* snapshot
-    (the reference's `repro.fleet.snapshot`, not ported yet — ROADMAP
-    Queue 1 item 12: params + opt + pools + mailboxes + clocks +
-    stream positions — the bitwise-resume and churn-restart unit).
+    (`repro_torch.fleet.snapshot`: params + opt + pools + mailboxes +
+    clocks + stream positions — the bitwise-resume and churn-restart
+    unit).
     ``snapshot_every=0`` disables snapshotting."""
 
     steps: int = 600
@@ -345,7 +345,7 @@ class TrainSpec:
     checkpoint_every: int = 0  # 0 = final only (when checkpoint_dir is set)
     snapshot_dir: Optional[str] = None
     snapshot_every: int = 0  # fleet snapshots every N steps; 0 = never
-    trace_dir: Optional[str] = None  # traces land here; None = off (item 12)
+    trace_dir: Optional[str] = None  # repro_torch.obs traces; None = off
 
 
 @dataclasses.dataclass(frozen=True)

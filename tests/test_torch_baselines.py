@@ -154,3 +154,38 @@ def test_baselines_default_to_the_card():
                                       idx)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+@pytest.mark.parametrize("head", ["main", "aux2"])
+def test_eval_per_label_accuracy_and_tree_size_match_reference(head):
+    """`core.supervised.eval_per_label_accuracy` and
+    `common.pytree.tree_size` on one set of params (the port's draw, in
+    the reference's layout there): the same per-label accuracies and
+    presence mask, the same parameter count."""
+    import jax.numpy as jnp
+
+    from repro.common.pytree import tree_size as ref_tree_size
+    from repro.core.supervised import eval_per_label_accuracy as ref_eval
+    from repro.data import make_synthetic_vision
+    from repro.models.resnet import resnet_tiny as ref_resnet_tiny
+    from repro.models.zoo import build_bundle as ref_build_bundle
+    from repro_torch.checkpoint.io import params_to_jax
+    from repro_torch.common.pytree import tree_size
+    from repro_torch.core.supervised import eval_per_label_accuracy
+    from repro_torch.models import build_bundle, resnet_tiny
+
+    ds = make_synthetic_vision(num_labels=6, samples_per_label=7,
+                               image_size=8, noise=0.5, seed=3)
+    arrays = {"images": ds.images, "labels": ds.labels}
+    bundle = build_bundle(resnet_tiny(6, num_aux_heads=2))
+    params = bundle.init(torch.Generator().manual_seed(5))
+    ref_params = TX.nested({k: jnp.asarray(v)
+                            for k, v in params_to_jax(params).items()})
+    got, present = eval_per_label_accuracy(bundle, params, arrays, 6,
+                                           batch_size=16, head=head)
+    want, want_present = ref_eval(
+        ref_build_bundle(ref_resnet_tiny(6, num_aux_heads=2)), ref_params,
+        arrays, 6, batch_size=16, head=head)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(present, want_present)
+    assert tree_size(params) == ref_tree_size(ref_params) > 0

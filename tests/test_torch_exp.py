@@ -307,41 +307,11 @@ def _run_cpu(spec):
     return PX.Experiment(spec, device="cpu").run()
 
 
-def _setup_with_local_clients():
-    spec = tiny_spec(PX, "mhd", {"pool_size": 1, "pool_update_every": 2})
-    exp = PX.Experiment(spec, device="cpu")
-    algo = PX.make_algorithm(spec)
-    algo.setup(dataclasses.replace(exp.build_bindings(), local_clients=[0]))
-
-
-def _snapshot_call():
-    algo = PX.make_algorithm(tiny_spec(PX))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        algo.restore_snapshot("unused")
-    algo.snapshot("unused", 1)
-
-
 # what the port does not run yet: each raises naming its ROADMAP item
 DEFERRED = {
-    "lockstep": (lambda: _run_cpu(tiny_spec(
-        PX, schedule=PX.ScheduleSpec(mode="lockstep"))), "item 12"),
-    "scoreboard": (lambda: _run_cpu(tiny_spec(
-        PX, schedule=PX.ScheduleSpec(mode="scoreboard"))), "item 12"),
-    "churn": (lambda: _run_cpu(PX.get_preset("churn_ring")), "item 12"),
-    "local_clients": (_setup_with_local_clients, "item 12"),
-    "max_staleness": (lambda: _run_cpu(tiny_spec(
-        PX, "mhd", max_staleness=4)), "item 12"),
-    "per_client_init": (lambda: _run_cpu(dataclasses.replace(
-        tiny_spec(PX, wire=PX.WireSpec(exchange="prediction_topk")),
-        init_scheme="per_client")), "item 12"),
     "socket": (lambda: _run_cpu(PX.get_preset("gossip_socket")),
                "item 10"),
     "lm_moe": (lambda: _run_cpu(PX.get_preset("lm_hetero")), "item 13"),
-    "trace_dir": (lambda: _run_cpu(tiny_spec(PX, trace_dir="unused")),
-                  "item 12"),
-    "snapshot_every": (lambda: _run_cpu(tiny_spec(
-        PX, snapshot_dir="unused", snapshot_every=2)), "item 12"),
-    "snapshot": (_snapshot_call, "item 12"),
 }
 
 

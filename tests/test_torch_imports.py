@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_no_reference_package():
          os.path.join(ROOT, "examples", "port_quickstart.py")],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 62, out.stdout
+    assert int(n) >= 66, out.stdout
     assert bad == "[]", bad
 
 

@@ -131,10 +131,13 @@ def test_port_trainer_defaults_to_cuda_and_refuses_unported_layers():
         with pytest.raises(RuntimeError):
             init_resnet(torch.Generator(), resnet_tiny(4))
     assert resolve_device("cpu").type == "cpu"
+    # the fleet layers are ported (tests/test_torch_fleet.py); what the
+    # trainer still refuses is what the reference refuses: another
+    # process's clients under the params exchange
     from repro_torch.core import DecentralizedTrainer
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="prediction exchange"):
         DecentralizedTrainer([], None, None, None, {}, [], None, [], 0,
-                             exchange="prediction_topk", local_clients=[0])
+                             exchange="params", local_clients=[0])
 
 
 def test_prediction_exchange_reproduces_params_exchange():
