@@ -48,16 +48,29 @@ the checkout (into ``build/``), then
      restart from a snapshot and a fresh one, the rewire) with a trace,
      whose host time is split by phase. (b) and (c) run cuDNN in its
      deterministic mode, for their own runs only;
-  8. drives the LM path: K=3 full-width, full-depth mamba2-370m clients
+  8. drives the socket transport and the gossip launcher
+     (`phase_socket_path`, on the same ResNet-18 and data): (a) the
+     `gossip_socket` preset (4 clients on a cycle, 40 steps) through
+     Experiment(spec).run() over the socket transport and over loopback,
+     bitwise equal in cuDNN's deterministic mode; (b) the same spec as 4
+     OS processes through launch_gossip, each its own CUDA context on
+     this card: 40 steps a rank, every rank distilling and launching
+     topk_wire, dist_ce and emb_dist, delivered == offered on every edge;
+     (c) scripts/port_gossip_procs.py's scoreboard smoke (3 processes,
+     one paced straggler; the fast ranks under half its wall); (d) its
+     churn smoke (rank 1 crashed and reaped promptly, the fleet resumed
+     from per-rank snapshots, rank 1 from step 3). The path's launches
+     are this process's plus those every child reports;
+  9. drives the LM path: K=3 full-width, full-depth mamba2-370m clients
      (48 layers, d_model 1024, vocab 50280, 2 aux heads) exchanging
      entropy-adaptive, delta-compressed next-token predictions, 12 steps
      and one evaluate(), then one profiled publish round;
-  9. drives the hybrid path the same way: K=3 full-width zamba2-7b
+  10. drives the hybrid path the same way: K=3 full-width zamba2-7b
      clients (d_model 3584, Mamba2 with the shared attention block and the
      dense FFN every 6th layer, vocab 32000) cut in depth to one period of
      six layers. Every kernel's launch count is set to 0 just before each
      path and read just after;
-  10. prints one ``{"kernels": [...]}`` line and, last, the device line
+  11. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -404,15 +417,28 @@ def _topk_timing(x: torch.Tensor, k: int, iters: int) -> dict:
                                   iters=iters)}
 
 
+def preset_shapes(name: str) -> tuple:
+    """A fleet or socket path preset's kernel shapes at full ResNet-18
+    width: one publish's top-k rows (W·H·B), its k, and the batch B."""
+    spec = fleet_preset(name, 1)
+    heads = spec.clients[0].aux_heads + 1
+    return (spec.wire.horizon * heads * spec.train.public_batch_size,
+            spec.wire.topk, spec.train.batch_size)
+
+
 def phase_topk(dev) -> dict:
     """topk_wire against its plain version (values and indices exact, lse
-    within TOL_LSE), at the three paths' shapes and at the edges (rows off
-    16 bytes, ties, -inf, k up to V and past the one-pass kernel's 256);
-    timed at the LM path's publish shape, with the hybrid and ResNet
+    within TOL_LSE), at the paths' shapes (the fleet and socket paths'
+    k=5 publishes among them) and at the edges (rows off 16 bytes, ties,
+    -inf, k up to V and past the one-pass kernel's 256); timed at the LM path's publish shape, with the hybrid and ResNet
     paths' beside it; then the launch floor."""
     g = torch.Generator(device=dev).manual_seed(0)
     rows = 4 * H * BATCH  # W·H·B of one ResNet publish
     err = 0.0
+    # the fleet path's gossip and the socket path's gossip_socket publish
+    fleet = [(name, torch.randn(n, NUM_LABELS, generator=g, device=dev) * 3,
+              k) for name in ("gossip", "gossip_socket")
+             for n, k, _ in [preset_shapes(name)]]
     cases = [("slice", torch.randn(rows, NUM_LABELS, generator=g,
                                    device=dev) * 3, TOPK_K),
              ("lm", torch.randn(LM_TOPK_ROWS, LM_VOCAB, generator=g,
@@ -451,7 +477,7 @@ def phase_topk(dev) -> dict:
               LM_COMM["topk"]),
              ("-inf columns", _with_neg_inf(torch.randn(
                  64, LM_VOCAB, generator=g, device=dev) * 3),
-              LM_COMM["topk"])]
+              LM_COMM["topk"]), *fleet]
     for name, x, k in cases:
         v, i, lse = TOPK.topk_wire_kernel(x, k)
         pv, pi, plse = TOPK.topk_wire_plain(x, k)
@@ -959,14 +985,16 @@ def _dist_ce_timing(dev, g, B, V, s_dt, iters: int) -> tuple:
 
 def phase_dist_ce(dev) -> list:
     """dist_ce forward and backward against the plain versions: f32, bf16,
-    ties, a large V, and the LM path's rows (bf16 student logits against
-    f32 decoded teacher rows, V = 50280); timed at the LM path's shape,
+    ties, a large V, the socket path's rows, and the LM path's rows (bf16
+    student logits against f32 decoded teacher rows, V = 50280); timed at the LM path's shape,
     with the ResNet path's beside it."""
     g = torch.Generator(device=dev).manual_seed(1)
     rows = 2 * BATCH  # n_cand·B of one aux level
+    socket_rows = 2 * preset_shapes("gossip_socket")[2]
     err_f, err_b = 0.0, 0.0
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("slice", rows, NUM_LABELS, f32, f32, 3.0),
+             ("gossip_socket", socket_rows, NUM_LABELS, f32, f32, 3.0),
              ("large", rows, 32768, f32, f32, 3.0),
              ("bf16", rows, NUM_LABELS, bf16, bf16, 3.0),
              ("ties", rows, NUM_LABELS, f32, f32, 0.0),
@@ -1016,7 +1044,9 @@ def phase_emb_dist(dev) -> list:
     rows = BATCH  # Δ·B
     err_f, err_b = 0.0, 0.0
     for name, B, D in (("slice", rows, E), ("large", 256, 8192),
-                       ("s==t", rows, E)):
+                       ("s==t", rows, E),
+                       ("gossip_socket", preset_shapes("gossip_socket")[2],
+                        E)):
         s = torch.randn(B, D, generator=g, device=dev)
         t = s.clone() if name == "s==t" else torch.randn(
             B, D, generator=g, device=dev)
@@ -1478,14 +1508,23 @@ def _exp_quickstart(dev) -> dict:
             "beta": {k: v for k, v in ev.items() if k.startswith("mean/")}}
 
 
+def _resnet18_arch(num_labels: int, aux_heads: int, width: int):
+    return resnet18(num_labels, num_aux_heads=aux_heads, width=width)
+
+
+def register_resnet18() -> None:
+    """ResNet-18 as the experiment API's client arch ``resnet18`` (the
+    reference registers no such arch). Also run by every gossip child
+    (`launch_gossip`'s ``child_init``), in its own process."""
+    if "resnet18" not in EXP.CLIENT_ARCHS:
+        EXP.CLIENT_ARCHS.register("resnet18")(_resnet18_arch)
+
+
 def phase_exp_path(dev, resnet_med: float) -> dict:
     """The experiment API on the card: (a) MHD through
     Experiment(spec).run() at the ResNet path's settings, (b) a restore of
     its step-6 checkpoint, (c) the three baselines, (d) the quickstart."""
-    if "resnet18" not in EXP.CLIENT_ARCHS:
-        EXP.CLIENT_ARCHS.register("resnet18")(
-            lambda num_labels, aux_heads, width: resnet18(
-                num_labels, num_aux_heads=aux_heads, width=width))
+    register_resnet18()
     shutil.rmtree(EXP_CKPT_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     spec = exp_spec("mhd", MHD, STEPS)
@@ -1802,6 +1841,199 @@ def phase_fleet_path(dev) -> dict:
     return out
 
 
+# the socket path: gossip_socket (4 ResNet-18 clients on a cycle, top-k 5
+# in f16, int8 embeddings, S_P 5, horizon 20, 40 steps) on the fleet
+# path's data, in-process over one socket transport and then one OS
+# process (one CUDA context) per client through launch_gossip; the
+# scoreboard and churn smokes of scripts/port_gossip_procs.py at the same
+# width
+SOCKET_DIR = ROOT / "build" / "socket"
+SOCKET_KERNELS = FLEET_KERNELS
+SOCKET_PACE_MS = 1000.0  # (c) the straggler's pace
+SOCKET_TIMEOUT = 240.0  # (b), (c): every launch's hard cap, seconds
+SOCKET_CHURN_TIMEOUT = 120.0  # (d): each of its two launches
+
+
+def _gossip_script():
+    path = ROOT / "scripts" / "port_gossip_procs.py"
+    mod_spec = importlib.util.spec_from_file_location("port_gossip_procs",
+                                                      path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _sum_counts(results: dict) -> dict:
+    total: dict = {}
+    for r in results.values():
+        _add_counts(total, r["kernel_launches"])
+    return total
+
+
+def _socket_inprocess(dev, spec, triple) -> dict:
+    """(a) gossip_socket through Experiment(spec).run(), once over the
+    socket transport and once over loopback, in cuDNN's deterministic
+    mode: the same params bit for bit and the same teacher schedule."""
+    runs = {}
+    with Deterministic():
+        for kind in ("socket", "loopback"):
+            sp = dataclasses.replace(spec, transport=EXP.TransportSpec(
+                kind=kind))
+            t0 = time.perf_counter()
+            res, steps, step_s = _timed_run(EXP.Experiment(sp, data=triple,
+                                                           device=dev))
+            runs[kind] = (res, steps, step_s, time.perf_counter() - t0)
+    (sock, s_steps, s_step_s, s_wall), (loop, l_steps, _, l_wall) = \
+        runs["socket"], runs["loopback"]
+    for t, m in enumerate(s_steps):
+        _finite(m, f"socket (a): step {t}")
+    check(s_steps == l_steps, "socket (a): step metrics == loopback")
+    leaves = _params_equal(sock.trainer, loop.trainer)
+    schedule = [[int(m[f"c{i}/distill_active"]) for m in s_steps]
+                for i in range(spec.num_clients)]
+    check(all(any(row) for row in schedule),
+          f"socket (a): every client distills {schedule}")
+    meter = sock.trainer.meter
+    check(meter.delivered_bytes == meter.total_bytes > 0 and
+          meter.by_edge == loop.trainer.meter.by_edge,
+          "socket (a): delivered == offered, the loopback run's books")
+    check(sock.transport._closed, "socket (a): listeners closed")
+    out = {"wall_s": s_wall, "loopback_wall_s": l_wall,
+           "step_ms_median": statistics.median(s_step_s[1:]) * 1e3,
+           "leaves": leaves, "schedule": schedule,
+           "offered_bytes": meter.total_bytes,
+           "frame_bytes": meter.total_bytes / max(meter.num_messages, 1),
+           "drain_stalls": sock.metrics["comm/drain_stalls"]}
+    log(f"socket (a): gossip_socket {spec.train.steps} steps in-process, "
+        f"socket == loopback, {leaves} param leaves and every step metric "
+        f"bitwise (cudnn.deterministic); walls {s_wall:.2f} / {l_wall:.2f} "
+        f"s, step median {out['step_ms_median']:.1f} ms; "
+        f"{meter.num_messages} frames of {out['frame_bytes']:.0f} B, "
+        f"drain stalls {out['drain_stalls']:.0f}; schedule {schedule}")
+    return out
+
+
+def _socket_ranks(results: dict, what: str) -> list:
+    """Each rank's host times and card memory, logged."""
+    rows = []
+    for rank in sorted(results):
+        r = results[rank]
+        rows.append({k: r[k] for k in (
+            "rank", "start_step", "steps", "spawn_s", "setup_s",
+            "rendezvous_s", "wall_seconds", "barrier_wait_s",
+            "max_memory_allocated", "distill_steps", "final_loss",
+            "kernel_launches", "device", "drain_stalls")})
+        log(f"{what} rank {rank} on {r['device']}: spawn {r['spawn_s']:.2f} "
+            f"s, setup {r['setup_s']:.2f} s, rendezvous "
+            f"{r['rendezvous_s']:.2f} s, step loop "
+            f"{r['wall_seconds']:.2f} s for {r['steps'] - r['start_step']} "
+            f"steps, finish barrier {r['barrier_wait_s']:.2f} s, card peak "
+            f"{r['max_memory_allocated'] / 2**30:.2f} GiB; distilled on "
+            f"{r['distill_steps']} steps, loss {r['final_loss']:.3f}; "
+            f"launches {r['kernel_launches']}")
+    return rows
+
+
+def _socket_procs(dev, spec) -> dict:
+    """(b) the same spec through launch_gossip: 4 ranks, each its own
+    process and CUDA context on this card."""
+    from repro_torch.launch import delivery_gaps, fleet_summary, launch_gossip
+
+    t0 = time.perf_counter()
+    results = launch_gossip(spec, timeout=SOCKET_TIMEOUT, device=str(dev),
+                            child_init=register_resnet18)
+    wall = time.perf_counter() - t0
+    check(sorted(results) == list(range(spec.num_clients)),
+          f"socket (b): ranks {sorted(results)}")
+    for rank, r in results.items():
+        check(r["steps"] == spec.train.steps and r["start_step"] == 0,
+              f"socket (b): rank {rank} ran {spec.train.steps} steps")
+        check(r["distill_steps"] >= 1,
+              f"socket (b): rank {rank} distilled ({r['distill_steps']})")
+        check(math.isfinite(r["final_loss"]), f"socket (b): rank {rank} loss")
+        for name in SOCKET_KERNELS:
+            check(r["kernel_launches"][name] > 0,
+                  f"socket (b): rank {rank} launched {name} "
+                  f"({r['kernel_launches'][name]})")
+    gaps = delivery_gaps(results)
+    check(not gaps, f"socket (b): delivered == offered on every edge {gaps}")
+    fleet = fleet_summary(results)
+    log(f"socket (b): {spec.num_clients} processes on one card, launch "
+        f"{wall:.2f} s; fleet {fleet}")
+    return {"launch_s": wall, "fleet": fleet,
+            "ranks": _socket_ranks(results, "socket (b)"),
+            "counts": _sum_counts(results)}
+
+
+def phase_socket_path(dev) -> dict:
+    """The socket transport and the gossip launcher on the card: (a)
+    gossip_socket in-process, socket == loopback bitwise; (b) the same
+    spec as 4 OS processes; (c) the scoreboard smoke (3 processes, one
+    paced straggler); (d) the churn smoke (rank 1 crashed, the fleet
+    resumed from its per-rank snapshots). The counts are set to 0 just
+    before (a); the path's launches are this process's, read after (d),
+    plus what every child reported."""
+    script = _gossip_script()
+    register_resnet18()
+    shutil.rmtree(SOCKET_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    spec = fleet_preset("gossip_socket", 40)
+    triple = EXP.materialize_data(spec.data, spec.partition,
+                                  spec.num_clients)
+    ops.reset_launch_counts()
+    out = {"inprocess": _socket_inprocess(dev, spec, triple)}
+    torch.cuda.empty_cache()
+    out["procs"] = _socket_procs(dev, spec)
+    counts = dict(out["procs"]["counts"])
+
+    sb = script.scoreboard_smoke(
+        base=fleet_preset("gossip_socket", 16), device=str(dev),
+        child_init=register_resnet18, slow_pace_ms=SOCKET_PACE_MS,
+        timeout=SOCKET_TIMEOUT, warm=False)
+    check(not sb["failures"], f"socket (c): {sb['failures']}")
+    _add_counts(counts, _sum_counts(sb["results"]))
+    out["scoreboard"] = {
+        "fast_wall_s": sb["fast_wall_s"], "slow_wall_s": sb["slow_wall_s"],
+        "slow_pace_ms": sb["slow_pace_ms"],
+        "ranks": _socket_ranks(sb["results"], "socket (c)"),
+        "backpressure_s": sb["fleet"]["backpressure_seconds"]}
+    log(f"socket (c): fast ranks {sb['fast_wall_s']:.2f} s against the "
+        f"straggler's {sb['slow_wall_s']:.2f} s at {SOCKET_PACE_MS:.0f} "
+        f"ms a step (must be under 0.5x)")
+
+    churn = script.churn_smoke(
+        base=fleet_preset("gossip_socket", 8), device=str(dev),
+        child_init=register_resnet18, timeout=SOCKET_CHURN_TIMEOUT,
+        snap_dir=SOCKET_DIR / "churn", warm=False)
+    check(not churn["failures"], f"socket (d): {churn['failures']}")
+    _add_counts(counts, _sum_counts(churn["results"]))
+    out["churn"] = {
+        "crash_detect_s": churn["crash_detect_s"],
+        "crash_error": churn["crash_error"], "resume_s": churn["resume_s"],
+        "ranks": _socket_ranks(churn["results"], "socket (d)")}
+    log(f"socket (d): the crash of rank 1 failed the launch in "
+        f"{churn['crash_detect_s']:.2f} s (cap {SOCKET_CHURN_TIMEOUT:.0f} "
+        f"s): {churn['crash_error']}; resumed in {churn['resume_s']:.2f} s, "
+        f"rank 1 from step {churn['results'][1]['start_step']}")
+    shutil.rmtree(SOCKET_DIR, ignore_errors=True)
+
+    out["parent_counts"] = ops.launch_counts()
+    _add_counts(counts, out["parent_counts"])
+    out["counts"] = counts
+    for name in SOCKET_KERNELS:
+        check(counts[name] > 0, f"socket path: kernel {name} launched "
+              f"({counts[name]})")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"socket phase: {out['seconds']:.1f} s; launches {counts} (this "
+        f"process {out['parent_counts']})")
+    return out
+
+
 def phase_adaptive_wire(dev) -> None:
     """The adaptive, delta-compressed wire at the LM path's frame shape
     (W=4 windows, H=3 heads, 1024 positions, V=50280): the frame encoded
@@ -1969,6 +2201,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_path = phase_fleet_path(dev)
     torch.cuda.empty_cache()
+    socket_path = phase_socket_path(dev)
+    torch.cuda.empty_cache()
     ops.reset_launch_counts()
     trainer, lm_path = phase_lm_path(dev, LM_CFG, "lm", LM_KERNELS)
     RECORD["profile_lm"] = phase_profile(trainer, LM_STEPS, LM_S_P, "lm")
@@ -1987,13 +2221,14 @@ def main() -> int:
                                              "zamba2")
     del trainer
     paths = {"resnet": resnet, "exp": exp_path["mhd"], "fleet": fleet_path,
-             "lm": lm_path, "zamba2": zamba_path}
+             "socket": socket_path, "lm": lm_path, "zamba2": zamba_path}
     for k in kernels:
         k["launches_by_path"] = {p: r["counts"][k["name"]]
                                  for p, r in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     RECORD.update(kernels=kernels, resnet_path=resnet, exp_path=exp_path,
-                  fleet_path=fleet_path, lm_path=lm_path,
+                  fleet_path=fleet_path, socket_path=socket_path,
+                  lm_path=lm_path,
                   zamba2_path=zamba_path,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"

@@ -11,9 +11,13 @@ port of ``repro.comm``.
   bus.py        per-edge mailboxes driven by the graph G_t;
                 `PredictionPool`, the prediction twin of the param pool.
   metering.py   the bytes-per-edge-per-step ledger.
+  socket.py     the same send/poll interface over real TCP on one host
+                (a copy of the reference's stdlib module, frame for
+                frame): in-process for ``Experiment.run()``, one instance
+                a process for `repro_torch.launch.gossip`.
 
 The entropy-adaptive and the delta-compressed codecs of the LM wire live
-in `repro_torch.lm`; the socket transport is a later slice of the port.
+in `repro_torch.lm`.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.comm.bus import (
     PredictionWindow,
 )
 from repro_torch.comm.metering import CommMeter
+from repro_torch.comm.socket import SocketTransport, allocate_ports
 from repro_torch.comm.transport import (
     Delivery,
     EdgeSpec,
@@ -111,8 +116,10 @@ __all__ = [
     "PredictionPool",
     "PredictionWindow",
     "SimulatedNetwork",
+    "SocketTransport",
     "TopKCodec",
     "Transport",
+    "allocate_ports",
     "dense_frame_nbytes",
     "densify_topk",
     "frame_overhead_nbytes",

@@ -215,16 +215,20 @@ class Experiment:
         self.device = resolve_device(device)
 
     def build_bindings(self) -> Bindings:
+        """The spec's resources. The transport comes last, so a spec whose
+        fleet cannot be built (an arch not ported yet) raises before a
+        socket transport binds its listeners."""
         spec = self.spec
         arrays, test_arrays, part = (
             self._data if self._data is not None else
             materialize_data(spec.data, spec.partition, spec.num_clients))
+        bundles = build_bundles(spec)
+        optimizer, graph = build_optimizer(spec), build_graph(spec)
         return Bindings(
             spec=spec, arrays=arrays, test_arrays=test_arrays,
-            partition=part, bundles=build_bundles(spec),
-            optimizer=build_optimizer(spec), graph=build_graph(spec),
-            transport=build_transport(spec), num_labels=spec.data.num_labels,
-            device=self.device)
+            partition=part, bundles=bundles, optimizer=optimizer,
+            graph=graph, transport=build_transport(spec),
+            num_labels=spec.data.num_labels, device=self.device)
 
     def _check_capabilities(self, algo: Algorithm) -> None:
         spec, caps = self.spec, algo.capabilities
@@ -343,6 +347,12 @@ def _comm_metrics(algo: Algorithm) -> Dict[str, float]:
            "comm/delivered_bytes": float(meter.delivered_bytes),
            "comm/rejected_publishes": float(meter.rejected_publishes),
            "comm/tombstoned_bytes": float(meter.tombstoned_bytes)}
+    # transport-level backpressure (SocketTransport): retried sends that
+    # stalled past drain_timeout without being dropped
+    transport = getattr(getattr(algo, "trainer", None), "bus", None)
+    transport = getattr(transport, "transport", None)
+    if hasattr(transport, "drain_stalls"):
+        out["comm/drain_stalls"] = float(transport.drain_stalls)
     for cid, g in meter.gate_summary().items():
         out[f"c{cid}/comm/fresh_teachers"] = float(g["fresh"])
         out[f"c{cid}/comm/stale_teachers"] = float(g["stale"])

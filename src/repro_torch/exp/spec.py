@@ -19,8 +19,8 @@ Client architectures are resolved through the ``CLIENT_ARCHS`` registry
 
 What the port does not run yet is registered all the same, so every spec
 validates as in the reference, and raises NotImplementedError naming its
-ROADMAP item when the runner builds it: the ``socket`` transport (Queue 1
-item 10) and the ``lm_moe`` arch (item 13, MoE).
+ROADMAP item when the runner builds it: the ``lm_moe`` arch (Queue 1 item
+13, MoE).
 """
 from __future__ import annotations
 
@@ -80,9 +80,17 @@ _simulated_transport.validate_spec = _reject_socket_fields
 
 @TRANSPORTS.register("socket")
 def _socket_transport(spec: "ExperimentSpec") -> Any:
-    raise NotImplementedError(
-        "transport kind 'socket' is not ported yet: ROADMAP Queue 1 item 10 "
-        "(comm/socket.py and launch/gossip.py)")
+    """One in-process instance hosting the whole fleet over real TCP —
+    `Experiment.run()`'s view of ``kind="socket"``. The multi-process
+    launcher (`launch/gossip.py`) builds one single-client instance per
+    OS process instead, with ports rendezvoused between them."""
+    from repro_torch.comm import SocketTransport
+
+    t = spec.transport
+    ports = None
+    if t.base_port is not None:
+        ports = {i: t.base_port + i for i in range(spec.num_clients)}
+    return SocketTransport(spec.num_clients, ports=ports, host=t.host)
 
 
 def _socket_validate(spec: "ExperimentSpec") -> None:

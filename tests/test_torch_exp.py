@@ -309,8 +309,6 @@ def _run_cpu(spec):
 
 # what the port does not run yet: each raises naming its ROADMAP item
 DEFERRED = {
-    "socket": (lambda: _run_cpu(PX.get_preset("gossip_socket")),
-               "item 10"),
     "lm_moe": (lambda: _run_cpu(PX.get_preset("lm_hetero")), "item 13"),
 }
 
@@ -320,6 +318,47 @@ def test_deferred_features_raise_naming_their_item(case):
     act, item = DEFERRED[case]
     with pytest.raises(NotImplementedError, match=item):
         act()
+
+
+def test_gossip_socket_runs_and_closes_its_listeners():
+    """`gossip_socket` over one in-process socket transport hosting the
+    whole fleet: every client distills, delivered == offered, and the
+    runner closes the listeners when the loop is over."""
+    spec = PX.get_preset("gossip_socket")
+    spec = dataclasses.replace(spec, train=dataclasses.replace(
+        spec.train, steps=4))
+    res = _run_cpu(spec)
+    sock = res.transport
+    assert type(sock).__name__ == "SocketTransport"
+    assert sock._closed and all(srv.fileno() == -1
+                                for srv in sock._listeners.values())
+    m = res.metrics
+    assert m["comm/delivered_bytes"] == m["comm/total_bytes"] > 0
+    assert m["comm/drain_stalls"] == 0.0
+    assert all(m[f"c{i}/comm/fresh_teachers"] > 0 for i in range(4))
+
+
+def test_lm_hetero_binds_no_listener_before_it_raises(monkeypatch):
+    """`lm_hetero` (a socket fleet with an `lm_moe` client) raises naming
+    item 13 before its socket transport is built."""
+    import repro_torch.comm as comm
+
+    made = []
+
+    class Recording(comm.SocketTransport):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(comm, "SocketTransport", Recording)
+    assert PX.get_preset("lm_hetero").transport.kind == "socket"
+    with pytest.raises(NotImplementedError, match="item 13"):
+        _run_cpu(PX.get_preset("lm_hetero"))
+    assert made == []
+    spec = PX.get_preset("gossip_socket")
+    t = PX.TRANSPORTS.get("socket")(spec)
+    assert made == [t]  # the spy sees the registry's builds
+    t.close()
 
 
 def test_port_quickstart_runs_the_reference_quickstarts_spec():

@@ -1,7 +1,8 @@
-"""The port stands alone: importing every module of repro_torch,
-chip_smoke.py and examples/port_quickstart.py leaves jax and the JAX
-package out of sys.modules, and the kernels' sources (which import
-triton) are not imported by any module."""
+"""The port stands alone: importing every module of repro_torch (the
+socket transport and the gossip launcher among them), chip_smoke.py,
+examples/port_quickstart.py and scripts/port_gossip_procs.py leaves jax
+and the JAX package out of sys.modules, and the kernels' sources (which
+import triton) are not imported by any module."""
 import os
 import subprocess
 import sys
@@ -15,7 +16,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:
     importlib.import_module(n)
-for name, path in zip(("chip_smoke", "port_quickstart"), sys.argv[1:]):
+assert {"repro_torch.comm.socket", "repro_torch.launch",
+        "repro_torch.launch.gossip"} <= set(names), names
+for name, path in zip(("chip_smoke", "port_quickstart", "port_gossip_procs"),
+                      sys.argv[1:]):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
@@ -29,10 +33,11 @@ def test_port_imports_no_jax_and_no_reference_package():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
         [sys.executable, "-c", PROBE, os.path.join(ROOT, "chip_smoke.py"),
-         os.path.join(ROOT, "examples", "port_quickstart.py")],
+         os.path.join(ROOT, "examples", "port_quickstart.py"),
+         os.path.join(ROOT, "scripts", "port_gossip_procs.py")],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 66, out.stdout
+    assert int(n) >= 69, out.stdout
     assert bad == "[]", bad
 
 
