@@ -12,7 +12,8 @@ the checkout (into ``build/``), then
   2. builds the CUDA kernels (one nvcc per source, started together);
   3. holds each kernel — topk_wire, dist_ce forward and backward, emb_dist
      forward and backward, ssd_scan forward and backward, flash_attention
-     forward and backward — against its plain PyTorch version on the card,
+     forward and backward (at arctic-480b's GQA with G = 7 among its
+     cases) — against its plain PyTorch version on the card,
      at the main paths' shapes and at edge cases, and times kernel, plain
      version and one library yardstick with CUDA events (median of
      repeated calls), and the launch floor (a one-element fill's device
@@ -61,21 +62,41 @@ the checkout (into ``build/``), then
      churn smoke (rank 1 crashed and reaped promptly, the fleet resumed
      from per-rank snapshots, rank 1 from step 3). The path's launches
      are this process's plus those every child reports;
-  9. drives the LM path: K=3 full-width, full-depth mamba2-370m clients
-     (48 layers, d_model 1024, vocab 50280, 2 aux heads) exchanging
+  9. drives the LM path: K=3 full-width mamba2-370m clients cut in depth
+     to 24 of 48 layers (d_model 1024, vocab 50280, 2 aux heads) exchanging
      entropy-adaptive, delta-compressed next-token predictions, 12 steps
      and one evaluate(), then one profiled publish round;
   10. drives the hybrid path the same way: K=3 full-width zamba2-7b
      clients (d_model 3584, Mamba2 with the shared attention block and the
      dense FFN every 6th layer, vocab 32000) cut in depth to one period of
-     six layers. Every kernel's launch count is set to 0 just before each
-     path and read just after;
-  11. prints one ``{"kernels": [...]}`` line and, last, the device line
+     six layers;
+  11. drives the MoE path (`phase_moe_path`): (a) the `lm_hetero` preset
+     (a Mamba2 SSM, a dense transformer and an MoE transformer on the
+     adaptive delta wire) through Experiment(spec).run() for its 30 steps
+     over its in-process socket transport; (b) the same spec as 3 OS
+     processes through launch_gossip (scripts/port_gossip_procs.py's
+     --lm-smoke body): in both every client distills, delivered ==
+     offered on every edge, the mean frame stays under the budget's
+     ceiling, and topk_wire, dist_ce, ssd_scan and flash_attention
+     launch; (c) K=2 full-width arctic-480b clients (d_model 7168, 56
+     query and 8 KV heads, the dense SwiGLU beside a top-2 MoE, vocab
+     32000) cut to one layer of 4 experts, through the LM path's run, each
+     step's expert load and dropped share logged, then a profiled publish
+     round; (d) one full-width arctic MoE block with all 128 experts (53.55
+     GB of f32 weights drawn on the card), forward only, held against a
+     float64 evaluation of the experts of 64 sampled tokens and of every
+     token with a dropped pair, and timed against its bound. (a)'s
+     teacher schedule is held against the one derived on the CPU, and
+     every kernel also runs, against its plain version in step 3, at
+     lm_hetero's own shapes. Every kernel's launch count is set to 0
+     just before each path and read just after;
+  12. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line. The full record also goes to ``chiprun_out/chip_smoke.json``
-and the profiles' tables to ``chiprun_out/profile_{resnet,lm,zamba2}.txt``.
+and the profiles' tables to
+``chiprun_out/profile_{resnet,lm,zamba2,moe}.txt``.
 """
 from __future__ import annotations
 
@@ -116,7 +137,9 @@ from repro_torch.kernels import topk_wire as TOPK  # noqa: E402
 from repro_torch.checkpoint.io import (load_pytree,  # noqa: E402
                                        params_from_jax, params_to_jax)
 from repro_torch.models import build_bundle, resnet18  # noqa: E402
-from repro_torch.models.config import patterned_stages  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models.config import (patterned_stages,  # noqa: E402
+                                       uniform_stages)
 from repro_torch.optim import OptimizerConfig, make_optimizer  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 (no
@@ -200,12 +223,19 @@ def exp_spec(algo: str, params: dict, steps: int, aux_heads: int = 0,
                             **train))
 
 
-# the LM path: K=3 full-width, full-depth mamba2-370m clients (48 layers,
-# d_model 1024, 32 heads x 64, d_state 128, vocab 50280, 2 aux heads, f32)
-# on lm_hetero's MHD and wire (presets.py:114-145), with S_P and W cut to
-# fit memory, 12 steps
+# the LM path: K=3 full-width mamba2-370m clients (d_model 1024, 32 heads x
+# 64, d_state 128, vocab 50280, 2 aux heads, f32) cut in depth from 48
+# layers to 24 for margin under the smoke's time limit: with 48 the whole
+# smoke took 1,022.7 s of its 1,200 s on a slow host (every layer runs the
+# same kernels at the same shapes), on
+# lm_hetero's MHD and wire (presets.py:114-145), with S_P and W cut to fit
+# memory, 12 steps
 LM_ARCH = "mamba2-370m"
-LM_CFG = get_config(LM_ARCH)
+_LM_FULL = get_config(LM_ARCH)
+LM_DEPTH = 24
+LM_CFG = dataclasses.replace(
+    _LM_FULL, name=f"{LM_ARCH}-{LM_DEPTH}-layers", num_layers=LM_DEPTH,
+    stages=uniform_stages(LM_DEPTH, _LM_FULL.stages[0].block[0])).validate()
 LM_K, LM_DOMAINS, LM_STEPS, LM_S_P, LM_POOL = 3, 6, 12, 4, 2
 LM_SEQS, LM_TEST_SEQS, LM_SEQ_LEN, LM_DATA_VOCAB = 64, 8, 512, 512
 LM_BATCH, LM_MAX_POS, LM_POS_SEED = 8, 1024, 17
@@ -249,11 +279,46 @@ ZAMBA_CFG = dataclasses.replace(
 ZAMBA_VOCAB = ZAMBA_CFG.vocab_size
 
 
-def lm_path_data(LM, D):
-    """The LM path's train and test token arrays and its partition, built
-    with the lm and data modules ``LM``, ``D`` (this port's, or the JAX
-    package's in a parity test). The test split shares the domain
-    languages (``table_seed``), as the reference's runner builds it."""
+# the MoE path: K=2 full-width arctic-480b clients (d_model 7168; 56
+# query heads and 8 KV heads x 128, RoPE, RMSNorm; the dense residual
+# SwiGLU, d_ff 4864, beside the MoE on one ffn_norm output: top-2 softmax
+# routing, capacity 1.25, router aux 0.01, experts of d_ff 4864; vocab
+# 32000, 2 aux heads, f32, remat per unit) cut in depth from 35 layers to
+# 1 and in experts from 128 to 4 (the expert work a token is the same:
+# E·C = N·k·1.25 whatever E), on the LM path's data, wire and training
+# split over 2 clients. moe_impl "a2a" runs the scatter form on one card
+MOE_ARCH = "arctic-480b"
+_MOE_FULL = get_config(MOE_ARCH)
+MOE_K = 2
+MOE_CFG = dataclasses.replace(
+    _MOE_FULL, name=f"{MOE_ARCH}-1-layer-4-experts", num_layers=1,
+    stages=uniform_stages(1, _MOE_FULL.stages[0].block[0]),
+    moe=dataclasses.replace(_MOE_FULL.moe, num_experts=4)).validate()
+# which client steps distill on the MoE path (K=2): derived on the CPU
+# through the JAX package and the port by tests/test_torch_schedule.py
+REFERENCE_DISTILLED_MOE = [[1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 1, 1],
+                           [1, 1, 1, 1, 0, 1, 1, 0, 0, 1, 0, 0]]
+# one arctic MoE block at full width with all 128 experts, forward only:
+# 8 x 512 tokens (C = 80), the weights drawn on the card; the kept pairs
+# of 64 sampled tokens and of every token with a dropped pair against a
+# float64 evaluation of their experts
+MOE_BLOCK_TOKENS = (8, 512)
+MOE_BLOCK_SAMPLES = 64
+# which client steps distill in lm_hetero's 30 in-process steps (its SSM,
+# transformer and MoE clients): derived on the CPU through the JAX package
+# and the port by tests/test_torch_exp.py
+REFERENCE_DISTILLED_HETERO = [
+    [1] * 30,
+    [1] * 20 + [0, 0, 1, 0, 1, 1, 1, 1, 0, 0],
+    [1] * 30]
+
+
+def lm_path_data(LM, D, k: int = LM_K):
+    """The LM path's train and test token arrays and its partition over
+    ``k`` clients, built with the lm and data modules ``LM``, ``D`` (this
+    port's, or the JAX package's in a parity test). The test split shares
+    the domain languages (``table_seed``), as the reference's runner
+    builds it."""
     arrays = LM.make_text_arrays(LM_DOMAINS, LM_SEQS, LM_SEQ_LEN,
                                  LM_DATA_VOCAB, temperature=0.5, seed=0,
                                  table_seed=0)
@@ -261,7 +326,7 @@ def lm_path_data(LM, D):
                                LM_DATA_VOCAB, temperature=0.5, seed=991,
                                table_seed=0)
     part = D.partition_dataset(arrays["labels"], D.PartitionConfig(
-        num_clients=LM_K, num_labels=LM_DOMAINS, **LM_PARTITION))
+        num_clients=k, num_labels=LM_DOMAINS, **LM_PARTITION))
     return arrays, test, part
 
 
@@ -295,6 +360,10 @@ TOL_FLASH_BF16 = 2e-2
 # causal; and at zamba2's context length
 FLASH_SHAPE = (8, 512, 32, 112)
 FLASH_LONG = (1, 4096, 32, 112)
+# arctic-480b's attention on the MoE path: B, T, H, KV, d; GQA with a group
+# of G = 7 query heads a KV head, the first group size that is not a power
+# of two
+FLASH_ARCTIC = (8, 512, 56, 8, 128)
 # flash_attention's cases: name, (B, T, S, H, KV, d), causal, window, dtype
 FLASH_CASES = [
     ("path", (8, 512, 512, 32, 32, 112), True, 0, "float32"),
@@ -311,13 +380,19 @@ FLASH_CASES = [
     # d % 8 != 0: a ragged last slice of the head dim, rows staged by the
     # scalar loop (d % 4 != 0), T not a multiple of the query tile
     ("d=50", (1, 130, 130, 4, 2, 50), True, 0, "float32"),
-    ("bf16", (8, 512, 512, 32, 32, 112), True, 0, "bfloat16")]
+    ("bf16", (8, 512, 512, 32, 32, 112), True, 0, "bfloat16"),
+    ("arctic GQA G=7", (8, 512, 512, 56, 8, 128), True, 0, "float32")]
 # the kernels each path runs, and must have launched
 RESNET_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
                   "emb_dist_bwd")
 LM_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "ssd_scan_fwd",
               "ssd_scan_bwd")
 ZAMBA_KERNELS = LM_KERNELS + ("flash_attention_fwd", "flash_attention_bwd")
+MOE_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd",
+               "flash_attention_fwd", "flash_attention_bwd")
+# lm_hetero: its SSM client runs ssd_scan, its two transformers attention
+HETERO_KERNELS = ZAMBA_KERNELS
+HETERO_RANK_KERNELS = {0: LM_KERNELS, 1: MOE_KERNELS, 2: MOE_KERNELS}
 # kernels that several wrappers launch, once a call each: ssd_scan's prep
 # kernel (C·Bᵀ and the cumsums) runs in the forward and in the backward
 SHARED_KERNELS = {"ssd_scan_prep_kernel": ("ssd_scan_fwd", "ssd_scan_bwd")}
@@ -426,11 +501,42 @@ def preset_shapes(name: str) -> tuple:
             spec.wire.topk, spec.train.batch_size)
 
 
+def hetero_shapes() -> dict:
+    """The lm_hetero preset's kernel shapes, from its spec and its
+    clients' configs: ssd_scan's (Bt, T, H, P, N) and chunk for each SSM
+    client; flash_attention's (B, T, S, H, KV, d) and window for each
+    attention layer kind; one publish's top-k rows (W·H·B'), columns and
+    k; dist_ce's rows (n_cand·B') and columns."""
+    spec = EXP.get_preset("lm_hetero")
+    d, tr = spec.data, spec.train
+    B, T, V = tr.batch_size, d.seq_len, d.vocab_size
+    ssd, flash = [], []
+    for c in spec.clients:
+        cfg = EXP.CLIENT_ARCHS.get(c.arch)(V, c.aux_heads, c.width)
+        kinds = {sp.attn for st in cfg.stages for sp in st.block}
+        if "mamba2" in kinds:
+            m = cfg.mamba
+            ssd.append(((B, T, m.expand * cfg.d_model // m.head_dim,
+                         m.head_dim, m.d_state), m.chunk_size))
+        for kind in sorted(kinds & {"full", "swa"}):
+            case = ((B, T, T, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.head_dim), cfg.window_size if kind == "swa" else 0)
+            if case not in flash:
+                flash.append(case)
+    positions = lm.lm_wire_tokens(tr.public_batch_size, T, d.max_positions)
+    heads = spec.clients[0].aux_heads + 1
+    return {"ssd": ssd, "flash": flash,
+            "topk": (spec.wire.horizon * heads * positions, V,
+                     spec.wire.topk),
+            "dist_ce": (spec.algorithm.params["pool_size"] * positions, V)}
+
+
 def phase_topk(dev) -> dict:
     """topk_wire against its plain version (values and indices exact, lse
     within TOL_LSE), at the paths' shapes (the fleet and socket paths'
-    k=5 publishes among them) and at the edges (rows off 16 bytes, ties,
-    -inf, k up to V and past the one-pass kernel's 256); timed at the LM path's publish shape, with the hybrid and ResNet
+    k=5 publishes and lm_hetero's among them) and at the edges (rows off
+    16 bytes, ties, -inf, k up to V and past the one-pass kernel's 256);
+    timed at the LM path's publish shape, with the hybrid and ResNet
     paths' beside it; then the launch floor."""
     g = torch.Generator(device=dev).manual_seed(0)
     rows = 4 * H * BATCH  # W·H·B of one ResNet publish
@@ -439,6 +545,8 @@ def phase_topk(dev) -> dict:
     fleet = [(name, torch.randn(n, NUM_LABELS, generator=g, device=dev) * 3,
               k) for name in ("gossip", "gossip_socket")
              for n, k, _ in [preset_shapes(name)]]
+    # the MoE path's lm_hetero publish
+    n_het, v_het, k_het = hetero_shapes()["topk"]
     cases = [("slice", torch.randn(rows, NUM_LABELS, generator=g,
                                    device=dev) * 3, TOPK_K),
              ("lm", torch.randn(LM_TOPK_ROWS, LM_VOCAB, generator=g,
@@ -477,7 +585,8 @@ def phase_topk(dev) -> dict:
               LM_COMM["topk"]),
              ("-inf columns", _with_neg_inf(torch.randn(
                  64, LM_VOCAB, generator=g, device=dev) * 3),
-              LM_COMM["topk"]), *fleet]
+              LM_COMM["topk"]), *fleet, ("lm_hetero", torch.randn(
+                  n_het, v_het, generator=g, device=dev) * 3, k_het)]
     for name, x, k in cases:
         v, i, lse = TOPK.topk_wire_kernel(x, k)
         pv, pi, plse = TOPK.topk_wire_plain(x, k)
@@ -572,7 +681,8 @@ def phase_ssd(dev) -> list:
     of absolute rounding into every e^-10(t-u) term. The cases: both LM
     paths' shapes (N = 128, and the hybrid path's N = 64, which takes the
     forward's NMAX = 64 instantiation), ragged T, strong decay, no
-    decay."""
+    decay, and lm_hetero's SSM client (N = 16, T = 12 within one
+    chunk)."""
     g = torch.Generator(device=dev).manual_seed(5)
     Bt, T, H, P, N = SSD_SHAPE
     cases = [("path", (Bt, T, H, P, N), "model", SSD_CHUNK),
@@ -580,7 +690,9 @@ def phase_ssd(dev) -> list:
              ("T=500", (2, 500, 4, P, N), "model", SSD_CHUNK),
              ("T=1", (2, 1, 4, P, N), "model", SSD_CHUNK),
              ("decay", (2, 512, H, P, N), "decay", SSD_CHUNK),
-             ("s=0", (2, 512, 4, P, N), "s=0", SSD_CHUNK)]
+             ("s=0", (2, 512, 4, P, N), "s=0", SSD_CHUNK),
+             *(("lm_hetero", shape, "model", chunk)
+               for shape, chunk in hetero_shapes()["ssd"])]
     err_f, err_b = 0.0, 0.0  # max absolute differences, for the record
     record = []
     names = ("dx", "ddt", "dA", "dB", "dC", "dD")
@@ -788,19 +900,24 @@ def fwd_tile_pairs(T: int, S: int, causal: bool, window: int, d: int) -> int:
 
 def _sdpa(q, k, v):
     """The library yardstick: one causal scaled_dot_product_attention call
-    on the same tensors, viewed (B, H, T, d)."""
+    on the same tensors, viewed (B, H, T, d); GQA (fewer KV heads) through
+    ``enable_gqa``."""
+    gqa = {"enable_gqa": True} if k.shape[2] != q.shape[2] else {}
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True)
+        is_causal=True, **gqa)
 
 
-def _flash_timing(dev, g, B, T, H, d, iters: int) -> tuple:
+def _flash_timing(dev, g, B, T, H, d, iters: int, KV: int = 0) -> tuple:
     """Kernel, plain and library times of the forward and of the backward
-    alone at (B, T, H, d), MHA, causal, f32."""
-    q, k, v, do = (torch.randn(B, T, H, d, generator=g, device=dev)
-                   for _ in range(4))
+    alone at (B, T, H, d), causal, f32; MHA, or GQA with ``KV`` heads."""
+    KV = KV or H
+    q, do = (torch.randn(B, T, H, d, generator=g, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn(B, T, KV, d, generator=g, device=dev)
+            for _ in range(2))
     o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=True)
-    (fb, fby), (bb, bby), fl_f, fl_b = _flash_bounds(B, T, T, H, H, d, True,
+    (fb, fby), (bb, bby), fl_f, fl_b = _flash_bounds(B, T, T, H, KV, d, True,
                                                      0, 4)
     # the plain and library backward alone: autograd on one saved graph
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -816,7 +933,7 @@ def _flash_timing(dev, g, B, T, H, d, iters: int) -> tuple:
 
     # the forward computes whole tiles, at mma.sync's rate at best
     tiles = 4 * B * H * d * fwd_tile_pairs(T, T, True, 0, d)
-    fwd = {"shape": [B, T, H, d], "gflop": fl_f / 1e9,
+    fwd = {"shape": [B, T, H, KV, d], "gflop": fl_f / 1e9,
            "mma_sync_floor_ms": 3 * tiles / MMA_SYNC_TF32 * 1e3,
            "ms": time_ms(lambda: FA.flash_attention_fwd_kernel(
                q, k, v, causal=True), iters=iters),
@@ -824,7 +941,7 @@ def _flash_timing(dev, g, B, T, H, d, iters: int) -> tuple:
                q, k, v, causal=True), iters=iters, warmup=2),
            "bound_ms": fb, "bound_by": fby,
            "library_ms": time_ms(lambda: _sdpa(q, k, v), iters=iters)}
-    bwd = {"shape": [B, T, H, d], "gflop": fl_b / 1e9,
+    bwd = {"shape": [B, T, H, KV, d], "gflop": fl_b / 1e9,
            "ms": time_ms(lambda: FA.flash_attention_bwd_kernel(
                q, k, v, o, lse, do, causal=True, window=0), iters=iters),
            "plain_ms": time_ms(plain_bwd, iters=iters, warmup=2),
@@ -834,14 +951,16 @@ def _flash_timing(dev, g, B, T, H, d, iters: int) -> tuple:
     return fwd, bwd
 
 
-def _sdpa_kernels(dev, g) -> list:
-    """The names of the device kernels that one _sdpa call runs at the
-    path's shape, from a profiler pass: what the library yardstick is."""
+def _sdpa_kernels(dev, g, B, T, H, d, KV: int = 0) -> list:
+    """The names of the device kernels that one _sdpa call runs at (B, T,
+    H, d) with ``KV`` heads (MHA if 0), from a profiler pass: what the
+    library yardstick is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    q, k, v = (torch.randn(*FLASH_SHAPE, generator=g, device=dev)
-               for _ in range(3))
+    q = torch.randn(B, T, H, d, generator=g, device=dev)
+    k, v = (torch.randn(B, T, KV or H, d, generator=g, device=dev)
+            for _ in range(2))
     _sdpa(q, k, v)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -882,12 +1001,18 @@ def phase_flash(dev) -> list:
     below). Cases: the hybrid path's shared block, ragged T, GQA with a
     sliding window at gemma3 / qwen2.5 widths and T = 4096, d = 256,
     non-causal S != T, rows with no key in their band (T > S + window),
-    bf16 inputs. Timed at the path's shape and at zamba2's context,
-    T = 4096."""
+    bf16 inputs, arctic-480b's GQA with G = 7, and lm_hetero's two
+    transformers (d = 32, GQA G = 2, T = 12, with and without its
+    sliding window). Timed at the path's shape,
+    at zamba2's context, T = 4096, and at arctic's shape against SDPA with
+    ``enable_gqa``."""
     g = torch.Generator(device=dev).manual_seed(7)
     names = ("o", "lse", "dq", "dk", "dv")
     record, err_f, err_b = [], 0.0, 0.0
-    for name, (b, t, s_, h, kv, dd), causal, window, dt_name in FLASH_CASES:
+    hetero = [(f"lm_hetero window={w}", shape, True, w, "float32")
+              for shape, w in hetero_shapes()["flash"]]
+    for name, (b, t, s_, h, kv, dd), causal, window, dt_name in [
+            *FLASH_CASES, *hetero]:
         dt = getattr(torch, dt_name)
         q = torch.randn(b, t, h, dd, generator=g, device=dev).to(dt)
         k = torch.randn(b, s_, kv, dd, generator=g, device=dev).to(dt)
@@ -934,6 +1059,8 @@ def phase_flash(dev) -> list:
     RECORD["flash_attention_cases"] = record
     fwd, bwd = _flash_timing(dev, g, *FLASH_SHAPE, iters=20)
     fwd_l, bwd_l = _flash_timing(dev, g, *FLASH_LONG, iters=10)
+    B, T, H, KV, d = FLASH_ARCTIC
+    fwd_a, bwd_a = _flash_timing(dev, g, B, T, H, d, iters=20, KV=KV)
     torch.cuda.empty_cache()
     for nm, x, y in (("fwd", fwd, fwd_l), ("bwd", bwd, bwd_l)):
         tc = (f", whole-tile mma.sync floor {x['mma_sync_floor_ms']:.4f}"
@@ -944,13 +1071,21 @@ def phase_flash(dev) -> list:
             f"{x['gflop']:.2f} GFLOP); T={FLASH_LONG[1]} {y['ms']:.3f} ms "
             f"(plain {y['plain_ms']:.3f}, library {y['library_ms']:.3f}, "
             f"bound {y['bound_ms']:.4f})")
-    RECORD["sdpa_kernels"] = _sdpa_kernels(dev, g)
+    for nm, x in (("fwd", fwd_a), ("bwd", bwd_a)):
+        log(f"flash_attention timing {nm} at arctic's (B, T, H, KV, d) = "
+            f"{FLASH_ARCTIC}: {x['ms']:.3f} ms (plain {x['plain_ms']:.3f}, "
+            f"library (SDPA, enable_gqa) {x['library_ms']:.3f}, 3xTF32 "
+            f"bound {x['bound_ms']:.4f} {x['bound_by']}, "
+            f"{x['gflop']:.2f} GFLOP)")
+    RECORD["sdpa_kernels"] = _sdpa_kernels(dev, g, *FLASH_SHAPE)
+    RECORD["sdpa_kernels_arctic"] = _sdpa_kernels(dev, g, B, T, H, d, KV)
     log(f"flash_attention library yardstick: scaled_dot_product_attention "
-        f"at {FLASH_SHAPE} causal f32 runs {RECORD['sdpa_kernels']}")
+        f"at {FLASH_SHAPE} causal f32 runs {RECORD['sdpa_kernels']}; at "
+        f"arctic's {FLASH_ARCTIC} it runs {RECORD['sdpa_kernels_arctic']}")
     return [{**FA.INFO_FWD, **fwd, "max_abs_err": err_f,
-             "at_T4096": fwd_l},
+             "at_T4096": fwd_l, "at_arctic": fwd_a},
             {**FA.INFO_BWD, **bwd, "max_abs_err": err_b,
-             "at_T4096": bwd_l}]
+             "at_T4096": bwd_l, "at_arctic": bwd_a}]
 
 
 def _dist_ce_library(s, t):
@@ -985,9 +1120,10 @@ def _dist_ce_timing(dev, g, B, V, s_dt, iters: int) -> tuple:
 
 def phase_dist_ce(dev) -> list:
     """dist_ce forward and backward against the plain versions: f32, bf16,
-    ties, a large V, the socket path's rows, and the LM path's rows (bf16
-    student logits against f32 decoded teacher rows, V = 50280); timed at the LM path's shape,
-    with the ResNet path's beside it."""
+    ties, a large V, the socket path's rows, and the LM path's and
+    lm_hetero's rows (bf16 student logits against f32 decoded teacher
+    rows, V = 50280 and 64); timed at the LM path's shape, with the ResNet
+    path's beside it."""
     g = torch.Generator(device=dev).manual_seed(1)
     rows = 2 * BATCH  # n_cand·B of one aux level
     socket_rows = 2 * preset_shapes("gossip_socket")[2]
@@ -998,7 +1134,8 @@ def phase_dist_ce(dev) -> list:
              ("large", rows, 32768, f32, f32, 3.0),
              ("bf16", rows, NUM_LABELS, bf16, bf16, 3.0),
              ("ties", rows, NUM_LABELS, f32, f32, 0.0),
-             ("lm", LM_CE_ROWS, LM_VOCAB, bf16, f32, 3.0)]
+             ("lm", LM_CE_ROWS, LM_VOCAB, bf16, f32, 3.0),
+             ("lm_hetero", *hetero_shapes()["dist_ce"], bf16, f32, 3.0)]
     for name, B, V, s_dt, t_dt, scale in cases:
         s = (torch.randn(B, V, generator=g, device=dev) * 3).to(s_dt)
         t = (torch.randn(B, V, generator=g, device=dev) * scale).to(t_dt)
@@ -1240,13 +1377,17 @@ def phase_resnet_path(dev) -> tuple:
             "final_loss": [history[-1][f"c{i}/loss"] for i in range(K)]}
 
 
-def phase_profile(trainer, first: int, steps: int, name: str) -> dict:
+def phase_profile(trainer, first: int, steps: int, name: str,
+                  by_shape: bool = False) -> dict:
     """One more publish round (``steps`` steps from ``first``) of a path
     under torch.profiler — device busy share of the wall time and device
     time by kernel — and under the port's tracer, whose spans give the
     host's time by span name (``wire/decode`` includes the host densify and
     the copy of the dense window to the card; spans nest, and the forward
-    spans end when the work is queued, not done). The table goes to
+    spans end when the work is queued, not done). ``by_shape`` also
+    records the ops' input shapes and sums the device time of the kernels
+    each PyTorch op launches itself by op and shapes (which matmul is an
+    expert product, which a vocabulary head). The table goes to
     chiprun_out/profile_<name>.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1255,8 +1396,8 @@ def phase_profile(trainer, first: int, steps: int, name: str) -> dict:
 
     torch.cuda.synchronize()
     spans = tracer.enable()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=by_shape) as prof:
         t0 = time.perf_counter()
         for t in range(first, first + steps):
             trainer.step(t)
@@ -1303,8 +1444,20 @@ def phase_profile(trainer, first: int, steps: int, name: str) -> dict:
     log(f"profile {name}: host spans " + ", ".join(
         f"{k} {v['count']}x {v['ms']:.1f} ms"
         for k, v in sorted(host.items(), key=lambda kv: -kv[1]["ms"])))
+    by_op = []
+    if by_shape:
+        rows = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                       if e.device_type == DeviceType.CPU
+                       and e.self_device_time_total > 0),
+                      key=lambda e: -e.self_device_time_total)
+        by_op = [{"op": e.key, "shapes": str(e.input_shapes)[:160],
+                "calls": e.count, "device_us": e.self_device_time_total}
+               for e in rows[:30]]
+        for row in by_op[:15]:
+            log(f"  {row['device_us'] / 1e3:8.2f} ms {row['calls']:6d}x "
+                f"{row['op']} {row['shapes']}")
     return {"wall_us": wall_us, "busy_us": busy_us, "top": top,
-            "ours_us_per_call": ours, "host_spans": host,
+            "ours_us_per_call": ours, "host_spans": host, "ops": by_op,
             "launches": sum(e.count for e in kernels)}
 
 
@@ -2088,49 +2241,57 @@ def phase_adaptive_wire(dev) -> None:
                                "cpu_tensors_s": t_cpu}
 
 
-def phase_lm_path(dev, cfg, label: str, kernels) -> tuple:
-    """An LM slice through the user's entry points: three clients of
-    ``cfg`` (full-width, full-depth mamba2-370m on the LM path; full-width
-    zamba2-7b cut to one period on the hybrid path), MHD over the adaptive
-    delta-compressed wire, 12 steps and one evaluate(), with every
-    kernel's launch count set to 0 just before (by the caller) and read
-    just after; each of ``kernels`` must have launched."""
+def phase_lm_path(dev, cfg, label: str, kernels, n_clients: int = LM_K,
+                  reference=REFERENCE_DISTILLED_LM, after_step=None
+                  ) -> tuple:
+    """An LM slice through the user's entry points: ``n_clients`` clients of
+    ``cfg`` (three full-width mamba2-370m cut to 24 layers on the LM path;
+    three full-width zamba2-7b cut to one period on the hybrid path; two
+    full-width arctic-480b cut to one layer of 4 experts on the MoE path),
+    MHD over the adaptive delta-compressed wire, 12 steps and one
+    evaluate(), with every kernel's launch count set to 0 just before (by
+    the caller) and read just after; each of ``kernels`` must have
+    launched, and the teacher schedule must be ``reference``.
+    ``after_step(t)`` runs after each step's synchronize."""
     t0 = time.perf_counter()
-    arrays, test, part = lm_path_data(lm, data)
+    arrays, test, part = lm_path_data(lm, data, n_clients)
     transport = RecordingTransport()
     trainer = DecentralizedTrainer(
         [lm.lm_client_bundle(build_bundle(cfg), LM_MAX_POS, LM_POS_SEED)
-         for _ in range(LM_K)],
+         for _ in range(n_clients)],
         make_optimizer(OptimizerConfig(**LM_OPTIMIZER)),
         MHDConfig(**LM_MHD), RunConfig(**LM_RUN), arrays,
-        part.client_indices, part.public_indices, complete_graph(LM_K),
+        part.client_indices, part.public_indices, complete_graph(n_clients),
         LM_DOMAINS, exchange="prediction_adaptive",
         comm=CommConfig(**LM_COMM), transport=transport)
     torch.cuda.synchronize()
     n_params = sum(v.numel() for v in trainer.clients[0].params.values())
-    log(f"{label} path: data + {LM_K} x {cfg.name} ({n_params / 1e6:.1f} M "
-        f"params each) init + seed publish {time.perf_counter() - t0:.2f} s;"
-        f" card memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"{label} path: data + {n_clients} x {cfg.name} "
+        f"({n_params / 1e6:.1f} M params each) init + seed publish "
+        f"{time.perf_counter() - t0:.2f} s; card memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     step_s, history = [], []
     for t in range(LM_STEPS):
         a = time.perf_counter()
         history.append(trainer.step(t))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - a)
+        if after_step is not None:
+            after_step(t)
     a = time.perf_counter()
     ev = trainer.evaluate(test)
     eval_s = time.perf_counter() - a
     counts = ops.launch_counts()
 
     distilled = [[int(mt[f"c{i}/distill_active"]) for mt in history]
-                 for i in range(LM_K)]
+                 for i in range(n_clients)]
     for t, mt in enumerate(history):
-        for i in range(LM_K):
+        for i in range(n_clients):
             check(math.isfinite(mt[f"c{i}/loss"]),
                   f"{label} path: c{i} loss at {t}")
-    check(distilled == REFERENCE_DISTILLED_LM,
+    check(distilled == reference,
           f"{label} path: distilled {distilled} != the reference's schedule "
-          f"{REFERENCE_DISTILLED_LM}")
+          f"{reference}")
     for name in kernels:
         check(counts[name] > 0, f"{label} path: kernel {name} launched "
                                 f"({counts[name]})")
@@ -2160,7 +2321,7 @@ def phase_lm_path(dev, cfg, label: str, kernels) -> tuple:
         f"{statistics.mean(len(p) for p in transport.frames):.0f} B mean "
         f"({statistics.mean(entry_bytes) / (W * N):.2f} entry B/token, "
         f"budget {LM_COMM['budget_bytes_per_token']}); launches {counts}")
-    ends = [[round(mt[f"c{i}/loss"], 4) for i in range(LM_K)]
+    ends = [[round(mt[f"c{i}/loss"], 4) for i in range(n_clients)]
             for mt in (history[0], history[-1])]
     log(f"{label} path: mean/main/beta_sh={ev['mean/main/beta_sh']:.4f} "
         f"mean/aux2/beta_sh={ev['mean/aux2/beta_sh']:.4f} first and last "
@@ -2173,7 +2334,314 @@ def phase_lm_path(dev, cfg, label: str, kernels) -> tuple:
         "distilled": distilled, "params_per_client": n_params,
         "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "beta": {k: v for k, v in ev.items() if k.startswith("mean/")},
-        "loss": [[mt[f"c{i}/loss"] for i in range(LM_K)] for mt in history]}
+        "loss": [[mt[f"c{i}/loss"] for i in range(n_clients)]
+                 for mt in history]}
+
+
+class ExpertLoad:
+    """While the MoE path trains: every ``models.moe.moe_apply`` call also
+    routes a detached copy of its input (the f32 router, the top-k, the
+    running counts) and keeps, on the card, the pairs each expert got and
+    dropped; ``step()`` reads them after each fleet step. Under remat a
+    unit's recompute routes the same tokens again, which leaves the
+    shares as they are."""
+
+    def __init__(self):
+        self.pending, self.steps = [], []
+
+    def __enter__(self):
+        self.orig = MOE.moe_apply
+
+        def recorded(params, x, cfg, act="silu", scoring="softmax"):
+            with torch.no_grad():
+                xf = x.detach().reshape(-1, x.shape[-1]).float()
+                _, ids, _ = MOE.router_topk(xf @ params["router"].float(),
+                                            cfg.top_k, scoring)
+                flat = ids.reshape(-1)
+                _, keep = MOE.slot_positions(
+                    flat, cfg.num_experts, MOE.capacity(xf.shape[0], cfg))
+                E = cfg.num_experts
+                self.pending.append(torch.stack([
+                    torch.bincount(flat, minlength=E),
+                    torch.bincount(flat[~keep], minlength=E)]))
+            return self.orig(params, x, cfg, act, scoring)
+
+        MOE.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        MOE.moe_apply = self.orig
+
+    def step(self, t: int) -> None:
+        got, dropped = torch.stack(self.pending).sum(0).cpu().tolist()
+        calls = len(self.pending)
+        self.pending.clear()
+        n = sum(got)
+        row = {"step": t, "calls": calls, "load": [g / n for g in got],
+               "dropped_share": sum(dropped) / n}
+        self.steps.append(row)
+        log(f"moe path: step {t} expert load "
+            f"{[round(x, 4) for x in row['load']]}, dropped "
+            f"{row['dropped_share']:.4f} of the pairs")
+
+
+def _hetero_inprocess(dev, spec, script) -> dict:
+    """(a) lm_hetero through Experiment(spec).run() on the card, its own
+    steps over its in-process socket transport; its teacher schedule
+    equal to REFERENCE_DISTILLED_HETERO."""
+    ceiling, _ = script.lm_frame_ceiling(spec)
+    t0 = time.perf_counter()
+    res, steps, step_s = _timed_run(EXP.Experiment(spec, device=dev))
+    wall = time.perf_counter() - t0
+    for t, m in enumerate(steps):
+        _finite(m, f"moe (a): step {t}")
+    schedule = [[int(m[f"c{i}/distill_active"]) for m in steps]
+                for i in range(spec.num_clients)]
+    check(all(any(row) for row in schedule),
+          f"moe (a): every client distills {schedule}")
+    check(schedule == REFERENCE_DISTILLED_HETERO,
+          f"moe (a): schedule {schedule} != the CPU's "
+          f"{REFERENCE_DISTILLED_HETERO}")
+    meter = res.trainer.meter
+    check(meter.num_messages > 0 and
+          dict(meter.by_edge) == dict(meter.by_edge_delivered),
+          "moe (a): delivered == offered on every edge")
+    mean_frame = meter.total_bytes / meter.num_messages
+    check(mean_frame <= ceiling,
+          f"moe (a): mean frame {mean_frame:.0f} B > ceiling {ceiling} B")
+    check(res.transport._closed, "moe (a): listeners closed")
+    out = {"wall_s": wall, "step_ms_median": statistics.median(
+        step_s[1:]) * 1e3, "schedule": schedule,
+        "frames": meter.num_messages, "mean_frame": mean_frame,
+        "ceiling": ceiling, "final_loss": [
+            steps[-1][f"c{i}/loss"] for i in range(spec.num_clients)]}
+    log(f"moe (a): lm_hetero ({'/'.join(c.arch for c in spec.clients)}) "
+        f"{spec.train.steps} steps in-process over the socket transport "
+        f"in {wall:.2f} s, step median {out['step_ms_median']:.1f} ms; "
+        f"{meter.num_messages} frames, mean {mean_frame:.0f} B <= ceiling "
+        f"{ceiling} B; schedule {schedule}; final losses "
+        f"{[round(x, 4) for x in out['final_loss']]}")
+    return out
+
+
+def _hetero_procs(dev, spec, script) -> dict:
+    """(b) the same spec as 3 OS processes through launch_gossip, one
+    architecture a rank: scripts/port_gossip_procs.py's --lm-smoke body."""
+    rep = script.lm_smoke(base=spec, device=str(dev), steps=spec.train.steps,
+                          timeout=SOCKET_TIMEOUT, warm=False)
+    check(not rep["failures"], f"moe (b): {rep['failures']}")
+    results = rep["results"]
+    for rank, r in results.items():
+        check(r["steps"] == spec.train.steps,
+              f"moe (b): rank {rank} ran {spec.train.steps} steps")
+        for name in HETERO_RANK_KERNELS.get(rank, ()):
+            check(r["kernel_launches"][name] > 0,
+                  f"moe (b): rank {rank} ({spec.clients[rank].arch}) "
+                  f"launched {name} ({r['kernel_launches'][name]})")
+    log(f"moe (b): 3 processes on one card, launch {rep['launch_s']:.2f} "
+        f"s; {rep['fleet']['offered_messages']:.0f} frames, mean "
+        f"{rep['mean_frame']:.0f} B <= ceiling {rep['ceiling']} B")
+    return {"launch_s": rep["launch_s"], "fleet": rep["fleet"],
+            "mean_frame": rep["mean_frame"], "ceiling": rep["ceiling"],
+            "ranks": _socket_ranks(results, "moe (b)"),
+            "counts": _sum_counts(results)}
+
+
+def _recount(ids: np.ndarray, E: int, cap: int) -> tuple:
+    """Slot positions by a running count per expert in token-major (n, k)
+    order, and the keep mask (position < cap), in numpy."""
+    seen = np.zeros(E, np.int64)
+    pos = np.empty(ids.size, np.int64)
+    for i, e in enumerate(ids.reshape(-1).tolist()):
+        pos[i] = seen[e]
+        seen[e] += 1
+    return pos, pos < cap
+
+
+def _moe_block(dev) -> dict:
+    """(d) One arctic-480b MoE block at full width with all 128 experts,
+    forward only, on 8 x 512 tokens (C = 80), f32. The weights are drawn
+    on the card from a CUDA generator, in place, one expert slice at a
+    time. Checks: the slot positions and keep mask against a numpy recount
+    of the expert ids; each kept pair's expert output, for 64 sampled
+    tokens and every token with a dropped pair, against a float64
+    evaluation of its expert, and those tokens' combined outputs against
+    the float64 weighted sum of their kept pairs alone, relative to the
+    largest entry (TOL_FLASH); moe_apply's output equal to its parts'.
+    Timed with CUDA events against its bound: the bytes of the weights
+    and tokens, or the router's and the kept pairs' operations."""
+    cfg, act = _MOE_FULL.moe, _MOE_FULL.act
+    D, Fe, E, K = _MOE_FULL.d_model, cfg.d_ff_expert, cfg.num_experts, \
+        cfg.top_k
+    B, T = MOE_BLOCK_TOKENS
+    N = B * T
+    g = torch.Generator(device=dev).manual_seed(23)
+    t0 = time.perf_counter()
+    params = {"router": torch.empty(D, E, device=dev).normal_(
+        0.0, 1.0 / math.sqrt(D), generator=g)}
+    for name, shape, std in (("w_gate", (E, D, Fe), 1.0 / math.sqrt(D)),
+                             ("w_up", (E, D, Fe), 1.0 / math.sqrt(D)),
+                             ("w_down", (E, Fe, D), 1.0 / math.sqrt(Fe))):
+        w = params[name] = torch.empty(shape, device=dev)
+        for e in range(E):
+            w[e].normal_(0.0, std, generator=g)
+    x = torch.randn(B, T, D, generator=g, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    weight_bytes = sum(v.numel() * v.element_size() for v in params.values())
+    C = MOE.capacity(N, cfg)
+    check(C == 80, f"moe (d): capacity {C} != 80")
+    with torch.no_grad():
+        y, aux = MOE.moe_apply(params, x, cfg, act)
+        ms = time_ms(lambda: MOE.moe_apply(params, x, cfg, act), iters=10,
+                     warmup=2)
+        xf = x.reshape(N, D)
+        w8, ids, _ = MOE.router_topk(xf @ params["router"], K)
+        flat = ids.reshape(-1)
+        pos, keep = MOE.slot_positions(flat, E, C)
+        out_buf = MOE.expert_ffn(params, MOE.dispatch(xf, flat, pos, keep, E,
+                                                      C, K))
+        y2 = MOE.combine(out_buf, flat, pos, keep, w8, K)
+        check(_relerr(y.reshape(N, D), y2) <= TOL_F32,
+              "moe (d): moe_apply == its parts")
+        want_pos, want_keep = _recount(flat.cpu().numpy(), E, C)
+        check(np.array_equal(pos.cpu().numpy(), want_pos) and
+              np.array_equal(keep.cpu().numpy(), want_keep),
+              "moe (d): slot positions and keep mask == the numpy recount")
+        dropped = int((~keep).sum())
+        # every token with a dropped pair, beside the random sample: its
+        # combined output must be the sum over its kept pairs alone
+        hit = (~keep).reshape(N, K).any(1).nonzero().flatten().tolist()
+        check(len(hit) > 0, "moe (d): no token had a pair dropped")
+        sample = sorted(set(torch.randperm(
+            N, generator=torch.Generator().manual_seed(5))[
+                :MOE_BLOCK_SAMPLES].tolist()) | set(hit))
+        x64 = xf.double()
+        want_y = {n: torch.zeros(D, dtype=torch.float64, device=dev)
+                  for n in sample}
+        pair_err, kept_pairs = 0.0, 0
+        by_expert: dict = {}
+        for n in sample:
+            for j in range(K):
+                i = n * K + j
+                if bool(keep[i]):
+                    by_expert.setdefault(int(flat[i]), []).append(i)
+        for e, rows in sorted(by_expert.items()):
+            toks = [i // K for i in rows]
+            xs = x64[toks]
+            ref = (F.silu(xs @ params["w_gate"][e].double()) *
+                   (xs @ params["w_up"][e].double())) @ \
+                params["w_down"][e].double()
+            got = out_buf[e, pos[rows]].double()
+            for r, i in enumerate(rows):
+                pair_err = max(pair_err, _relerr(got[r], ref[r]))
+                want_y[i // K] += float(w8.reshape(-1)[i]) * ref[r]
+            kept_pairs += len(rows)
+        y_err = max(_relerr(y2[n].double(), want_y[n]) for n in sample)
+        y_err_hit = max(_relerr(y2[n].double(), want_y[n]) for n in hit)
+    check(pair_err <= TOL_FLASH,
+          f"moe (d): kept pairs {pair_err:.3g} > {TOL_FLASH} of float64")
+    check(y_err <= TOL_FLASH,
+          f"moe (d): sampled outputs {y_err:.3g} > {TOL_FLASH} of float64 "
+          f"({y_err_hit:.3g} on the {len(hit)} tokens with a dropped pair)")
+    check(math.isfinite(float(aux)), "moe (d): aux finite")
+    load = torch.bincount(flat, minlength=E)
+    # the bound counts the work this run's routing needs: the router and
+    # the three expert products of each kept pair. The padded (E, C)
+    # buffer's products, which the port runs, and those of every routed
+    # pair are recorded beside it
+    kept = N * K - dropped
+    bytes_ = weight_bytes + 2 * x.numel() * 4
+    flops = {n: 2 * N * D * E + 3 * 2 * rows * D * Fe
+             for n, rows in (("kept", kept), ("routed", N * K),
+                             ("padded", E * C))}
+    b_ms, b_by = bound(bytes_, flops["kept"])
+    out = {"tokens": N, "experts": E, "capacity": C, "ms": ms,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "tflop": {n: f / 1e12 for n, f in flops.items()},
+           "bound_ms_routed": bound(bytes_, flops["routed"])[0],
+           "bound_ms_padded": bound(bytes_, flops["padded"])[0],
+           "weight_gb": weight_bytes / 1e9, "draw_s": draw_s,
+           "dropped_pairs": dropped, "pairs": N * K,
+           "tokens_checked": len(sample), "tokens_with_a_drop": len(hit),
+           "kept_pairs_checked": kept_pairs, "pair_rel_err": pair_err,
+           "y_rel_err": y_err, "y_rel_err_dropped": y_err_hit,
+           "aux": float(aux),
+           "load_min_max": [int(load.min()), int(load.max())],
+           "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"moe (d): arctic MoE block, {E} experts of {D} x {Fe}, "
+        f"{out['weight_gb']:.2f} GB of f32 weights drawn on the card in "
+        f"{draw_s:.2f} s; {N} tokens, C = {C}; forward {ms:.3f} ms against "
+        f"its bound {b_ms:.3f} ms ({b_by}; {out['tflop']['kept']:.3f} TFLOP "
+        f"for the {kept} kept pairs; {out['bound_ms_routed']:.3f} ms for "
+        f"all {N * K} routed, {out['bound_ms_padded']:.3f} ms for the "
+        f"{E * C} padded slots); {dropped} pairs dropped, expert loads "
+        f"{out['load_min_max'][0]}..{out['load_min_max'][1]}; "
+        f"{kept_pairs} kept pairs of {len(sample)} tokens ({len(hit)} with "
+        f"a dropped pair) within {pair_err:.3g} of float64, outputs "
+        f"{y_err:.3g} ({y_err_hit:.3g} where a pair was dropped); card "
+        f"peak {out['max_memory_gib']:.1f} GiB")
+    del params, x, y, y2, out_buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_path(dev) -> dict:
+    """The MoE path: (a) lm_hetero (an SSM, a dense transformer and an MoE
+    transformer) through Experiment(spec).run() for its own 30 steps over
+    its in-process socket transport; (b) the same spec as 3 OS processes
+    through launch_gossip (the --lm-smoke body); (c) K=2 full-width
+    arctic-480b cut to one layer of 4 experts through phase_lm_path, each
+    step's expert load and dropped share logged, then a profiled publish
+    round; (d) one full-width arctic MoE block with all 128 experts,
+    forward only. The counts are set to 0 just before (a) and read after
+    (b) (this process's plus every child's), and again before and after
+    (c); the path's launches are their sum."""
+    script = _gossip_script()
+    t0 = time.perf_counter()
+    spec = EXP.get_preset("lm_hetero")
+    ops.reset_launch_counts()
+    out = {"inprocess": _hetero_inprocess(dev, spec, script)}
+    torch.cuda.empty_cache()
+    out["procs"] = _hetero_procs(dev, spec, script)
+    counts = dict(ops.launch_counts())
+    for name in HETERO_KERNELS:
+        check(counts[name] > 0, f"moe (a): kernel {name} launched "
+              f"({counts[name]})")
+    _add_counts(counts, out["procs"]["counts"])
+    out["hetero_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    block = MOE_CFG.stages[0].block
+    log(f"moe path: {MOE_ARCH} at full width, cut in depth from "
+        f"{_MOE_FULL.num_layers} to {MOE_CFG.num_layers} layer "
+        f"({[(sp.attn, sp.ffn) for sp in block]}) and in experts from "
+        f"{_MOE_FULL.moe.num_experts} to {MOE_CFG.moe.num_experts}, "
+        f"d_model {MOE_CFG.d_model}, vocab {MOE_CFG.vocab_size}, K={MOE_K}")
+    ops.reset_launch_counts()
+    with ExpertLoad() as load:
+        trainer, arctic = phase_lm_path(dev, MOE_CFG, "moe", MOE_KERNELS,
+                                        n_clients=MOE_K,
+                                        reference=REFERENCE_DISTILLED_MOE,
+                                        after_step=load.step)
+    arctic["expert_load"] = load.steps
+    for t, mt in enumerate(arctic["loss"]):
+        check(all(math.isfinite(v) for v in mt), f"moe (c): losses at {t}")
+    check(all(math.isfinite(v) for v in arctic["beta"].values()),
+          "moe (c): beta finite")
+    _add_counts(counts, arctic["counts"])
+    out["arctic"] = arctic
+    RECORD["profile_moe"] = phase_profile(trainer, LM_STEPS, LM_S_P, "moe",
+                                          by_shape=True)
+    del trainer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["block"] = _moe_block(dev)
+    out["counts"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    log(f"moe phase: {out['seconds']:.1f} s ((a)+(b) "
+        f"{out['hetero_s']:.1f} s); launches {counts}")
+    return out
 
 
 def main() -> int:
@@ -2220,16 +2688,18 @@ def main() -> int:
     RECORD["profile_zamba2"] = phase_profile(trainer, LM_STEPS, LM_S_P,
                                              "zamba2")
     del trainer
+    torch.cuda.empty_cache()
+    moe_path = phase_moe_path(dev)
     paths = {"resnet": resnet, "exp": exp_path["mhd"], "fleet": fleet_path,
-             "socket": socket_path, "lm": lm_path, "zamba2": zamba_path}
+             "socket": socket_path, "lm": lm_path, "zamba2": zamba_path,
+             "moe": moe_path}
     for k in kernels:
         k["launches_by_path"] = {p: r["counts"][k["name"]]
                                  for p, r in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     RECORD.update(kernels=kernels, resnet_path=resnet, exp_path=exp_path,
                   fleet_path=fleet_path, socket_path=socket_path,
-                  lm_path=lm_path,
-                  zamba2_path=zamba_path,
+                  lm_path=lm_path, zamba2_path=zamba_path, moe_path=moe_path,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

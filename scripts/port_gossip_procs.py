@@ -7,6 +7,7 @@ process per client (the port's twin of ``scripts/run_gossip_procs.py``).
         --steps 20 --throttle 3:50 --out gossip.json
     python scripts/port_gossip_procs.py --smoke           # 2 procs, 8 steps
     python scripts/port_gossip_procs.py --smoke --device cpu
+    python scripts/port_gossip_procs.py --lm-smoke --device cpu
 
 Each client is a real OS process with its own `SocketTransport` listener,
 gossiping top-k prediction windows over localhost TCP
@@ -32,9 +33,12 @@ reaping, not the hard-timeout backstop); the relaunch with
 ``resume=True`` restores every rank from its own snapshot slice, and the
 restored rank must start from step 3 or later and distill again.
 
-``--lm-smoke`` (the reference's heterogeneous-LM fleet, ``lm_hetero``)
-raises NotImplementedError: its ``lm_moe`` client waits on the MoE port
-(ROADMAP Queue 1 item 13).
+``--lm-smoke``: the heterogeneous-LM fleet (``lm_hetero``: a Mamba2 SSM,
+a dense transformer and a MoE transformer) as 3 processes for 12 steps on
+the entropy-adaptive, delta-compressed wire, a 150-second cap. Exits
+non-zero unless every client distills, delivery is lossless edge by edge
+and the mean frame stays under the budget's shape-computed ceiling
+(`repro_torch.lm.adaptive_frame_max_nbytes`).
 
 The smoke functions take a base spec, a device and a child hook, so
 chip_smoke.py drives the same smokes at full ResNet-18 width.
@@ -137,8 +141,10 @@ def main(argv=None) -> int:
                         "paced straggler; fast ranks must beat the "
                         "lock-step bound")
     p.add_argument("--lm-smoke", action="store_true",
-                   help="the reference's mixed-arch LM fleet: raises, its "
-                        "MoE client is not ported yet")
+                   help="bounded config: the mixed-arch LM fleet "
+                        "(lm_hetero) as 3 processes, 12 steps; every client "
+                        "distills, lossless delivery, frames within the "
+                        "budget's ceiling")
     p.add_argument("--out", metavar="PATH",
                    help="write per-rank results + fleet summary JSON")
     p.add_argument("--trace-dir", metavar="DIR",
@@ -151,7 +157,7 @@ def main(argv=None) -> int:
     from repro_torch.launch import fleet_summary, launch_gossip
 
     if args.lm_smoke:
-        lm_smoke()
+        return report(lm_smoke(device=args.device))
     if args.churn_smoke:
         return report(churn_smoke(device=args.device))
     if args.scoreboard_smoke:
@@ -408,12 +414,81 @@ def churn_smoke(base=None, device=None, child_init=None,
             shutil.rmtree(snap_dir, ignore_errors=True)
 
 
-def lm_smoke() -> None:
-    """The reference's heterogeneous-LM fleet (``lm_hetero``: an SSM, a
-    dense transformer and a small MoE) needs the MoE port first."""
-    raise NotImplementedError(
-        "--lm-smoke runs lm_hetero, whose 'lm_moe' client (reduced "
-        "arctic-480b) is not ported yet: ROADMAP Queue 1 item 13 (MoE)")
+def lm_frame_ceiling(spec) -> tuple:
+    """The budget ledger of an LM spec's wire: (the largest frame in
+    bytes, the tokens a frame covers). Every published frame covers
+    horizon windows x `lm_wire_tokens` tokens, and its size is bounded by
+    the shape-computed ceiling (header + ids + k-map + lse lanes plus
+    budget_bytes_per_token for the value/index streams); the delta
+    compression only ever shrinks frames, so the raw ceiling still bounds
+    the compressed wire."""
+    from repro_torch.lm import adaptive_frame_max_nbytes, lm_wire_tokens
+
+    tokens = lm_wire_tokens(spec.train.public_batch_size,
+                            spec.data.seq_len, spec.data.max_positions)
+    ceiling = adaptive_frame_max_nbytes(
+        window=spec.wire.horizon, seq_batch=spec.train.public_batch_size,
+        tokens=tokens, num_heads=spec.clients[0].aux_heads + 1,
+        budget_bytes_per_token=spec.wire.budget_bytes_per_token,
+        emb_dim=0)
+    return ceiling, spec.wire.horizon * tokens
+
+
+def lm_smoke(base=None, device=None, child_init=None, steps: int = 12,
+             timeout: float = 150.0, warm: bool = True) -> dict:
+    """The heterogeneous-LM fleet over real processes: the ``lm_hetero``
+    preset (``base``) — an SSM, a dense transformer and a small MoE
+    distilling each other's next-token predictions — as 3 OS processes
+    over TCP on the entropy-adaptive, delta-compressed wire, ``steps``
+    local steps each. Three checks: every client distills from a
+    neighbor, localhost delivery is lossless edge by edge, and the
+    measured mean frame stays inside the budget's shape-computed ceiling.
+    Returns the report (``failures`` empty when it passed)."""
+    from repro_torch.exp import get_preset
+    from repro_torch.launch import fleet_summary, launch_gossip
+
+    spec = base or get_preset("lm_hetero")
+    spec = dataclasses.replace(
+        spec, name="lm_smoke",
+        train=dataclasses.replace(spec.train, steps=steps)).validate()
+    if warm:
+        warm_kernels(spec, device, child_init)
+    print(f"lm smoke: 3 processes "
+          f"({'/'.join(c.arch for c in spec.clients)}), "
+          f"{spec.train.steps} steps, budget "
+          f"{spec.wire.budget_bytes_per_token} B/token, "
+          f"compression {spec.wire.compression}", flush=True)
+    t0 = time.monotonic()
+    results = launch_gossip(spec, timeout=timeout, device=device,
+                            child_init=child_init)
+    launch_s = time.monotonic() - t0
+    fleet = fleet_summary(results)
+    for rank in sorted(results):
+        r = results[rank]
+        print(f"  client {rank} ({spec.clients[rank].arch}): "
+              f"{r['steps']} steps in {r['wall_seconds']:.1f}s, "
+              f"loss {r['final_loss']:.3f}, distilled on "
+              f"{r['distill_steps']}/{r['steps']} steps, rx "
+              f"{r['delivered_bytes']:,.0f} B / tx "
+              f"{r['offered_bytes']:,.0f} B", flush=True)
+    failures = lossless_failures(results)
+    ceiling, tokens_per_msg = lm_frame_ceiling(spec)
+    n_msgs = fleet["offered_messages"]
+    mean_frame = fleet["offered_bytes"] / max(n_msgs, 1)
+    print(f"wire: {n_msgs:.0f} frames, mean {mean_frame:,.0f} B "
+          f"({mean_frame / tokens_per_msg:.1f} B/token) vs ceiling "
+          f"{ceiling:,d} B ({ceiling / tokens_per_msg:.1f} B/token)",
+          flush=True)
+    if not n_msgs:
+        failures.append("no frame was published")
+    if mean_frame > ceiling:
+        failures.append(f"mean frame {mean_frame:,.0f} B exceeds the "
+                        f"budget ceiling {ceiling:,d} B")
+    return {"results": results, "fleet": fleet, "launch_s": launch_s,
+            "mean_frame": mean_frame, "ceiling": ceiling,
+            "failures": failures,
+            "summary": "all 3 archs distilled, delivery lossless, "
+                       "bytes/token within budget"}
 
 
 if __name__ == "__main__":

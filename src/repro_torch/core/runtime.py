@@ -293,10 +293,11 @@ class DecentralizedTrainer:
         params = {k: v.detach().requires_grad_() for k, v in c.params.items()}
         loss, metrics = client_loss(c.bundle, params, private_batch,
                                     public_batch, teachers, self.mhd_cfg, rng)
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True, materialize_grads=True)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()), allow_unused=True,
+            materialize_grads=True)))
         c.params, c.opt_state = self.optimizer.update(
-            dict(zip(params, grads)), c.opt_state, c.params, step)
+            grads, c.opt_state, c.params, step)
         metrics["loss"] = loss
         return metrics
 
@@ -313,10 +314,11 @@ class DecentralizedTrainer:
         loss = ce
         if out.get("aux_loss") is not None:
             loss = loss + out["aux_loss"]
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True, materialize_grads=True)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()), allow_unused=True,
+            materialize_grads=True)))
         c.params, c.opt_state = self.optimizer.update(
-            dict(zip(params, grads)), c.opt_state, c.params, step)
+            grads, c.opt_state, c.params, step)
         return {"ce": ce, "loss": loss}
 
     # -- pool mechanics -----------------------------------------------------

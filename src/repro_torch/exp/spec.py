@@ -16,11 +16,6 @@ Client architectures are resolved through the ``CLIENT_ARCHS`` registry
 (`common/registry.py`), which maps an arch name to a model-config factory
 ``(num_labels, aux_heads, width) -> config`` consumable by
 `models.zoo.build_bundle`.
-
-What the port does not run yet is registered all the same, so every spec
-validates as in the reference, and raises NotImplementedError naming its
-ROADMAP item when the runner builds it: the ``lm_moe`` arch (Queue 1 item
-13, MoE).
 """
 from __future__ import annotations
 
@@ -133,13 +128,7 @@ def _register_lm(arch_name: str, zoo_name: str) -> None:
 
 _register_lm("lm_ssm", "mamba2-370m")
 _register_lm("lm_transformer", "gemma3-12b")
-
-
-@CLIENT_ARCHS.register("lm_moe")
-def _lm_moe(num_labels: int, aux_heads: int, width: int):
-    raise NotImplementedError(
-        "client arch 'lm_moe' (reduced arctic-480b) is not ported yet: "
-        "ROADMAP Queue 1 item 13 (MoE, arctic-480b)")
+_register_lm("lm_moe", "arctic-480b")
 
 
 # -- spec blocks -------------------------------------------------------------

@@ -1,7 +1,9 @@
 """repro_torch.lm — LM clients in the MHD fleet (port of ``repro.lm``).
 
-  pool.py          the public token pool and the `ModelBundle` wrapper
-                   that turns token positions into MHD samples.
+  pool.py          the public token pool, the `ModelBundle` wrapper
+                   that turns token positions into MHD samples, and
+                   `lm_wire_tokens` (the tokens a public batch puts on
+                   the wire).
   adaptive_wire.py `AdaptiveTopKCodec` — per-token top-k chosen from
                    teacher entropy under a bytes/token budget, on the
                    ``topk_wire`` kernel.
@@ -16,7 +18,8 @@ from repro_torch.lm.adaptive_wire import (
     densify_adaptive,
 )
 from repro_torch.lm.compress import CompressedCodec, pack_bits, unpack_bits
-from repro_torch.lm.pool import lm_client_bundle, make_text_arrays
+from repro_torch.lm.pool import (lm_client_bundle, lm_wire_tokens,
+                                 make_text_arrays)
 
 __all__ = [
     "AdaptiveTopKCodec",
@@ -24,6 +27,7 @@ __all__ = [
     "adaptive_frame_max_nbytes",
     "densify_adaptive",
     "lm_client_bundle",
+    "lm_wire_tokens",
     "make_text_arrays",
     "pack_bits",
     "unpack_bits",

@@ -54,3 +54,11 @@ def lm_client_bundle(bundle: ModelBundle, max_positions: int = 0,
 
     return dataclasses.replace(bundle, apply=apply)
 
+
+def lm_wire_tokens(batch_sequences: int, seq_len: int,
+                   max_positions: int = 0) -> int:
+    """Tokens per public batch on the wire: B·(T−1) next-token positions,
+    truncated by ``max_positions`` — the N that bytes/token budgets and
+    the smoke's ledger assertions are denominated in."""
+    n = batch_sequences * (seq_len - 1)
+    return min(n, max_positions) if max_positions else n

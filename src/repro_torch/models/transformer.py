@@ -2,8 +2,11 @@
 ``repro/models/transformer.py``), for the layer kinds the port has so far:
 Mamba2 blocks (``attn="mamba2"``), full and sliding-window self-attention
 (``attn="full"`` / ``"swa"``, GQA, RoPE, ``qk_norm``, bias) on the
-``flash_attention`` kernel, the dense FFN (``ffn="dense"``), and zamba2's
-*shared* attention block (``shared_attn=True``: one parameter set,
+``flash_attention`` kernel, the dense FFN (``ffn="dense"``), the
+Mixture-of-Experts FFN (``ffn="moe"``, and arctic's ``"moe_dense_parallel"``,
+a dense SwiGLU beside the MoE on one ``ffn_norm`` output; `models/moe.py`),
+whose router aux losses add up over the units into ``aux_loss``, and
+zamba2's *shared* attention block (``shared_attn=True``: one parameter set,
 ``shared_attn/*`` and ``shared_attn_norm/*`` at the top of the tree,
 applied after the layer's own mixer wherever a layer asks for it).
 
@@ -24,10 +27,11 @@ Public API (pure functions over a flat path-keyed param dict):
                                          "aux_loss"}
   lm_loss(params, cfg, batch)        -> (loss, metrics)
 
-MoE, MLA, cross attention, the vision and audio front ends, MTP, learned
-and sinusoidal positions and ``attn_logit_softcap`` raise
-NotImplementedError naming the ROADMAP item that ports them; decode comes
-with serving (item 14).
+``moe_impl="a2a"`` runs the scatter form, as the reference does without a
+``model`` mesh axis; the expert-parallel form is item 15. MLA, cross
+attention, the vision and audio front ends, MTP, learned and sinusoidal
+positions and ``attn_logit_softcap`` raise NotImplementedError naming the
+ROADMAP item that ports them; decode comes with serving (item 14).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import LayerSpec, ModelConfig
 
@@ -46,8 +51,7 @@ Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
 _LATER = {
-    "moe": "ROADMAP Queue 1 item 13 (MoE, after the hybrid slice)",
-    "mla": "ROADMAP Queue 1 item 13 (MLA, after MoE)",
+    "mla": "ROADMAP Queue 1 item 13 (MLA, with MTP and sigmoid routing)",
     "cross": "ROADMAP Queue 1 item 13 (cross attention, with the vision "
              "and audio front ends)",
     "modality": "ROADMAP Queue 1 item 13 (the vision and audio front ends)",
@@ -68,8 +72,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         for spec in stage.block:
             if spec.attn == "cross" or spec.cross_attn:
                 _not_yet("cross attention", "cross")
-            if spec.ffn in ("moe", "moe_dense_parallel"):
-                _not_yet(f"ffn kind {spec.ffn!r}", "moe")
     if cfg.mla is not None:
         _not_yet("MLA", "mla")
     if cfg.vision is not None or cfg.audio is not None or \
@@ -121,6 +123,14 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     if spec.ffn == "dense":
         p.update(_with_prefix("ffn", L.init_mlp(gen, cfg.d_model, cfg.d_ff,
                                                 cfg.act, dtype)))
+        p.update(_with_prefix("ffn_norm", L.init_norm(cfg.d_model, cfg.norm,
+                                                      dtype)))
+    elif spec.ffn in ("moe", "moe_dense_parallel"):
+        p.update(_with_prefix("ffn", MOE.init_moe(gen, cfg.d_model, cfg.moe,
+                                                  cfg.act, dtype)))
+        if spec.ffn == "moe_dense_parallel":  # arctic: dense residual ∥ MoE
+            p.update(_with_prefix("ffn_dense", L.init_mlp(
+                gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)))
         p.update(_with_prefix("ffn_norm", L.init_norm(cfg.d_model, cfg.norm,
                                                       dtype)))
     elif spec.ffn != "none":
@@ -193,6 +203,14 @@ def _layer_forward(lp: Params, cfg: ModelConfig, spec: LayerSpec,
     if spec.ffn == "dense":
         h = L.norm_apply(_sub(lp, "ffn_norm"), x, cfg.norm)
         x = x + L.mlp_apply(_sub(lp, "ffn"), h, cfg.act)
+    elif spec.ffn in ("moe", "moe_dense_parallel"):
+        h = L.norm_apply(_sub(lp, "ffn_norm"), x, cfg.norm)
+        y, moe_aux = MOE.moe_apply(_sub(lp, "ffn"), h, cfg.moe, cfg.act,
+                                   scoring=cfg.moe_scoring)
+        if spec.ffn == "moe_dense_parallel":
+            y = y + L.mlp_apply(_sub(lp, "ffn_dense"), h, cfg.act)
+        x = x + y
+        aux = aux + moe_aux
     return x, aux
 
 

@@ -10,7 +10,12 @@ reference's pair of pure functions over flat param dicts:
 
 ``update`` returns new tensors and never writes into ``params``: the legacy
 params exchange keeps references to old parameter dicts in the teacher
-pools, as the JAX package keeps its immutable arrays.
+pools, as the JAX package keeps its immutable arrays. It consumes ``grads``
+and ``state``: it takes each leaf out of their dicts as it makes the new
+one, so a step holds the old and the new state of one leaf at a time, not
+of the whole model (the caller keeps what ``update`` returns): for a
+full-width arctic-480b client under AdamW, 11.6 GiB of old moments and
+5.8 GiB of clipped gradients that are not held at once.
 """
 from __future__ import annotations
 
@@ -34,14 +39,29 @@ def global_norm(grads: Params) -> torch.Tensor:
         [g.float().square().sum() for g in grads.values()]).sum())
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+
+
+def _clipped(g: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    return g if scale is None else (g.float() * scale).to(g.dtype)
+
+
 def clip_by_global_norm(grads: Params, max_norm: float
                         ) -> Tuple[Params, torch.Tensor]:
     """``g · min(1, max_norm / (norm + 1e-9))`` — computed on the device,
     no host sync."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}, \
-        norm
+    scale = _clip_scale(norm, max_norm)
+    return {k: _clipped(g, scale) for k, g in grads.items()}, norm
+
+
+def _grad_scale(grads: Params, max_norm: Optional[float]
+                ) -> Optional[torch.Tensor]:
+    """The factor `clip_by_global_norm` multiplies every leaf by (None:
+    no clipping), applied a leaf at a time by the updates."""
+    return None if max_norm is None else _clip_scale(global_norm(grads),
+                                                     max_norm)
 
 
 def sgd_momentum(schedule: Callable, momentum: float = 0.9,
@@ -57,14 +77,13 @@ def sgd_momentum(schedule: Callable, momentum: float = 0.9,
 
     def update(grads, state, params, step):
         lr = schedule(step)
-        if grad_clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, grad_clip_norm)
+        scale = _grad_scale(grads, grad_clip_norm)
         new_p, new_m = {}, {}
         for k, p in params.items():
-            g = grads[k].float()
+            g = _clipped(grads.pop(k), scale).float()
             if weight_decay:
                 g = g + weight_decay * p.float()
-            m = momentum * state["momentum"][k].float() + g
+            m = momentum * state["momentum"].pop(k).float() + g
             d = g + momentum * m if nesterov else m
             new_p[k] = (p.float() - lr * d).to(p.dtype)
             new_m[k] = m.to(state_dtype)
@@ -88,16 +107,15 @@ def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95,
 
     def update(grads, state, params, step):
         lr = schedule(step)
-        if grad_clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, grad_clip_norm)
+        scale = _grad_scale(grads, grad_clip_norm)
         t = np.float32(step) + np.float32(1.0)
         bc1 = float(np.float32(1.0) - np.power(np.float32(b1), t))
         bc2 = float(np.float32(1.0) - np.power(np.float32(b2), t))
         new_p, new_m, new_v = {}, {}, {}
         for k, p in params.items():
-            g = grads[k].float()
-            m = b1 * state["m"][k].float() + (1 - b1) * g
-            v = b2 * state["v"][k].float() + (1 - b2) * g.square()
+            g = _clipped(grads.pop(k), scale).float()
+            m = b1 * state["m"].pop(k).float() + (1 - b1) * g
+            v = b2 * state["v"].pop(k).float() + (1 - b2) * g.square()
             d = (m / bc1) / (torch.sqrt(v / bc2) + eps)
             if weight_decay:
                 d = d + weight_decay * p.float()

@@ -1,6 +1,8 @@
 """The port's experiment API (`repro_torch.exp`) against the JAX package's
 (`repro.exp`): the same specs to the byte, the same rejections, and the
-same MHD run through `Experiment.run()`.
+same MHD runs through `Experiment.run()` (the `lm_hetero` fleet of an SSM,
+a dense transformer and an MoE transformer among them, run for its own 30
+steps and held step by step over the first 10).
 
 The MHD runs start both packages from the same initial params (one seeded
 draw, carried into the reference's layout by `params_to_jax` through a
@@ -307,9 +309,40 @@ def _run_cpu(spec):
     return PX.Experiment(spec, device="cpu").run()
 
 
+def _roofline():
+    from repro_torch.obs import collect_obs
+
+    return collect_obs(with_roofline=True)
+
+
+def _build_reduced_arctic(**changes):
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_bundle
+
+    cfg = dataclasses.replace(get_reduced("arctic-480b"), **changes)
+    return build_bundle(cfg).init(torch.Generator())
+
+
+def _mla():
+    from repro_torch.models.config import MLAConfig
+
+    return _build_reduced_arctic(mla=MLAConfig())
+
+
+def _cross():
+    from repro_torch.models.config import LayerSpec, uniform_stages
+
+    return _build_reduced_arctic(stages=uniform_stages(2, LayerSpec(
+        attn="cross", ffn="none")))
+
+
 # what the port does not run yet: each raises naming its ROADMAP item
 DEFERRED = {
-    "lm_moe": (lambda: _run_cpu(PX.get_preset("lm_hetero")), "item 13"),
+    "roofline": (_roofline, "item 15"),
+    "mla": (_mla, "item 13"),
+    "cross_attention": (_cross, "item 13"),
 }
 
 
@@ -338,27 +371,113 @@ def test_gossip_socket_runs_and_closes_its_listeners():
     assert all(m[f"c{i}/comm/fresh_teachers"] > 0 for i in range(4))
 
 
-def test_lm_hetero_binds_no_listener_before_it_raises(monkeypatch):
-    """`lm_hetero` (a socket fleet with an `lm_moe` client) raises naming
-    item 13 before its socket transport is built."""
-    import repro_torch.comm as comm
+# lm_hetero's step metrics are held over its first two publish rounds
+# (S_P = 5): past them the two frameworks' float32 sums drift beyond 2e-4
+# (c0/ce at step 11, 2.8e-4), while the teacher schedule and the wire's
+# books stay exact over all 30 steps
+LM_HETERO_PARITY_STEPS = 10
 
-    made = []
+# the shapes each kernel wrapper is called at: the call's args -> a key
+_KERNEL_KEYS = {
+    "ssd_scan": lambda x, dt, A, B, C, D, chunk: (
+        (*x.shape, B.shape[-1]), chunk),
+    "flash_attention": lambda q, k, v, causal, window: (
+        (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3]),
+        window),
+    "topk_wire": lambda x, k: (*x.shape, k),
+    "dist_ce": lambda s, t: tuple(s.shape),
+}
+
+
+@pytest.fixture(scope="module")
+def lm_hetero_runs():
+    """`lm_hetero` (an SSM, a dense transformer and a MoE on the adaptive
+    delta wire over a socket transport) through both packages'
+    `Experiment.run()` from the same initial params, at its own 30 steps,
+    once for the module; the port's socket transport is recorded as it
+    is built, and the shapes each of its kernel wrappers is called at."""
+    import repro_torch.comm as comm
+    from repro_torch.kernels import ops
+
+    made, shapes = [], {name: set() for name in _KERNEL_KEYS}
 
     class Recording(comm.SocketTransport):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             made.append(self)
 
-    monkeypatch.setattr(comm, "SocketTransport", Recording)
+    def recording(name, fn):
+        def call(*a, **kw):
+            shapes[name].add(_KERNEL_KEYS[name](*a, **kw))
+            return fn(*a, **kw)
+        return call
+
+    spec = RX.get_preset("lm_hetero")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(comm, "SocketTransport", Recording)
+        for name in _KERNEL_KEYS:
+            mp.setattr(ops, name, recording(name, getattr(ops, name)))
+        runs = run_both(mp, spec)
+    return runs, made, shapes
+
+
+def test_lm_hetero_matches_reference(lm_hetero_runs):
+    """Every step metric of the three clients over the first two publish
+    rounds within 2e-4 / 2e-5 of the reference's (the MoE client's
+    ``loss`` carries its routers' load-balance loss, about 0.02 at 0.01 a
+    layer), the teacher schedule and the wire's books after 30 steps
+    equal; every client distills."""
+    ((ref_steps, ref), (port_steps, port)), _, _ = lm_hetero_runs
+    assert len(ref_steps) == len(port_steps) == 30
+    n = LM_HETERO_PARITY_STEPS
+    assert_step_metrics_close(ref_steps[:n], port_steps[:n])
+    assert port.metrics.keys() == ref.metrics.keys()
+    for k in ref.metrics:
+        if k.startswith("comm/") or k.endswith("_teachers"):
+            assert port.metrics[k] == ref.metrics[k], k
+    for i in range(3):
+        assert sum(m[f"c{i}/distill_active"] for m in port_steps) > 0, i
+
+
+def test_lm_hetero_runs_and_closes_its_listeners(lm_hetero_runs):
+    """The port's `lm_hetero` run hosts the fleet on one in-process socket
+    transport, delivers everything it offered, and closes its listeners
+    when the loop is over."""
+    ((_, _), (_, port)), made, _ = lm_hetero_runs
     assert PX.get_preset("lm_hetero").transport.kind == "socket"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _run_cpu(PX.get_preset("lm_hetero"))
-    assert made == []
-    spec = PX.get_preset("gossip_socket")
-    t = PX.TRANSPORTS.get("socket")(spec)
-    assert made == [t]  # the spy sees the registry's builds
-    t.close()
+    assert made == [port.transport]
+    sock = port.transport
+    assert sock._closed and all(srv.fileno() == -1
+                                for srv in sock._listeners.values())
+    m = port.metrics
+    assert m["comm/delivered_bytes"] == m["comm/total_bytes"] > 0
+    assert m["comm/drain_stalls"] == 0.0
+
+
+def test_lm_hetero_schedule_is_chip_smokes(lm_hetero_runs):
+    """chip_smoke.py holds the teacher schedule of the port's `lm_hetero`
+    run on the card against `REFERENCE_DISTILLED_HETERO`: both packages
+    give it on the CPU."""
+    import chip_smoke as CS
+
+    ((ref_steps, _), (port_steps, _)), _, _ = lm_hetero_runs
+    for steps in (ref_steps, port_steps):
+        assert [[int(m[f"c{i}/distill_active"]) for m in steps]
+                for i in range(3)] == CS.REFERENCE_DISTILLED_HETERO
+
+
+def test_lm_hetero_kernel_shapes_are_chip_smokes(lm_hetero_runs):
+    """chip_smoke.py holds each kernel against its plain version at
+    `hetero_shapes()`, derived from the spec: those are the shapes the
+    port's `lm_hetero` run calls each kernel wrapper at."""
+    import chip_smoke as CS
+
+    _, _, shapes = lm_hetero_runs
+    want = CS.hetero_shapes()
+    assert shapes == {"ssd_scan": set(want["ssd"]),
+                      "flash_attention": set(want["flash"]),
+                      "topk_wire": {want["topk"]},
+                      "dist_ce": {want["dist_ce"]}}
 
 
 def test_port_quickstart_runs_the_reference_quickstarts_spec():

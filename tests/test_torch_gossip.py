@@ -8,13 +8,16 @@ tests/test_socket_multiproc.py on the port.
     rank, then a resume from the per-rank fleet snapshots;
   * the launcher's rejections (a non-socket spec, simulated-tick
     schedules), and a child asked for the card where there is none, which
-    fails the launch naming its rank (nothing falls back to the CPU).
+    fails the launch naming its rank (nothing falls back to the CPU);
+  * the script's ``--lm-smoke``: ``lm_hetero`` (SSM, transformer, MoE) as
+    3 processes.
 
 Every launch has a hard ``timeout``, so no test can hang the suite.
 """
 import dataclasses
-import importlib.util
 import os
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -113,10 +116,20 @@ def test_children_need_the_card_by_default():
     assert time.monotonic() - t0 < 60.0
 
 
-def test_lm_smoke_waits_on_the_moe_port():
-    path = os.path.join(ROOT, "scripts", "port_gossip_procs.py")
-    spec = importlib.util.spec_from_file_location("port_gossip_procs", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        mod.main(["--lm-smoke"])
+def test_lm_smoke_runs_on_the_cpu():
+    """`scripts/port_gossip_procs.py --lm-smoke --device cpu`: lm_hetero's
+    SSM, dense transformer and MoE clients as 3 processes for 12 steps;
+    the script exits 0 only if every client distilled, delivery was
+    lossless edge by edge and the mean frame stayed under the budget's
+    ceiling."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts", "port_gossip_procs.py"),
+         "--lm-smoke", "--device", "cpu"],
+        capture_output=True, text=True, env=env, timeout=240)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert "lm smoke: 3 processes (lm_ssm/lm_transformer/lm_moe)" in \
+        out.stdout
+    assert "ok: all 3 archs distilled" in out.stdout
+    for rank, arch in enumerate(("lm_ssm", "lm_transformer", "lm_moe")):
+        assert f"client {rank} ({arch}): 12 steps" in out.stdout

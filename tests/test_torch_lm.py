@@ -108,17 +108,106 @@ def test_lm_loss_gradients_match_jax_and_remat_changes_nothing(model):
                                    atol=1e-7)
 
 
-@pytest.mark.parametrize("attn,ffn", [("cross", "none"), ("full", "moe"),
-                                      ("mamba2", "moe"),
-                                      ("swa", "moe_dense_parallel")])
-def test_unported_layer_kinds_raise(attn, ffn):
-    """Cross attention and the MoE FFN kinds wait for later slices and say
+@pytest.mark.parametrize("case", ["cross", "mla", "mtp"],
+                         ids=["cross-none", "mla", "mtp"])
+def test_unported_layer_kinds_raise(case):
+    """Cross attention, MLA and DeepSeek MTP wait for later slices and say
     which."""
-    cfg = dataclasses.replace(
-        get_reduced(NAME), name=f"{attn}-{ffn}",
-        stages=uniform_stages(2, LayerSpec(attn=attn, ffn=ffn)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    from repro_torch.models.config import MLAConfig
+
+    cfg = get_reduced(NAME)
+    cfg = {"cross": dataclasses.replace(
+        cfg, name="cross", stages=uniform_stages(2, LayerSpec(
+            attn="cross", ffn="none"))),
+        "mla": dataclasses.replace(cfg, name="mla", mla=MLAConfig()),
+        "mtp": dataclasses.replace(cfg, name="mtp", mtp=True)}[case]
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
         TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+
+
+def _parity(jcfg, cfg, tokens, seed=0):
+    """logits, aux_loss, lm_loss and every gradient of ``cfg`` against the
+    reference's ``jcfg`` from the reference's params: logits and losses
+    within 2e-5, aux_loss and gradients within 1e-4 of the largest entry
+    (the MoE's router runs a softmax and a top-k over 4 experts)."""
+    jp = JTF.init_lm(jax.random.PRNGKey(seed), jcfg)
+    flat = {k: np.asarray(v) for k, v in JIO.flatten_with_paths(jp).items()}
+    jbatch = {"tokens": jnp.asarray(tokens)}
+    out_j = JTF.apply_lm(jp, jcfg, jbatch)
+    loss_j, g_j = jax.value_and_grad(
+        lambda p: JTF.lm_loss(p, jcfg, jbatch)[0])(jp)
+    g_j = JIO.flatten_with_paths(g_j)
+    params = {k: v.requires_grad_() for k, v in
+              TIO.params_from_jax(flat, device="cpu").items()}
+    batch = {"tokens": torch.from_numpy(tokens)}
+    with torch.no_grad():
+        out = TTF.apply_lm(params, cfg, batch)
+    np.testing.assert_allclose(out["logits"].numpy(),
+                               np.asarray(out_j["logits"]), rtol=2e-5,
+                               atol=2e-5)
+    aux_j = float(out_j["aux_loss"])
+    assert aux_j > 0 and abs(out["aux_loss"].item() - aux_j) <= 1e-4 * aux_j
+    loss, _ = TTF.lm_loss(params, cfg, batch)
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=2e-5)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
+    assert set(params) == set(g_j)
+    for k, g in zip(params, grads):
+        assert _rel(g.numpy(), g_j[k]) < 1e-4, k
+    return params
+
+
+@pytest.mark.parametrize("attn,ffn", [("full", "moe"), ("mamba2", "moe"),
+                                      ("swa", "moe_dense_parallel")])
+def test_moe_layer_kinds_match_jax(model, attn, ffn):
+    """The MoE FFN kinds in the reduced skeleton (4 experts, top-2,
+    capacity 1.25, so pairs are dropped): logits, aux_loss (the routers'
+    load-balance losses summed over the units) and gradients."""
+    from repro.models.config import (LayerSpec as JLayerSpec,
+                                     MoEConfig as JMoEConfig,
+                                     uniform_stages as j_uniform)
+    from repro_torch.models.config import MoEConfig
+
+    jcfg, _, _, tokens = model
+    moe = dict(num_experts=4, top_k=2, d_ff_expert=64, capacity_factor=1.25)
+    kw = dict(name=f"{attn}-{ffn}", num_heads=4, num_kv_heads=2,
+              window_size=16, d_ff=96)
+    jcfg = dataclasses.replace(
+        jcfg, stages=j_uniform(2, JLayerSpec(attn=attn, ffn=ffn)),
+        moe=JMoEConfig(**moe), **kw)
+    cfg = dataclasses.replace(
+        get_reduced(NAME), stages=uniform_stages(2, LayerSpec(
+            attn=attn, ffn=ffn)), moe=MoEConfig(**moe), **kw)
+    params = _parity(jcfg, cfg, tokens[:, :32])
+    assert params["stage0/layer0/ffn/w_gate"].shape == (2, 4, 128, 64)
+    assert ("stage0/layer0/ffn_dense/w_up" in params) == \
+        (ffn == "moe_dense_parallel")
+
+
+def test_reduced_arctic_matches_jax():
+    """Reduced arctic-480b (2 layers of attention with the dense residual
+    SwiGLU beside a 4-expert top-2 MoE, vocab 512, 2 aux heads) as a
+    whole model: logits, aux_loss and every gradient."""
+    from repro.configs import get_config as jax_config
+    from repro_torch.configs import get_config
+
+    jcfg = jax_reduced("arctic-480b")
+    cfg = get_reduced("arctic-480b")
+    # the copied configs, field for field
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(get_config("arctic-480b")) == \
+        dataclasses.asdict(jax_config("arctic-480b"))
+    tokens = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 48)).astype(np.int32)
+    params = _parity(jcfg, cfg, tokens, seed=1)
+    # the card runs arctic with remat="unit": the same gradients
+    batch = {"tokens": torch.from_numpy(tokens)}
+    grads = [torch.autograd.grad(
+        TTF.lm_loss(params, dataclasses.replace(cfg, remat=r), batch)[0],
+        list(params.values()), allow_unused=True, materialize_grads=True)
+        for r in ("none", "unit")]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("max_positions,seed", [(0, None), (40, None),

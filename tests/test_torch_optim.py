@@ -64,13 +64,41 @@ def test_optimizer_trajectory_matches_reference(name, kw):
 
 def test_update_returns_new_tensors():
     """The params exchange keeps old parameter dicts in teacher pools, so
-    an update must never write into its inputs."""
+    an update must never write into the params it is given."""
     opt = TO.sgd_momentum(TS.constant_schedule(0.1))
     p = {"w": torch.ones(3)}
     state = opt.init(p)
     new, _ = opt.update({"w": torch.ones(3)}, state, p, 0)
     assert torch.equal(p["w"], torch.ones(3)) and not torch.equal(
         new["w"], p["w"])
+
+
+@pytest.mark.parametrize("name", ["sgd_momentum", "adamw"])
+def test_update_consumes_grads_and_state(name):
+    """An update takes each leaf out of its gradient and state dicts as it
+    makes the new one (so one leaf's old and new state are alive at a
+    time), leaves the params as they were, and computes what a clipped
+    update from copies of the same inputs computes."""
+    opt = TO.make_optimizer(TO.OptimizerConfig(
+        name=name, init_lr=0.1, total_steps=4, grad_clip_norm=1.0))
+    rng = np.random.default_rng(2)
+    p = {k: torch.from_numpy(v) for k, v in _flat(_tree(rng)).items()}
+    g = {k: torch.from_numpy(v) for k, v in _flat(_tree(rng, 3.0)).items()}
+    state = opt.init(p)
+    for _ in range(2):  # a state with moments that are not zero
+        p, state = opt.update(dict(g), state, p, 0)
+    copy = {k: {n: t.clone() for n, t in d.items()} for k, d in state.items()}
+    p_before = {k: v.clone() for k, v in p.items()}
+    grads = dict(g)
+    new_p, new_s = opt.update(grads, state, p, 1)
+    assert grads == {} and all(d == {} for d in state.values())
+    for k in p:
+        assert torch.equal(p[k], p_before[k]), k
+    again_p, again_s = opt.update(dict(g), copy, p_before, 1)
+    for k in p:
+        assert torch.equal(new_p[k], again_p[k]), k
+        for n in new_s:
+            assert torch.equal(new_s[n][k], again_s[n][k]), (n, k)
 
 
 def test_clip_by_global_norm_matches_reference():

@@ -10,7 +10,9 @@ on the CPU, through the JAX package and through the port. Both must equal the co
 The LM path (mamba2-370m) and the hybrid path (zamba2-7b) share one fleet
 and so one schedule, `chip_smoke.REFERENCE_DISTILLED_LM`: each is derived
 here with its own architecture's reduced config, zamba2-7b's cut to one
-period of its pattern (6 layers) as on the card.
+period of its pattern (6 layers) as on the card. The MoE path (arctic-480b)
+runs the same data, wire and training over K=2 clients, whose schedule is
+`chip_smoke.REFERENCE_DISTILLED_MOE`, derived with reduced arctic-480b.
 """
 import dataclasses
 
@@ -73,13 +75,14 @@ def test_smoke_teacher_schedule_is_the_references():
 LM_TOKENS = 16  # columns of the smoke's sequences the stand-in model reads
 
 
-def _run_lm(pkg, arch):
+def _run_lm(pkg, arch, k):
     """chip_smoke.py's LM path (K, N_P, S_P, W, Δ, batch, steps, the data,
     partition and position seeds, the adaptive delta-compressed wire) with
     the reduced config of ``arch`` (zamba2-7b's cut to the card's one
     period) on the first 16 tokens of each sequence in place of the full
-    model on 512: the schedule is a function of the numpy draws alone. The
-    hybrid path (zamba2-7b) runs the same fleet."""
+    model on 512, over ``k`` clients: the schedule is a function of the
+    numpy draws alone. The hybrid path (zamba2-7b) runs the same fleet;
+    the MoE path (arctic-480b) the same over two clients."""
     if pkg == "jax":
         from repro import data as D
         from repro import lm as LM
@@ -107,26 +110,30 @@ def _run_lm(pkg, arch):
         n = CS.ZAMBA_CFG.num_layers
         cfg = dataclasses.replace(cfg, num_layers=n, stages=patterned_stages(
             n, cfg.stages[0].block)).validate()
-    arrays, _, part = CS.lm_path_data(LM, D)
+    arrays, _, part = CS.lm_path_data(LM, D, k)
     arrays = {"tokens": np.ascontiguousarray(arrays["tokens"][:, :LM_TOKENS]),
               "labels": arrays["labels"]}
     bundles = [LM.lm_client_bundle(build_bundle(cfg), CS.LM_MAX_POS,
                                    CS.LM_POS_SEED)
-               for _ in range(CS.LM_K)]
+               for _ in range(k)]
     trainer = DecentralizedTrainer(
         bundles, make_optimizer(OptimizerConfig(**CS.LM_OPTIMIZER)),
         MHDConfig(**CS.LM_MHD), RunConfig(**CS.LM_RUN), arrays,
-        part.client_indices, part.public_indices, complete_graph(CS.LM_K),
+        part.client_indices, part.public_indices, complete_graph(k),
         CS.LM_DOMAINS, exchange="prediction_adaptive",
         comm=CommConfig(**CS.LM_COMM), **extra)
     history = [trainer.step(t) for t in range(CS.LM_STEPS)]
     return [[int(mt[f"c{i}/distill_active"]) for mt in history]
-            for i in range(CS.LM_K)]
+            for i in range(k)]
 
 
-@pytest.mark.parametrize("arch", [CS.LM_ARCH, CS.ZAMBA_ARCH])
-def test_smoke_lm_teacher_schedule_is_the_references(arch):
-    jax_sched = _run_lm("jax", arch)
-    assert _run_lm("torch", arch) == jax_sched
-    assert jax_sched == CS.REFERENCE_DISTILLED_LM
+@pytest.mark.parametrize("arch,k,name", [
+    (CS.LM_ARCH, CS.LM_K, "REFERENCE_DISTILLED_LM"),
+    (CS.ZAMBA_ARCH, CS.LM_K, "REFERENCE_DISTILLED_LM"),
+    (CS.MOE_ARCH, CS.MOE_K, "REFERENCE_DISTILLED_MOE")],
+    ids=[CS.LM_ARCH, CS.ZAMBA_ARCH, CS.MOE_ARCH])
+def test_smoke_lm_teacher_schedule_is_the_references(arch, k, name):
+    jax_sched = _run_lm("jax", arch, k)
+    assert _run_lm("torch", arch, k) == jax_sched
+    assert jax_sched == getattr(CS, name)
     assert np.all(np.asarray(jax_sched)[:, :CS.LM_S_P] == 1)
