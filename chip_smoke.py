@@ -13,7 +13,8 @@ the checkout (into ``build/``), then
   3. holds each kernel — topk_wire, dist_ce forward and backward, emb_dist
      forward and backward, ssd_scan forward and backward, flash_attention
      forward and backward (at arctic-480b's GQA with G = 7 among its
-     cases) — against its plain PyTorch version on the card,
+     cases; topk_wire and dist_ce also at deepseek-v3's 129,280-word
+     vocabulary) — against its plain PyTorch version on the card,
      at the main paths' shapes and at edge cases, and times kernel, plain
      version and one library yardstick with CUDA events (median of
      repeated calls), and the launch floor (a one-element fill's device
@@ -21,7 +22,9 @@ the checkout (into ``build/``), then
   4. checks the fused wire encodes on the card byte for byte against the
      host: the fixed top-k frame at the ResNet path's shape against the
      numpy host path, the adaptive delta-compressed frame at the LM path's
-     against the same encoder on CPU tensors (the plain topk_wire there;
+     against the same encoder on CPU tensors, and a small one at
+     deepseek-v3's vocabulary whose indices travel as u32 (the plain
+     topk_wire there;
      its entropy and budget allocation are held against the JAX package
      by tests/test_torch_lm_wire.py) — and the Eq. 1 loss with its
      gradients on the kernels against the plain path on the CPU;
@@ -90,13 +93,24 @@ the checkout (into ``build/``), then
      every kernel also runs, against its plain version in step 3, at
      lm_hetero's own shapes. Every kernel's launch count is set to 0
      just before each path and read just after;
-  12. prints one ``{"kernels": [...]}`` line and, last, the device line
+  12. drives the DeepSeek path (`phase_deepseek_path`): (a) K=2
+     full-width deepseek-v3-671b clients (d_model 7168, MLA with 128
+     heads, sigmoid top-8 routing with a shared expert) cut to one MoE
+     layer of 8 experts at a 32,000-word vocabulary and without MTP,
+     through the LM path's run, each step's expert load logged, then a
+     profiled publish round; (b) the model bundle's loss with MTP at the
+     full 129,280-word vocabulary (one dense and one MoE layer, 3,706.6 M
+     params), 3 AdamW steps on one batch, its ce, aux_loss and mtp_ce
+     finite and the loss falling; (c) one full-width deepseek MoE block
+     with all 256 experts and the shared expert (45.3 GB of f32 weights),
+     forward only, held against float64 and timed against its bound;
+  13. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line. The full record also goes to ``chiprun_out/chip_smoke.json``
 and the profiles' tables to
-``chiprun_out/profile_{resnet,lm,zamba2,moe}.txt``.
+``chiprun_out/profile_{resnet,lm,zamba2,moe,deepseek}.txt``.
 """
 from __future__ import annotations
 
@@ -137,8 +151,10 @@ from repro_torch.kernels import topk_wire as TOPK  # noqa: E402
 from repro_torch.checkpoint.io import (load_pytree,  # noqa: E402
                                        params_from_jax, params_to_jax)
 from repro_torch.models import build_bundle, resnet18  # noqa: E402
+from repro_torch.models import layers as LAYERS  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
-from repro_torch.models.config import (patterned_stages,  # noqa: E402
+from repro_torch.models import transformer as TF  # noqa: E402
+from repro_torch.models.config import (Stage, patterned_stages,  # noqa: E402
                                        uniform_stages)
 from repro_torch.optim import OptimizerConfig, make_optimizer  # noqa: E402
 
@@ -304,6 +320,54 @@ REFERENCE_DISTILLED_MOE = [[1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 1, 1],
 # float64 evaluation of their experts
 MOE_BLOCK_TOKENS = (8, 512)
 MOE_BLOCK_SAMPLES = 64
+# the DeepSeek path: (a) K=2 full-width deepseek-v3-671b clients (d_model
+# 7168; MLA with 128 heads, q_lora 1536, kv_lora 512, qk 128 + 64 roped,
+# v 128; sigmoid top-8 routing over experts of d_ff 2048 beside one shared
+# expert, capacity 1.25, router aux 1e-4; 2 aux heads, f32, remat per
+# unit) cut in depth from 61 layers to one MoE layer, in experts from 256
+# to 12 (E·C = N·k·1.25 whatever E; at E <= 10 every expert holds every
+# token, so top-8 needs E >= 11 for the router to choose and a pair to be
+# dropped; 12 adds 176.2 M params a client to 8's), in vocabulary from
+# 129,280 to 32,000 (four vocabulary matrices a client at the full one are
+# 3.7 G params, 59.3 GB under AdamW: two clients do not fit the card) and
+# without MTP (the MHD loss reads no MTP; its leaves would add 8.2 GB of
+# AdamW state a client): 1,677.2 M params a client, on the LM path's data,
+# wire and training
+DS_ARCH = "deepseek-v3-671b"
+_DS_FULL = get_config(DS_ARCH)
+DS_K = 2
+_DS_DENSE, _DS_MOE = (st.block[0] for st in _DS_FULL.stages)
+DS_CFG = dataclasses.replace(
+    _DS_FULL, name=f"{DS_ARCH}-1-moe-layer-12-experts-32k", num_layers=1,
+    stages=uniform_stages(1, _DS_MOE), vocab_size=32_000, mtp=False,
+    moe=dataclasses.replace(_DS_FULL.moe, num_experts=12)).validate()
+# which client steps distill on the DeepSeek path (K=2): derived on the CPU
+# through the JAX package and the port by tests/test_torch_schedule.py
+REFERENCE_DISTILLED_DEEPSEEK = [[1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 1, 1],
+                                [1, 1, 1, 1, 0, 1, 1, 0, 0, 1, 0, 0]]
+# (b) the model bundle's loss with MTP at the full vocabulary: one client
+# (129,280 words, one dense and one MoE layer of 8 experts, the MTP block,
+# no aux heads, which lm_loss does not read): 3,706.6 M params, 3 AdamW
+# steps on one batch of 2 x 512 tokens. Its peak is reckoned at 69.0 GiB;
+# (a)'s 12 experts would add 2.6 GiB, so (b) keeps 8 ((a) and (c) route)
+DS_LOSS_CFG = dataclasses.replace(
+    _DS_FULL, name=f"{DS_ARCH}-2-layers-8-experts-mtp", num_layers=2,
+    stages=(Stage(block=(_DS_DENSE,), repeats=1),
+            Stage(block=(_DS_MOE,), repeats=1)),
+    moe=dataclasses.replace(_DS_FULL.moe, num_experts=8),
+    num_aux_heads=0).validate()
+DS_LOSS_TOKENS, DS_LOSS_STEPS = (2, 512), 3
+DS_LOSS_OPTIMIZER = dict(name="adamw", init_lr=1e-4,
+                         total_steps=DS_LOSS_STEPS, grad_clip_norm=1.0)
+# (c) one full-width deepseek MoE block, all 256 experts: 8 x 512 tokens
+# (C = 160)
+DS_BLOCK_TOKENS = (8, 512)
+DS_VOCAB = _DS_FULL.vocab_size
+# deepseek's vocabulary in the kernel phases, which (a) does not reach:
+# one publish of the LM path's rows (topk_wire), one aux level's rows
+# (dist_ce), and a small adaptive frame (W = 1, 3 heads, 256 positions)
+# whose indices travel as u32
+DS_TOPK_ROWS, DS_CE_ROWS, DS_FRAME = LM_TOPK_ROWS, LM_CE_ROWS, (1, 256)
 # which client steps distill in lm_hetero's 30 in-process steps (its SSM,
 # transformer and MoE clients): derived on the CPU through the JAX package
 # and the port by tests/test_torch_exp.py
@@ -390,12 +454,19 @@ LM_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "ssd_scan_fwd",
 ZAMBA_KERNELS = LM_KERNELS + ("flash_attention_fwd", "flash_attention_bwd")
 MOE_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd",
                "flash_attention_fwd", "flash_attention_bwd")
+# deepseek's MLA is torch matmuls (the reference's einsums), so its path
+# runs the wire and distillation kernels only
+DS_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd")
 # lm_hetero: its SSM client runs ssd_scan, its two transformers attention
 HETERO_KERNELS = ZAMBA_KERNELS
 HETERO_RANK_KERNELS = {0: LM_KERNELS, 1: MOE_KERNELS, 2: MOE_KERNELS}
 # kernels that several wrappers launch, once a call each: ssd_scan's prep
 # kernel (C·Bᵀ and the cumsums) runs in the forward and in the backward
 SHARED_KERNELS = {"ssd_scan_prep_kernel": ("ssd_scan_fwd", "ssd_scan_bwd")}
+# the shapes at which the kernel phases held topk_wire ((rows, V, k)) and
+# dist_ce ((rows, V, student dtype, teacher dtype)) against their plain
+# versions; phase_lm_path checks that each shape its run launched is one
+SHAPES_HELD: dict = {"topk_wire": set(), "dist_ce": set()}
 
 RECORD: dict = {}
 
@@ -534,10 +605,11 @@ def hetero_shapes() -> dict:
 def phase_topk(dev) -> dict:
     """topk_wire against its plain version (values and indices exact, lse
     within TOL_LSE), at the paths' shapes (the fleet and socket paths'
-    k=5 publishes and lm_hetero's among them) and at the edges (rows off
-    16 bytes, ties, -inf, k up to V and past the one-pass kernel's 256);
-    timed at the LM path's publish shape, with the hybrid and ResNet
-    paths' beside it; then the launch floor."""
+    k=5 publishes and lm_hetero's among them), at deepseek-v3's vocabulary
+    (129,280) and at the edges (rows off 16 bytes, ties, -inf, k up to V
+    and past the one-pass kernel's 256); timed at the LM path's publish
+    shape, with the hybrid, deepseek and ResNet paths' beside it; then the
+    launch floor."""
     g = torch.Generator(device=dev).manual_seed(0)
     rows = 4 * H * BATCH  # W·H·B of one ResNet publish
     err = 0.0
@@ -586,7 +658,10 @@ def phase_topk(dev) -> dict:
              ("-inf columns", _with_neg_inf(torch.randn(
                  64, LM_VOCAB, generator=g, device=dev) * 3),
               LM_COMM["topk"]), *fleet, ("lm_hetero", torch.randn(
-                  n_het, v_het, generator=g, device=dev) * 3, k_het)]
+                  n_het, v_het, generator=g, device=dev) * 3, k_het),
+             # deepseek-v3's vocabulary: one LM publish's rows of 505 KB
+             ("deepseek", torch.randn(DS_TOPK_ROWS, DS_VOCAB, generator=g,
+                                      device=dev) * 3, LM_COMM["topk"])]
     for name, x, k in cases:
         v, i, lse = TOPK.topk_wire_kernel(x, k)
         pv, pi, plse = TOPK.topk_wire_plain(x, k)
@@ -595,22 +670,28 @@ def phase_topk(dev) -> dict:
         check(torch.equal(i, pi), f"topk_wire {name}: indices exact")
         check(close(lse, plse, TOL_LSE, TOL_LSE), f"topk_wire {name}: lse")
         err = max(err, maxerr(v, pv), maxerr(lse, plse))
+        SHAPES_HELD["topk_wire"].add((*x.shape, k))
         log(f"topk_wire {name} {tuple(x.shape)} k={k}: idx/vals exact, "
             f"lse max|d|={maxerr(lse, plse):.3g}")
     lm = _topk_timing(cases[1][1], LM_COMM["topk"], iters=20)
     zamba = _topk_timing(cases[2][1], LM_COMM["topk"], iters=20)
+    deepseek = _topk_timing(cases[-1][1], LM_COMM["topk"], iters=10)
     resnet = _topk_timing(cases[0][1], TOPK_K, iters=50)
     log(f"topk_wire timing: LM shape {lm['ms']:.3f} ms (plain "
         f"{lm['plain_ms']:.3f}, library {lm['library_ms']:.3f}, bound "
         f"{lm['bound_ms']:.4f}); zamba2 shape {zamba['ms']:.3f} ms (plain "
         f"{zamba['plain_ms']:.3f}, library {zamba['library_ms']:.3f}, bound "
-        f"{zamba['bound_ms']:.4f}); ResNet shape {resnet['ms']:.3f} ms")
+        f"{zamba['bound_ms']:.4f}); deepseek shape {deepseek['ms']:.3f} ms "
+        f"(plain {deepseek['plain_ms']:.3f}, library "
+        f"{deepseek['library_ms']:.3f}, bound {deepseek['bound_ms']:.4f}); "
+        f"ResNet shape {resnet['ms']:.3f} ms")
     RECORD["launch_floor"] = floor = _launch_floor(dev)
     log(f"launch floor: a one-element fill takes {floor['device_us']:.2f} us "
         f"of device time under the profiler ({floor['launches']} launches), "
         f"{floor['ms'] * 1e3:.2f} us a call by CUDA events")
     return {**TOPK.INFO, **lm, "max_abs_err": err,
-            "at_zamba2_shape": zamba, "at_resnet_shape": resnet}
+            "at_zamba2_shape": zamba, "at_deepseek_shape": deepseek,
+            "at_resnet_shape": resnet}
 
 
 def _with_neg_inf(x: torch.Tensor) -> torch.Tensor:
@@ -1120,10 +1201,11 @@ def _dist_ce_timing(dev, g, B, V, s_dt, iters: int) -> tuple:
 
 def phase_dist_ce(dev) -> list:
     """dist_ce forward and backward against the plain versions: f32, bf16,
-    ties, a large V, the socket path's rows, and the LM path's and
-    lm_hetero's rows (bf16 student logits against f32 decoded teacher
-    rows, V = 50280 and 64); timed at the LM path's shape, with the ResNet
-    path's beside it."""
+    ties, a large V, the socket path's rows, and the LM path's,
+    lm_hetero's, the V = 32,000 paths' and deepseek-v3's rows (bf16
+    student logits against f32 decoded teacher rows, V = 50280, 64, 32,000
+    and 129,280); timed at the LM path's shape, with the V = 32,000
+    paths', deepseek's and the ResNet path's beside it."""
     g = torch.Generator(device=dev).manual_seed(1)
     rows = 2 * BATCH  # n_cand·B of one aux level
     socket_rows = 2 * preset_shapes("gossip_socket")[2]
@@ -1135,7 +1217,11 @@ def phase_dist_ce(dev) -> list:
              ("bf16", rows, NUM_LABELS, bf16, bf16, 3.0),
              ("ties", rows, NUM_LABELS, f32, f32, 0.0),
              ("lm", LM_CE_ROWS, LM_VOCAB, bf16, f32, 3.0),
-             ("lm_hetero", *hetero_shapes()["dist_ce"], bf16, f32, 3.0)]
+             ("lm_hetero", *hetero_shapes()["dist_ce"], bf16, f32, 3.0),
+             # the hybrid, MoE and DeepSeek paths' rows at V = 32,000
+             ("zamba2, arctic, deepseek (a)", LM_CE_ROWS, ZAMBA_VOCAB, bf16,
+              f32, 3.0),
+             ("deepseek", DS_CE_ROWS, DS_VOCAB, bf16, f32, 3.0)]
     for name, B, V, s_dt, t_dt, scale in cases:
         s = (torch.randn(B, V, generator=g, device=dev) * 3).to(s_dt)
         t = (torch.randn(B, V, generator=g, device=dev) * scale).to(t_dt)
@@ -1158,18 +1244,30 @@ def phase_dist_ce(dev) -> list:
         else:
             check(close(gs, gs_ref, TOL_BF16_GRAD_REL, TOL_BF16_GRAD_ABS),
                   f"dist_ce bwd {name}")
+        SHAPES_HELD["dist_ce"].add((B, V, str(s_dt), str(t_dt)))
         log(f"dist_ce {name} ({B}, {V}) {s_dt}/{t_dt}: fwd max|d|="
             f"{max(maxerr(a, b) for a, b in zip(out[:3], ref[:3])):.3g} "
             f"bwd max|d|={maxerr(gs, gs_ref):.3g}")
     lm_f, lm_b = _dist_ce_timing(dev, g, LM_CE_ROWS, LM_VOCAB, bf16, 20)
+    v32_f, v32_b = _dist_ce_timing(dev, g, LM_CE_ROWS, ZAMBA_VOCAB, bf16, 20)
+    ds_f, ds_b = _dist_ce_timing(dev, g, DS_CE_ROWS, DS_VOCAB, bf16, 20)
     rn_f, rn_b = _dist_ce_timing(dev, g, rows, NUM_LABELS, f32, 50)
     log(f"dist_ce timing: LM shape fwd {lm_f['ms']:.3f} ms bwd "
         f"{lm_b['ms']:.3f} ms (plain {lm_f['plain_ms']:.3f} / "
-        f"{lm_b['plain_ms']:.3f}); ResNet shape fwd {rn_f['ms']:.3f} bwd "
-        f"{rn_b['ms']:.3f}")
+        f"{lm_b['plain_ms']:.3f}); V = 32,000 paths' shape fwd "
+        f"{v32_f['ms']:.3f} bwd {v32_b['ms']:.3f} (plain "
+        f"{v32_f['plain_ms']:.3f} / {v32_b['plain_ms']:.3f}, library "
+        f"{v32_f['library_ms']:.3f}, bounds {v32_f['bound_ms']:.4f} / "
+        f"{v32_b['bound_ms']:.4f}); deepseek shape fwd {ds_f['ms']:.3f} bwd "
+        f"{ds_b['ms']:.3f} (plain {ds_f['plain_ms']:.3f} / "
+        f"{ds_b['plain_ms']:.3f}, library {ds_f['library_ms']:.3f}, bounds "
+        f"{ds_f['bound_ms']:.4f} / {ds_b['bound_ms']:.4f}); ResNet shape fwd "
+        f"{rn_f['ms']:.3f} bwd {rn_b['ms']:.3f}")
     return [{**DCE.INFO_FWD, **lm_f, "max_abs_err": err_f,
+             "at_v32000_shape": v32_f, "at_deepseek_shape": ds_f,
              "at_resnet_shape": rn_f},
             {**DCE.INFO_BWD, **lm_b, "max_abs_err": err_b,
+             "at_v32000_shape": v32_b, "at_deepseek_shape": ds_b,
              "at_resnet_shape": rn_b}]
 
 def _emb_library(s, t):
@@ -2187,20 +2285,13 @@ def phase_socket_path(dev) -> dict:
     return out
 
 
-def phase_adaptive_wire(dev) -> None:
-    """The adaptive, delta-compressed wire at the LM path's frame shape
-    (W=4 windows, H=3 heads, 1024 positions, V=50280): the frame encoded
-    on the card against the same encoder on CPU tensors, where topk_wire
-    takes its plain version. Both sides share the entropy and budget
-    allocation code, so this holds the kernel and the card's float32
-    arithmetic against the CPU's; that allocation is held against the JAX
-    package on the CPU (tests/test_torch_lm_wire.py). The decoded arrays
-    are byte-identical outside the lse lane (lse within TOL_LSE: the order
-    of the sum), k_per_token identical, and the (val, idx) entry streams
-    stay within budget·N."""
-    g = torch.Generator(device=dev).manual_seed(6)
-    W, N = LM_S_P, LM_MAX_POS
-    heads = torch.randn(W, LM_H, N, LM_VOCAB, generator=g, device=dev) * 2
+def _adaptive_frame(dev, g, W: int, N: int, V: int, label: str) -> dict:
+    """One adaptive delta frame of W windows, LM_H heads, N positions and
+    V columns, encoded on the card and by the same encoder on CPU tensors:
+    byte-identical outside the lse lane, k_per_token identical, entries
+    within budget·N. Its indices travel as u16 up to V = 65,535 and as u32
+    above."""
+    heads = torch.randn(W, LM_H, N, V, generator=g, device=dev) * 2
     heads[:, :, :N // 4, 7] += 25.0  # a quarter of the tokens near-certain
     outs = {"logits": heads[:, 0], "aux_logits": heads[:, 1:]}
     ids = np.arange(W * LM_BATCH, dtype=np.uint64).reshape(W, LM_BATCH)
@@ -2214,31 +2305,89 @@ def phase_adaptive_wire(dev) -> None:
     on_cpu = codec.encode(0, 0, 0, ids, outs_np)
     t_cpu = time.perf_counter() - t0
     a, b = codec.decode(on_cpu).arrays, codec.decode(on_card).arrays
-    check(list(a) == list(b), "adaptive wire: array order")
+    check(list(a) == list(b), f"adaptive wire {label}: array order")
     for name, x in a.items():
         y = b[name]
         check(x.dtype == y.dtype and x.shape == y.shape,
-              f"adaptive wire: {name} shape")
+              f"adaptive wire {label}: {name} shape")
         if name == "lse":
             check(np.allclose(x, y, rtol=TOL_LSE, atol=TOL_LSE),
-                  "adaptive wire: lse")
+                  f"adaptive wire {label}: lse")
         else:
-            check(x.tobytes() == y.tobytes(), f"adaptive wire: {name} bytes")
+            check(x.tobytes() == y.tobytes(),
+                  f"adaptive wire {label}: {name} bytes")
+    idx_dtype = np.uint16 if V <= 0xFFFF else np.uint32
+    check(b["idx"].dtype == idx_dtype,
+          f"adaptive wire {label}: idx {b['idx'].dtype} != {idx_dtype}")
     kt = b["k_per_token"].astype(np.int64)
     entry_bytes = b["vals"].nbytes + b["idx"].nbytes
     budget = LM_COMM["budget_bytes_per_token"] * W * N
     check(entry_bytes <= budget,
-          f"adaptive wire: entries {entry_bytes} B > budget {budget} B")
-    log(f"adaptive wire: device frame ({len(on_card)} B, {t_card:.2f} s) "
-        f"identical to the same encoder on CPU tensors ({t_cpu:.2f} s) "
-        f"outside the lse lane "
-        f"(lse max|d|={np.abs(a['lse'] - b['lse']).max():.3g}); k per token "
+          f"adaptive wire {label}: entries {entry_bytes} B > budget "
+          f"{budget} B")
+    log(f"adaptive wire {label} ({W}, {LM_H}, {N}, {V}): device frame "
+        f"({len(on_card)} B, {t_card:.2f} s) identical to the same encoder "
+        f"on CPU tensors ({t_cpu:.2f} s) outside the lse lane "
+        f"(lse max|d|={np.abs(a['lse'] - b['lse']).max():.3g}); idx "
+        f"{b['idx'].dtype}, largest {int(b['idx'].max())}; k per token "
         f"{kt.min()}..{kt.max()}, mean {kt.mean():.3f}; entries "
         f"{entry_bytes} B <= budget {budget} B")
-    RECORD["adaptive_wire"] = {"frame_bytes": len(on_card),
-                               "entry_bytes": entry_bytes,
-                               "budget_bytes": budget, "card_s": t_card,
-                               "cpu_tensors_s": t_cpu}
+    return {"shape": [W, LM_H, N, V], "frame_bytes": len(on_card),
+            "entry_bytes": entry_bytes, "budget_bytes": budget,
+            "idx_dtype": str(b["idx"].dtype), "card_s": t_card,
+            "cpu_tensors_s": t_cpu}
+
+
+def phase_adaptive_wire(dev) -> None:
+    """The adaptive, delta-compressed wire at the LM path's frame shape
+    (W=4 windows, H=3 heads, 1024 positions, V=50280), and a small frame
+    at deepseek-v3's vocabulary (W=1, 256 positions, V=129,280), whose
+    indices travel as u32: each frame encoded on the card against the
+    same encoder on CPU tensors, where topk_wire takes its plain version.
+    Both sides share the entropy and budget allocation code, so this holds
+    the kernel and the card's float32 arithmetic against the CPU's; that
+    allocation is held against the JAX package on the CPU
+    (tests/test_torch_lm_wire.py, at V = 129,280 too). The decoded arrays
+    are byte-identical outside the lse lane (lse within TOL_LSE: the order
+    of the sum), k_per_token identical, and the (val, idx) entry streams
+    stay within budget·N."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    RECORD["adaptive_wire"] = _adaptive_frame(dev, g, LM_S_P, LM_MAX_POS,
+                                              LM_VOCAB, "lm")
+    RECORD["adaptive_wire_deepseek"] = _adaptive_frame(dev, g, *DS_FRAME,
+                                                       DS_VOCAB, "deepseek")
+
+
+class KernelShapes:
+    """While a path trains: the shape each launch of topk_wire's and
+    dist_ce's forward kernel was given, keyed as in SHAPES_HELD (dist_ce's
+    backward takes its forward's inputs). The wrappers look their kernels
+    up in their modules at each call, so replacing the module attribute
+    sees every launch; the counts stay the wrappers' own."""
+
+    # (module, kernel wrapper, SHAPES_HELD key, shape of the call's args)
+    WATCH = [(TOPK, "topk_wire_kernel", "topk_wire",
+              lambda x, k: (*x.shape, k)),
+             (DCE, "dist_ce_fwd_kernel", "dist_ce",
+              lambda s, t: (*s.shape, str(s.dtype), str(t.dtype)))]
+
+    def __enter__(self):
+        self.seen = {key: set() for _, _, key, _ in self.WATCH}
+        self.orig = []
+        for mod, name, key, shape in self.WATCH:
+            fn = getattr(mod, name)
+            self.orig.append((mod, name, fn))
+
+            def watched(*args, _fn=fn, _key=key, _shape=shape):
+                self.seen[_key].add(_shape(*args))
+                return _fn(*args)
+
+            setattr(mod, name, watched)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
 
 
 def phase_lm_path(dev, cfg, label: str, kernels, n_clients: int = LM_K,
@@ -2247,41 +2396,50 @@ def phase_lm_path(dev, cfg, label: str, kernels, n_clients: int = LM_K,
     """An LM slice through the user's entry points: ``n_clients`` clients of
     ``cfg`` (three full-width mamba2-370m cut to 24 layers on the LM path;
     three full-width zamba2-7b cut to one period on the hybrid path; two
-    full-width arctic-480b cut to one layer of 4 experts on the MoE path),
-    MHD over the adaptive delta-compressed wire, 12 steps and one
-    evaluate(), with every kernel's launch count set to 0 just before (by
-    the caller) and read just after; each of ``kernels`` must have
-    launched, and the teacher schedule must be ``reference``.
+    full-width arctic-480b cut to one layer of 4 experts on the MoE path;
+    two full-width deepseek-v3-671b cut to one MoE layer of 12 experts on
+    the DeepSeek path), MHD over the adaptive delta-compressed wire, 12
+    steps and one evaluate(), with every kernel's launch count set to 0
+    just before (by the caller) and read just after; each of ``kernels``
+    must have launched, at shapes the kernel phases held against the plain
+    versions (SHAPES_HELD), and the teacher schedule must be
+    ``reference``.
     ``after_step(t)`` runs after each step's synchronize."""
     t0 = time.perf_counter()
-    arrays, test, part = lm_path_data(lm, data, n_clients)
-    transport = RecordingTransport()
-    trainer = DecentralizedTrainer(
-        [lm.lm_client_bundle(build_bundle(cfg), LM_MAX_POS, LM_POS_SEED)
-         for _ in range(n_clients)],
-        make_optimizer(OptimizerConfig(**LM_OPTIMIZER)),
-        MHDConfig(**LM_MHD), RunConfig(**LM_RUN), arrays,
-        part.client_indices, part.public_indices, complete_graph(n_clients),
-        LM_DOMAINS, exchange="prediction_adaptive",
-        comm=CommConfig(**LM_COMM), transport=transport)
-    torch.cuda.synchronize()
-    n_params = sum(v.numel() for v in trainer.clients[0].params.values())
-    log(f"{label} path: data + {n_clients} x {cfg.name} "
-        f"({n_params / 1e6:.1f} M params each) init + seed publish "
-        f"{time.perf_counter() - t0:.2f} s; card memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    step_s, history = [], []
-    for t in range(LM_STEPS):
-        a = time.perf_counter()
-        history.append(trainer.step(t))
+    with KernelShapes() as shapes:
+        arrays, test, part = lm_path_data(lm, data, n_clients)
+        transport = RecordingTransport()
+        trainer = DecentralizedTrainer(
+            [lm.lm_client_bundle(build_bundle(cfg), LM_MAX_POS, LM_POS_SEED)
+             for _ in range(n_clients)],
+            make_optimizer(OptimizerConfig(**LM_OPTIMIZER)),
+            MHDConfig(**LM_MHD), RunConfig(**LM_RUN), arrays,
+            part.client_indices, part.public_indices,
+            complete_graph(n_clients),
+            LM_DOMAINS, exchange="prediction_adaptive",
+            comm=CommConfig(**LM_COMM), transport=transport)
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - a)
-        if after_step is not None:
-            after_step(t)
-    a = time.perf_counter()
-    ev = trainer.evaluate(test)
-    eval_s = time.perf_counter() - a
+        n_params = sum(v.numel() for v in trainer.clients[0].params.values())
+        log(f"{label} path: data + {n_clients} x {cfg.name} "
+            f"({n_params / 1e6:.1f} M params each) init + seed publish "
+            f"{time.perf_counter() - t0:.2f} s; card memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        step_s, history = [], []
+        for t in range(LM_STEPS):
+            a = time.perf_counter()
+            history.append(trainer.step(t))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - a)
+            if after_step is not None:
+                after_step(t)
+        a = time.perf_counter()
+        ev = trainer.evaluate(test)
+        eval_s = time.perf_counter() - a
     counts = ops.launch_counts()
+    for key, seen in shapes.seen.items():
+        missed = sorted(seen - SHAPES_HELD[key])
+        check(not missed, f"{label} path: {key} launched at {missed}, where "
+              f"no kernel phase held it against its plain version")
 
     distilled = [[int(mt[f"c{i}/distill_active"]) for mt in history]
                  for i in range(n_clients)]
@@ -2332,6 +2490,7 @@ def phase_lm_path(dev, cfg, label: str, kernels, n_clients: int = LM_K,
         "frame_bytes_mean": statistics.mean(len(p) for p in transport.frames),
         "entry_bytes_per_token": statistics.mean(entry_bytes) / (W * N),
         "distilled": distilled, "params_per_client": n_params,
+        "kernel_shapes": {k: sorted(v) for k, v in shapes.seen.items()},
         "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "beta": {k: v for k, v in ev.items() if k.startswith("mean/")},
         "loss": [[mt[f"c{i}/loss"] for i in range(n_clients)]
@@ -2339,14 +2498,15 @@ def phase_lm_path(dev, cfg, label: str, kernels, n_clients: int = LM_K,
 
 
 class ExpertLoad:
-    """While the MoE path trains: every ``models.moe.moe_apply`` call also
+    """While an MoE path trains: every ``models.moe.moe_apply`` call also
     routes a detached copy of its input (the f32 router, the top-k, the
     running counts) and keeps, on the card, the pairs each expert got and
     dropped; ``step()`` reads them after each fleet step. Under remat a
     unit's recompute routes the same tokens again, which leaves the
     shares as they are."""
 
-    def __init__(self):
+    def __init__(self, label: str):
+        self.label = label
         self.pending, self.steps = [], []
 
     def __enter__(self):
@@ -2380,7 +2540,7 @@ class ExpertLoad:
         row = {"step": t, "calls": calls, "load": [g / n for g in got],
                "dropped_share": sum(dropped) / n}
         self.steps.append(row)
-        log(f"moe path: step {t} expert load "
+        log(f"{self.label}: step {t} expert load "
             f"{[round(x, 4) for x in row['load']]}, dropped "
             f"{row['dropped_share']:.4f} of the pairs")
 
@@ -2458,22 +2618,27 @@ def _recount(ids: np.ndarray, E: int, cap: int) -> tuple:
     return pos, pos < cap
 
 
-def _moe_block(dev) -> dict:
-    """(d) One arctic-480b MoE block at full width with all 128 experts,
-    forward only, on 8 x 512 tokens (C = 80), f32. The weights are drawn
-    on the card from a CUDA generator, in place, one expert slice at a
-    time. Checks: the slot positions and keep mask against a numpy recount
-    of the expert ids; each kept pair's expert output, for 64 sampled
-    tokens and every token with a dropped pair, against a float64
-    evaluation of its expert, and those tokens' combined outputs against
-    the float64 weighted sum of their kept pairs alone, relative to the
-    largest entry (TOL_FLASH); moe_apply's output equal to its parts'.
-    Timed with CUDA events against its bound: the bytes of the weights
-    and tokens, or the router's and the kept pairs' operations."""
-    cfg, act = _MOE_FULL.moe, _MOE_FULL.act
-    D, Fe, E, K = _MOE_FULL.d_model, cfg.d_ff_expert, cfg.num_experts, \
+def _moe_block(dev, model, tokens, label: str, want_cap: int) -> dict:
+    """One MoE block of ``model`` at full width with all its experts
+    (arctic-480b's 128 in the MoE path's (d), deepseek-v3's 256 and its
+    shared expert in the DeepSeek path's (c)), forward only, on ``tokens``
+    = (B, T), f32, routed as the model routes (softmax or sigmoid). The
+    weights are drawn on the card from a CUDA generator, in place, one
+    expert slice at a time. Checks: the capacity; the slot positions and
+    keep mask against a numpy recount of the expert ids; each kept pair's
+    expert output, for 64 sampled tokens and every token with a dropped
+    pair (at least one), against a float64
+    evaluation of its expert, and those tokens' outputs against the
+    float64 weighted sum of their kept pairs alone plus the shared
+    expert's, relative to the largest entry (TOL_FLASH); moe_apply's
+    output equal to its parts'. Timed with CUDA events against its bound:
+    the bytes of the weights and tokens, or the router's, the kept pairs'
+    and the shared expert's operations."""
+    cfg, act, scoring = model.moe, model.act, model.moe_scoring
+    D, Fe, E, K = model.d_model, cfg.d_ff_expert, cfg.num_experts, \
         cfg.top_k
-    B, T = MOE_BLOCK_TOKENS
+    Fs = cfg.num_shared_experts * Fe
+    B, T = tokens
     N = B * T
     g = torch.Generator(device=dev).manual_seed(23)
     t0 = time.perf_counter()
@@ -2485,40 +2650,56 @@ def _moe_block(dev) -> dict:
         w = params[name] = torch.empty(shape, device=dev)
         for e in range(E):
             w[e].normal_(0.0, std, generator=g)
+    if Fs:  # the shared expert: an MLP of width num_shared · d_ff_expert
+        for name, shape, std in (("w_up", (D, Fs), 1.0 / math.sqrt(D)),
+                                 ("w_down", (Fs, D), 1.0 / math.sqrt(Fs)),
+                                 ("w_gate", (D, Fs), 1.0 / math.sqrt(D))):
+            params[f"shared/{name}"] = torch.empty(shape, device=dev).normal_(
+                0.0, std, generator=g)
+    shared = {k[len("shared/"):]: v for k, v in params.items()
+              if k.startswith("shared/")}
     x = torch.randn(B, T, D, generator=g, device=dev)
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     weight_bytes = sum(v.numel() * v.element_size() for v in params.values())
     C = MOE.capacity(N, cfg)
-    check(C == 80, f"moe (d): capacity {C} != 80")
+    check(C == want_cap, f"{label}: capacity {C} != {want_cap}")
     with torch.no_grad():
-        y, aux = MOE.moe_apply(params, x, cfg, act)
-        ms = time_ms(lambda: MOE.moe_apply(params, x, cfg, act), iters=10,
-                     warmup=2)
+        y, aux = MOE.moe_apply(params, x, cfg, act, scoring)
+        ms = time_ms(lambda: MOE.moe_apply(params, x, cfg, act, scoring),
+                     iters=10, warmup=2)
         xf = x.reshape(N, D)
-        w8, ids, _ = MOE.router_topk(xf @ params["router"], K)
+        w8, ids, _ = MOE.router_topk(xf @ params["router"], K, scoring)
         flat = ids.reshape(-1)
         pos, keep = MOE.slot_positions(flat, E, C)
         out_buf = MOE.expert_ffn(params, MOE.dispatch(xf, flat, pos, keep, E,
                                                       C, K))
         y2 = MOE.combine(out_buf, flat, pos, keep, w8, K)
+        if shared:
+            y2 = y2 + LAYERS.mlp_apply(shared, xf, act)
         check(_relerr(y.reshape(N, D), y2) <= TOL_F32,
-              "moe (d): moe_apply == its parts")
+              f"{label}: moe_apply == its parts")
         want_pos, want_keep = _recount(flat.cpu().numpy(), E, C)
         check(np.array_equal(pos.cpu().numpy(), want_pos) and
               np.array_equal(keep.cpu().numpy(), want_keep),
-              "moe (d): slot positions and keep mask == the numpy recount")
+              f"{label}: slot positions and keep mask == the numpy recount")
         dropped = int((~keep).sum())
         # every token with a dropped pair, beside the random sample: its
         # combined output must be the sum over its kept pairs alone
         hit = (~keep).reshape(N, K).any(1).nonzero().flatten().tolist()
-        check(len(hit) > 0, "moe (d): no token had a pair dropped")
+        check(len(hit) > 0, f"{label}: no token had a pair dropped")
         sample = sorted(set(torch.randperm(
             N, generator=torch.Generator().manual_seed(5))[
                 :MOE_BLOCK_SAMPLES].tolist()) | set(hit))
         x64 = xf.double()
         want_y = {n: torch.zeros(D, dtype=torch.float64, device=dev)
                   for n in sample}
+        if shared:
+            xs = x64[sample]
+            ref = (F.silu(xs @ shared["w_gate"].double()) *
+                   (xs @ shared["w_up"].double())) @ shared["w_down"].double()
+            for r, n in enumerate(sample):
+                want_y[n] += ref[r]
         pair_err, kept_pairs = 0.0, 0
         by_expert: dict = {}
         for n in sample:
@@ -2538,26 +2719,27 @@ def _moe_block(dev) -> dict:
                 want_y[i // K] += float(w8.reshape(-1)[i]) * ref[r]
             kept_pairs += len(rows)
         y_err = max(_relerr(y2[n].double(), want_y[n]) for n in sample)
-        y_err_hit = max(_relerr(y2[n].double(), want_y[n]) for n in hit)
+        y_err_hit = max((_relerr(y2[n].double(), want_y[n]) for n in hit),
+                        default=0.0)
     check(pair_err <= TOL_FLASH,
-          f"moe (d): kept pairs {pair_err:.3g} > {TOL_FLASH} of float64")
+          f"{label}: kept pairs {pair_err:.3g} > {TOL_FLASH} of float64")
     check(y_err <= TOL_FLASH,
-          f"moe (d): sampled outputs {y_err:.3g} > {TOL_FLASH} of float64 "
+          f"{label}: sampled outputs {y_err:.3g} > {TOL_FLASH} of float64 "
           f"({y_err_hit:.3g} on the {len(hit)} tokens with a dropped pair)")
-    check(math.isfinite(float(aux)), "moe (d): aux finite")
+    check(math.isfinite(float(aux)), f"{label}: aux finite")
     load = torch.bincount(flat, minlength=E)
-    # the bound counts the work this run's routing needs: the router and
-    # the three expert products of each kept pair. The padded (E, C)
-    # buffer's products, which the port runs, and those of every routed
-    # pair are recorded beside it
+    # the bound counts the work this run's routing needs: the router, the
+    # three expert products of each kept pair and the shared expert's of
+    # each token. The padded (E, C) buffer's products, which the port
+    # runs, and those of every routed pair are recorded beside it
     kept = N * K - dropped
     bytes_ = weight_bytes + 2 * x.numel() * 4
-    flops = {n: 2 * N * D * E + 3 * 2 * rows * D * Fe
+    flops = {n: 2 * N * D * E + 3 * 2 * (rows * Fe + N * Fs) * D
              for n, rows in (("kept", kept), ("routed", N * K),
                              ("padded", E * C))}
     b_ms, b_by = bound(bytes_, flops["kept"])
-    out = {"tokens": N, "experts": E, "capacity": C, "ms": ms,
-           "bound_ms": b_ms, "bound_by": b_by,
+    out = {"tokens": N, "experts": E, "capacity": C, "scoring": scoring,
+           "shared_d_ff": Fs, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
            "tflop": {n: f / 1e12 for n, f in flops.items()},
            "bound_ms_routed": bound(bytes_, flops["routed"])[0],
            "bound_ms_padded": bound(bytes_, flops["padded"])[0],
@@ -2569,19 +2751,20 @@ def _moe_block(dev) -> dict:
            "aux": float(aux),
            "load_min_max": [int(load.min()), int(load.max())],
            "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
-    log(f"moe (d): arctic MoE block, {E} experts of {D} x {Fe}, "
-        f"{out['weight_gb']:.2f} GB of f32 weights drawn on the card in "
-        f"{draw_s:.2f} s; {N} tokens, C = {C}; forward {ms:.3f} ms against "
-        f"its bound {b_ms:.3f} ms ({b_by}; {out['tflop']['kept']:.3f} TFLOP "
-        f"for the {kept} kept pairs; {out['bound_ms_routed']:.3f} ms for "
-        f"all {N * K} routed, {out['bound_ms_padded']:.3f} ms for the "
-        f"{E * C} padded slots); {dropped} pairs dropped, expert loads "
-        f"{out['load_min_max'][0]}..{out['load_min_max'][1]}; "
-        f"{kept_pairs} kept pairs of {len(sample)} tokens ({len(hit)} with "
-        f"a dropped pair) within {pair_err:.3g} of float64, outputs "
-        f"{y_err:.3g} ({y_err_hit:.3g} where a pair was dropped); card "
-        f"peak {out['max_memory_gib']:.1f} GiB")
-    del params, x, y, y2, out_buf
+    log(f"{label}: {model.name} MoE block, {E} experts of {D} x {Fe} "
+        f"({scoring}; shared d_ff {Fs}), {out['weight_gb']:.2f} GB of f32 "
+        f"weights drawn on the card in {draw_s:.2f} s; {N} tokens, C = {C}; "
+        f"forward {ms:.3f} ms against its bound {b_ms:.3f} ms ({b_by}; "
+        f"{out['tflop']['kept']:.3f} TFLOP for the {kept} kept pairs; "
+        f"{out['bound_ms_routed']:.3f} ms for all {N * K} routed, "
+        f"{out['bound_ms_padded']:.3f} ms for the {E * C} padded slots); "
+        f"{dropped} pairs dropped, expert loads {out['load_min_max'][0]}.."
+        f"{out['load_min_max'][1]}; {kept_pairs} kept pairs of "
+        f"{len(sample)} tokens ({len(hit)} with a dropped pair) within "
+        f"{pair_err:.3g} of float64, outputs {y_err:.3g} ({y_err_hit:.3g} "
+        f"where a pair was dropped); card peak "
+        f"{out['max_memory_gib']:.1f} GiB")
+    del params, shared, x, y, y2, out_buf
     torch.cuda.empty_cache()
     return out
 
@@ -2619,7 +2802,7 @@ def phase_moe_path(dev) -> dict:
         f"{_MOE_FULL.moe.num_experts} to {MOE_CFG.moe.num_experts}, "
         f"d_model {MOE_CFG.d_model}, vocab {MOE_CFG.vocab_size}, K={MOE_K}")
     ops.reset_launch_counts()
-    with ExpertLoad() as load:
+    with ExpertLoad("moe path") as load:
         trainer, arctic = phase_lm_path(dev, MOE_CFG, "moe", MOE_KERNELS,
                                         n_clients=MOE_K,
                                         reference=REFERENCE_DISTILLED_MOE,
@@ -2636,11 +2819,142 @@ def phase_moe_path(dev) -> dict:
     del trainer
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    out["block"] = _moe_block(dev)
+    out["block"] = _moe_block(dev, _MOE_FULL, MOE_BLOCK_TOKENS, "moe (d)",
+                              80)
     out["counts"] = counts
     out["seconds"] = time.perf_counter() - t0
     log(f"moe phase: {out['seconds']:.1f} s ((a)+(b) "
         f"{out['hetero_s']:.1f} s); launches {counts}")
+    return out
+
+
+def _leaf_bytes(cfg) -> list:
+    """Each leaf's bytes in an f32 model of ``cfg``, largest first, from
+    the shapes alone: ``init_lm`` under fake tensors allocates nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        shapes = TF.init_lm(torch.Generator(), cfg, device="cpu")
+    return sorted((v.numel() * 4 for v in shapes.values()), reverse=True)
+
+
+def _deepseek_loss(dev) -> dict:
+    """(b) The model bundle's loss with MTP at deepseek-v3's full
+    vocabulary: one client of DS_LOSS_CFG, its weights drawn on the card,
+    DS_LOSS_STEPS AdamW steps on one batch of 2 x 512 tokens drawn over the
+    whole vocabulary. ce, aux_loss and mtp_ce finite at every step; the
+    loss falls. The peak is reckoned before the run: four f32 copies of
+    the params (params, grads, AdamW's two moments), and the update's
+    transient of four copies of the largest leaf."""
+    cfg = DS_LOSS_CFG
+    sizes = _leaf_bytes(cfg)
+    n_bytes = sum(sizes)
+    reckoned = (4 * n_bytes + 4 * sizes[0]) / 2**30
+    log(f"deepseek (b): {cfg.name}, vocab {cfg.vocab_size}, "
+        f"{n_bytes / 4e6:.1f} M params; reckoned peak {reckoned:.1f} GiB "
+        f"(4 x {n_bytes / 2**30:.2f} GiB + the update's 4 x "
+        f"{sizes[0] / 2**30:.2f} GiB)")
+    t0 = time.perf_counter()
+    params = TF.init_lm(torch.Generator(device=dev).manual_seed(24), cfg,
+                        device=dev)
+    bundle = build_bundle(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, DS_LOSS_TOKENS, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               25))
+    opt = make_optimizer(OptimizerConfig(**DS_LOSS_OPTIMIZER))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps = []
+    for t in range(DS_LOSS_STEPS):
+        a = time.perf_counter()
+        live = {k: v.requires_grad_() for k, v in params.items()}
+        loss, metrics = bundle.loss(live, {"tokens": tokens})
+        grads = dict(zip(live, torch.autograd.grad(
+            loss, list(live.values()), allow_unused=True,
+            materialize_grads=True)))
+        row = {"loss": loss.item(), **{k: v.item()
+                                       for k, v in metrics.items()}}
+        del loss, metrics, live
+        params = {k: v.detach() for k, v in params.items()}
+        params, state = opt.update(grads, state, params, t)
+        del grads
+        torch.cuda.synchronize()
+        row["s"] = time.perf_counter() - a
+        steps.append(row)
+        _finite(row, f"deepseek (b): step {t}")
+        log(f"deepseek (b): step {t} loss {row['loss']:.4f} (ce "
+            f"{row['ce']:.4f}, aux_loss {row['aux_loss']:.3g}, mtp_ce "
+            f"{row['mtp_ce']:.4f}) in {row['s']:.2f} s")
+    check(set(steps[0]) >= {"ce", "aux_loss", "mtp_ce"},
+          f"deepseek (b): metrics {sorted(steps[0])}")
+    check(steps[-1]["loss"] < steps[0]["loss"],
+          f"deepseek (b): the loss falls ({steps[0]['loss']:.4f} -> "
+          f"{steps[-1]['loss']:.4f})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"deepseek (b): {DS_LOSS_STEPS} AdamW steps, init {init_s:.2f} s, "
+        f"step median {statistics.median(r['s'] for r in steps):.2f} s; "
+        f"card peak {peak:.1f} GiB (reckoned {reckoned:.1f})")
+    del params, state, tokens
+    torch.cuda.empty_cache()
+    return {"params": n_bytes // 4, "reckoned_gib": reckoned,
+            "init_s": init_s, "steps": steps, "max_memory_gib": peak}
+
+
+def phase_deepseek_path(dev) -> dict:
+    """The DeepSeek path: (a) K=2 full-width deepseek-v3-671b clients cut
+    to one MoE layer of 12 experts at a 32,000-word vocabulary through
+    phase_lm_path (MLA, sigmoid top-8 routing with the shared expert, the
+    MHD loss without the MTP branch), each step's expert load and dropped
+    share logged (some step must drop a pair), then a profiled publish
+    round by op and shape; (b) the
+    bundle's loss with MTP at the full vocabulary, 3 AdamW steps; (c) one
+    full-width deepseek MoE block with all 256 experts and the shared one,
+    forward only. The counts are set to 0 just before (a) and read just
+    after it; (b) and (c) launch none of the port's kernels."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"deepseek path: {DS_ARCH} at full width, cut in depth from "
+        f"{_DS_FULL.num_layers} to {DS_CFG.num_layers} MoE layer, in "
+        f"experts from {_DS_FULL.moe.num_experts} to "
+        f"{DS_CFG.moe.num_experts}, in vocabulary from {DS_VOCAB} to "
+        f"{DS_CFG.vocab_size}, without MTP; d_model {DS_CFG.d_model}, "
+        f"{DS_CFG.num_heads} MLA heads, {DS_CFG.moe_scoring} top-"
+        f"{DS_CFG.moe.top_k}, K={DS_K}")
+    state = DS_K * 4 * sum(_leaf_bytes(DS_CFG)) / 2**30
+    log(f"deepseek (a): reckoned {state:.1f} GiB of params, grads and "
+        f"AdamW moments for the {DS_K} clients, before activations")
+    ops.reset_launch_counts()
+    with ExpertLoad("deepseek path") as load:
+        trainer, out = phase_lm_path(dev, DS_CFG, "deepseek", DS_KERNELS,
+                                     n_clients=DS_K,
+                                     reference=REFERENCE_DISTILLED_DEEPSEEK,
+                                     after_step=load.step)
+    out["expert_load"], out["reckoned_state_gib"] = load.steps, state
+    check(all(math.isfinite(v) for v in out["beta"].values()),
+          "deepseek (a): beta finite")
+    check(any(r["dropped_share"] > 0 for r in load.steps),
+          "deepseek (a): the routers dropped no pair in any step")
+    check(not any(k.startswith("mtp/")
+                  for k in trainer.clients[0].params),
+          "deepseek (a): no MTP leaves")
+    RECORD["profile_deepseek"] = phase_profile(trainer, LM_STEPS, LM_S_P,
+                                               "deepseek", by_shape=True)
+    del trainer
+    out["fleet_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a = time.perf_counter()
+    out["loss_mtp"] = _deepseek_loss(dev)
+    out["loss_mtp"]["seconds"] = time.perf_counter() - a
+    torch.cuda.reset_peak_memory_stats()
+    out["block"] = _moe_block(dev, _DS_FULL, DS_BLOCK_TOKENS, "deepseek (c)",
+                              160)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"deepseek phase: {out['seconds']:.1f} s ((a) {out['fleet_s']:.1f} "
+        f"s, (b) {out['loss_mtp']['seconds']:.1f} s); launches "
+        f"{out['counts']}")
     return out
 
 
@@ -2690,9 +3004,11 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     moe_path = phase_moe_path(dev)
+    torch.cuda.empty_cache()
+    deepseek_path = phase_deepseek_path(dev)
     paths = {"resnet": resnet, "exp": exp_path["mhd"], "fleet": fleet_path,
              "socket": socket_path, "lm": lm_path, "zamba2": zamba_path,
-             "moe": moe_path}
+             "moe": moe_path, "deepseek": deepseek_path}
     for k in kernels:
         k["launches_by_path"] = {p: r["counts"][k["name"]]
                                  for p, r in paths.items()}
@@ -2700,6 +3016,7 @@ def main() -> int:
     RECORD.update(kernels=kernels, resnet_path=resnet, exp_path=exp_path,
                   fleet_path=fleet_path, socket_path=socket_path,
                   lm_path=lm_path, zamba2_path=zamba_path, moe_path=moe_path,
+                  deepseek_path=deepseek_path,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,6 +1,6 @@
 """Architecture config registry (``repro/configs/__init__.py``), over the
 architectures the port runs so far: the paper's ResNets, mamba2-370m,
-zamba2-7b, gemma3-12b and arctic-480b.
+zamba2-7b, gemma3-12b, arctic-480b and deepseek-v3-671b.
 
 Every entry exposes ``full()`` (the exact configuration) and ``reduced()``
 (the CPU-scale variant the parity tests use); ``get_config(name)`` /
@@ -14,7 +14,8 @@ from repro_torch.common.registry import Registry
 
 ARCHS = Registry("architecture")
 
-_MODULES = ["arctic_480b", "gemma3_12b", "mamba2_370m", "resnet", "zamba2_7b"]
+_MODULES = ["arctic_480b", "deepseek_v3_671b", "gemma3_12b", "mamba2_370m",
+            "resnet", "zamba2_7b"]
 
 
 def _load():

@@ -109,12 +109,17 @@ def lm_mhd_outputs(bundle, params, batch: Dict[str, Any],
     are cast to bf16 as in the reference, so the distillation terms run on
     bf16 rows.
 
+    A DeepSeek bundle (``cfg.mtp``) runs without its MTP branch, which no
+    output here reads; its leaves get zero gradients, as in the
+    reference.
+
     ``max_positions`` bounds B'. With ``position_seed=None`` the kept
     positions are the batch-head prefix; with a seed they are the
     reference's fixed random subset (`jax_permutation`), identical for
     every client and teacher sharing the seed.
     """
-    out = bundle.apply(params, batch)
+    skip_mtp = {"mtp": False} if getattr(bundle.config, "mtp", False) else {}
+    out = bundle.apply(params, batch, **skip_mtp)
     tokens = batch["tokens"]
     B, T = tokens.shape
     Tm1 = T - 1

@@ -38,12 +38,14 @@ Params = Dict[str, Tensor]
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype=torch.float32, scale: float = 1.0) -> Tensor:
     std = scale / math.sqrt(in_dim)
-    return (torch.randn(in_dim, out_dim, generator=gen) * std).to(dtype)
+    return (torch.randn(in_dim, out_dim, generator=gen,
+                        device=gen.device) * std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype=torch.float32) -> Tensor:
-    return (torch.randn(vocab, dim, generator=gen) * 0.02).to(dtype)
+    return (torch.randn(vocab, dim, generator=gen, device=gen.device)
+            * 0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +220,8 @@ def attention_apply(params: Params, dims: AttnDims, x: Tensor, *,
 def init_causal_conv1d(gen: torch.Generator, channels: int, width: int,
                        dtype=torch.float32) -> Params:
     std = 1.0 / math.sqrt(width)
-    return {"w": (torch.randn(width, channels, generator=gen) * std
+    return {"w": (torch.randn(width, channels, generator=gen,
+                               device=gen.device) * std
                   ).to(dtype),
             "b": torch.zeros(channels, dtype=dtype)}
 

@@ -46,10 +46,13 @@ def init_moe(gen: torch.Generator, d_model: int, cfg: MoEConfig,
     std = 1.0 / math.sqrt(d_model)
     params = {
         "router": dense_init(gen, d_model, E, torch.float32),
-        "w_gate": (torch.randn(E, d_model, Fe, generator=gen) * std
+        "w_gate": (torch.randn(E, d_model, Fe, generator=gen,
+                               device=gen.device) * std
                    ).to(dtype),
-        "w_up": (torch.randn(E, d_model, Fe, generator=gen) * std).to(dtype),
-        "w_down": (torch.randn(E, Fe, d_model, generator=gen)
+        "w_up": (torch.randn(E, d_model, Fe, generator=gen,
+                             device=gen.device) * std).to(dtype),
+        "w_down": (torch.randn(E, Fe, d_model, generator=gen,
+                               device=gen.device)
                    / math.sqrt(Fe)).to(dtype),
     }
     if cfg.num_shared_experts:

@@ -44,7 +44,7 @@ def init_mamba2(gen: torch.Generator, d_model: int, cfg: MambaConfig,
     conv_ch = d_in + 2 * N  # x, B, C all pass through the causal conv
     # dt_bias so that softplus(dt_bias) spans ~[1e-3, 1e-1]: the inverse
     # softplus of a log-uniform draw (the mamba2 default)
-    u = torch.rand(H, generator=gen)
+    u = torch.rand(H, generator=gen, device=gen.device)
     dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
     conv = init_causal_conv1d(gen, conv_ch, cfg.d_conv, dtype)

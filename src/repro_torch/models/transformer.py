@@ -2,13 +2,19 @@
 ``repro/models/transformer.py``), for the layer kinds the port has so far:
 Mamba2 blocks (``attn="mamba2"``), full and sliding-window self-attention
 (``attn="full"`` / ``"swa"``, GQA, RoPE, ``qk_norm``, bias) on the
-``flash_attention`` kernel, the dense FFN (``ffn="dense"``), the
+``flash_attention`` kernel, or Multi-head Latent Attention in their place
+when ``cfg.mla`` is set (`models/mla.py`, torch matmuls as the reference's
+einsums), the dense FFN (``ffn="dense"``), the
 Mixture-of-Experts FFN (``ffn="moe"``, and arctic's ``"moe_dense_parallel"``,
 a dense SwiGLU beside the MoE on one ``ffn_norm`` output; `models/moe.py`),
 whose router aux losses add up over the units into ``aux_loss``, and
 zamba2's *shared* attention block (``shared_attn=True``: one parameter set,
 ``shared_attn/*`` and ``shared_attn_norm/*`` at the top of the tree,
-applied after the layer's own mixer wherever a layer asks for it).
+applied after the layer's own mixer wherever a layer asks for it), and
+DeepSeek's multi-token prediction (``cfg.mtp``: ``mtp/proj`` (2D, D),
+``mtp/norm`` and one unstacked full-attention dense layer ``mtp/layer``
+predicting token t+2 from [h_t ; emb(token t+1)]; ``lm_loss`` adds 0.3 of
+its CE).
 
 Depth is organized as the reference's *stages* of repeat-units. Each leaf
 of a stage keeps the reference's stacked layout, with a leading
@@ -23,13 +29,19 @@ as in the reference: each use adds its part to their one gradient.
 
 Public API (pure functions over a flat path-keyed param dict):
   init_lm(gen, cfg, device=None)     -> params (on the card by default)
-  apply_lm(params, cfg, batch)       -> {"logits", "hidden", "aux_heads",
-                                         "aux_loss"}
+  apply_lm(params, cfg, batch, mtp=True)
+                                     -> {"logits", "hidden", "aux_heads",
+                                         "aux_loss"} (+ "mtp_hidden")
   lm_loss(params, cfg, batch)        -> (loss, metrics)
 
+The reference's ``apply_lm`` always computes the MTP branch and its
+``jit`` drops it where nothing reads it (the MHD path); the port runs
+eagerly, so ``apply_lm(..., mtp=False)`` leaves it out, and the MTP
+leaves get zero gradients there as in the reference.
+
 ``moe_impl="a2a"`` runs the scatter form, as the reference does without a
-``model`` mesh axis; the expert-parallel form is item 15. MLA, cross
-attention, the vision and audio front ends, MTP, learned and sinusoidal
+``model`` mesh axis; the expert-parallel form is item 15. Cross
+attention, the vision and audio front ends, learned and sinusoidal
 positions and ``attn_logit_softcap`` raise NotImplementedError naming the
 ROADMAP item that ports them; decode comes with serving (item 14).
 """
@@ -43,6 +55,7 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import LayerSpec, ModelConfig
@@ -51,11 +64,9 @@ Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
 _LATER = {
-    "mla": "ROADMAP Queue 1 item 13 (MLA, with MTP and sigmoid routing)",
     "cross": "ROADMAP Queue 1 item 13 (cross attention, with the vision "
              "and audio front ends)",
     "modality": "ROADMAP Queue 1 item 13 (the vision and audio front ends)",
-    "mtp": "ROADMAP Queue 1 item 13 (DeepSeek MTP)",
     "positions": "ROADMAP Queue 1 item 13 (learned and sinusoidal "
                  "positions, with the audio encoder)",
     "softcap": "ROADMAP Queue 2 item 2.5 (logit_softcap: no configuration "
@@ -72,17 +83,17 @@ def _check_supported(cfg: ModelConfig) -> None:
         for spec in stage.block:
             if spec.attn == "cross" or spec.cross_attn:
                 _not_yet("cross attention", "cross")
-    if cfg.mla is not None:
-        _not_yet("MLA", "mla")
     if cfg.vision is not None or cfg.audio is not None or \
             cfg.encoder is not None:
         _not_yet("the vision/audio front ends", "modality")
-    if cfg.mtp:
-        _not_yet("MTP", "mtp")
     if cfg.pos_embed in ("learned", "sinusoidal"):
         _not_yet(f"{cfg.pos_embed} positions", "positions")
     if cfg.attn_logit_softcap is not None:
         _not_yet("attn_logit_softcap", "softcap")
+
+
+# the MTP block's one layer (unstacked), MLA when the model's attention is
+_MTP_LAYER = LayerSpec(attn="full", ffn="dense")
 
 
 def _with_prefix(prefix: str, tree: Params) -> Params:
@@ -109,7 +120,10 @@ def _attn_dims(cfg: ModelConfig) -> L.AttnDims:
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                 dtype) -> Params:
     p: Params = {}
-    if spec.attn in ("full", "swa"):
+    if spec.attn in ("full", "swa") and cfg.mla is not None:
+        p.update(_with_prefix("attn", MLA.init_mla(
+            gen, cfg.d_model, cfg.num_heads, cfg.mla, dtype)))
+    elif spec.attn in ("full", "swa"):
         p.update(_with_prefix("attn", L.init_attention(gen, _attn_dims(cfg),
                                                        dtype)))
     elif spec.attn == "mamba2":
@@ -140,8 +154,9 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
             device: Optional[torch.device] = None) -> Params:
-    """Random params keyed and shaped as the reference's, drawn on the CPU
-    from ``gen`` (the same whatever the device) and placed on ``device``
+    """Random params keyed and shaped as the reference's, drawn from
+    ``gen`` on its device (a CPU generator gives the same draws whatever
+    ``device`` is; a CUDA one draws on the card) and placed on ``device``
     (``None`` → ``cuda``, as every entry point of the port)."""
     cfg.validate()
     _check_supported(cfg)
@@ -165,13 +180,21 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                                          dtype)
     if cfg.num_aux_heads:
         params["aux_heads"] = (torch.randn(
-            cfg.num_aux_heads, cfg.d_model, cfg.vocab_size, generator=gen)
+            cfg.num_aux_heads, cfg.d_model, cfg.vocab_size, generator=gen,
+            device=gen.device)
             * (1.0 / math.sqrt(cfg.d_model))).to(dtype)
     if any(s.shared_attn for st in cfg.stages for s in st.block):
         params.update(_with_prefix("shared_attn", L.init_attention(
             gen, _attn_dims(cfg), dtype)))
         params.update(_with_prefix("shared_attn_norm", L.init_norm(
             cfg.d_model, cfg.norm, dtype)))
+    if cfg.mtp:
+        params["mtp/proj"] = L.dense_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                          dtype)
+        params.update(_with_prefix("mtp/norm", L.init_norm(
+            cfg.d_model, cfg.norm, dtype)))
+        params.update(_with_prefix("mtp/layer", _init_layer(
+            gen, cfg, _MTP_LAYER, dtype)))
     return {k: v.to(device) for k, v in params.items()}
 
 
@@ -186,7 +209,11 @@ def _layer_forward(lp: Params, cfg: ModelConfig, spec: LayerSpec,
     its FFN. Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     rope = cfg.rope_theta if cfg.pos_embed == "rope" else None
-    if spec.attn in ("full", "swa"):
+    if spec.attn in ("full", "swa") and cfg.mla is not None:
+        h = L.norm_apply(_sub(lp, "attn_norm"), x, cfg.norm)
+        x = x + MLA.mla_apply(_sub(lp, "attn"), h, cfg.mla, cfg.num_heads,
+                              rope_theta=cfg.rope_theta)
+    elif spec.attn in ("full", "swa"):
         h = L.norm_apply(_sub(lp, "attn_norm"), x, cfg.norm)
         x = x + L.attention_apply(
             _sub(lp, "attn"), _attn_dims(cfg), h,
@@ -266,17 +293,34 @@ def _heads(params: Params, cfg: ModelConfig, hidden: Tensor
     return logits, aux_logits
 
 
-def apply_lm(params: Params, cfg: ModelConfig,
-             batch: Dict[str, Tensor]) -> Dict[str, Any]:
+def _mtp_hidden(params: Params, cfg: ModelConfig, tokens: Tensor,
+                hidden: Tensor) -> Tensor:
+    """DeepSeek MTP: the hidden state predicting token t+2, from
+    [h_t ; emb(token t+1)] (the next token rolled in from the front at the
+    last position, as the reference's ``jnp.roll``)."""
+    emb_next = _embed_tokens(params, cfg, torch.roll(tokens, -1, dims=1))
+    mtp_in = torch.cat([hidden, emb_next.to(hidden.dtype)], dim=-1)
+    h = (mtp_in @ params["mtp/proj"]).to(hidden.dtype)
+    h = L.norm_apply(_sub(params, "mtp/norm"), h, cfg.norm)
+    h, _ = _layer_forward(_sub(params, "mtp/layer"), cfg, _MTP_LAYER, h, {})
+    return h
+
+
+def apply_lm(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
+             mtp: bool = True) -> Dict[str, Any]:
     """Full-sequence forward. batch: {"tokens": (B, T)}. Returns hidden
-    (B, T, D), logits (B, T, V), aux_heads (m, B, T, V) or None, aux_loss."""
+    (B, T, D), logits (B, T, V), aux_heads (m, B, T, V) or None, aux_loss,
+    and, when ``cfg.mtp`` and ``mtp`` are set, mtp_hidden (B, T, D)."""
     _check_supported(cfg)
     x = _embed_tokens(params, cfg, batch["tokens"])
     x, aux_loss = _run_stages(params, cfg, x)
     hidden = L.norm_apply(_sub(params, "final_norm"), x, cfg.norm)
     logits, aux_logits = _heads(params, cfg, hidden)
-    return {"hidden": hidden, "logits": logits, "aux_heads": aux_logits,
-            "aux_loss": aux_loss}
+    out = {"hidden": hidden, "logits": logits, "aux_heads": aux_logits,
+           "aux_loss": aux_loss}
+    if cfg.mtp and mtp:
+        out["mtp_hidden"] = _mtp_hidden(params, cfg, batch["tokens"], hidden)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -295,11 +339,20 @@ def softmax_xent(logits: Tensor, labels: Tensor, valid=None) -> Tensor:
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]):
-    """Next-token loss (tokens shifted internally); returns (loss, metrics).
-    The reference's ``loss_impl="chunked"`` is a memory lever of the same
+    """Next-token loss (tokens shifted internally), plus 0.3 of the MTP
+    head's CE on token t+2 when ``cfg.mtp``; returns (loss, metrics). The
+    reference's ``loss_impl="chunked"`` is a memory lever of the same
     value; the port computes the dense form."""
     out = apply_lm(params, cfg, batch)
-    labels = batch["tokens"][:, 1:]
-    ce = softmax_xent(out["logits"][:, :-1].float(), labels)
+    tokens = batch["tokens"]
+    ce = softmax_xent(out["logits"][:, :-1].float(), tokens[:, 1:])
     loss = ce + out["aux_loss"]
-    return loss, {"ce": ce, "aux_loss": out["aux_loss"]}
+    metrics = {"ce": ce, "aux_loss": out["aux_loss"]}
+    if cfg.mtp:
+        head_w = params["embed"].t() if cfg.tie_embeddings \
+            else params["lm_head"]
+        mtp_logits = (out["mtp_hidden"][:, :-2] @ head_w).float()
+        mtp_ce = softmax_xent(mtp_logits, tokens[:, 2:])
+        loss = loss + 0.3 * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return loss, metrics

@@ -22,7 +22,9 @@ class ModelBundle:
     # cannot replay: parity tests hand in bundles whose init returns the
     # reference's params through `checkpoint.io.params_from_jax`.)
     init: Callable[[torch.Generator], Dict[str, torch.Tensor]]
-    apply: Callable[..., Dict[str, Any]]  # (params, batch) -> outputs
+    # (params, batch) -> outputs; an LM bundle's also takes mtp=False,
+    # which leaves out DeepSeek's MTP branch (`lm_mhd_outputs`)
+    apply: Callable[..., Dict[str, Any]]
     loss: Callable[..., Any]  # (params, batch) -> (loss, metrics)
 
     @property
@@ -62,8 +64,8 @@ def _lm_bundle(cfg: ModelConfig, dtype) -> ModelBundle:
     def init(gen: torch.Generator):
         return TF.init_lm(gen, cfg, dtype=dtype, device="cpu")
 
-    def apply(params, batch):
-        return TF.apply_lm(params, cfg, batch)
+    def apply(params, batch, mtp: bool = True):
+        return TF.apply_lm(params, cfg, batch, mtp=mtp)
 
     def loss(params, batch):
         return TF.lm_loss(params, cfg, batch)

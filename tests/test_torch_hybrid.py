@@ -132,6 +132,29 @@ def test_params_npz_round_trip(model, tmp_path):
                                          ("mtp", True),
                                          ("pos_embed", "learned")])
 def test_unported_config_options_raise(field, value):
+    """softcap and learned positions raise naming their ROADMAP item.
+    DeepSeek MTP, ported since, builds and runs on reduced gemma3-12b in
+    place of raising (the MTP block's one full-attention layer on the
+    flash_attention path, the tied head): lm_loss and its mtp_ce against
+    the reference's from the same params."""
     cfg = dataclasses.replace(get_reduced("gemma3-12b"), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    if field != "mtp":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+        return
+    jcfg = dataclasses.replace(jax_reduced("gemma3-12b"), mtp=True)
+    params = TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    jp = jax.jit(lambda k: JTF.init_lm(k, jcfg))(jax.random.PRNGKey(0))
+    flat = {k: np.asarray(v) for k, v in JIO.flatten_with_paths(jp).items()}
+    assert {k: tuple(v.shape) for k, v in params.items()} == \
+        {k: v.shape for k, v in flat.items()}
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    loss_j, m_j = jax.jit(lambda p, b: JTF.lm_loss(p, jcfg, b))(
+        jp, {"tokens": jnp.asarray(tokens)})
+    loss, m = TTF.lm_loss(TIO.params_from_jax(flat, device="cpu"), cfg,
+                          {"tokens": torch.from_numpy(tokens)})
+    assert set(m) == set(m_j) == {"ce", "aux_loss", "mtp_ce"}
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=2e-5)
+    np.testing.assert_allclose(m["mtp_ce"].item(), float(m_j["mtp_ce"]),
+                               rtol=2e-5)

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of repro_torch (the
-socket transport, the gossip launcher, the MoE FFN and the arctic-480b
-config among them), chip_smoke.py,
+socket transport, the gossip launcher, the MoE FFN, MLA and the
+arctic-480b and deepseek-v3-671b configs among them), chip_smoke.py,
 examples/port_quickstart.py and scripts/port_gossip_procs.py leaves jax
 and the JAX package out of sys.modules, and the kernels' sources (which
 import triton) are not imported by any module."""
@@ -19,7 +19,8 @@ for n in names:
     importlib.import_module(n)
 assert {"repro_torch.comm.socket", "repro_torch.launch",
         "repro_torch.launch.gossip", "repro_torch.models.moe",
-        "repro_torch.configs.arctic_480b"} <= set(names), names
+        "repro_torch.configs.arctic_480b", "repro_torch.models.mla",
+        "repro_torch.configs.deepseek_v3_671b"} <= set(names), names
 for name, path in zip(("chip_smoke", "port_quickstart", "port_gossip_procs"),
                       sys.argv[1:]):
     spec = importlib.util.spec_from_file_location(name, path)
@@ -39,7 +40,7 @@ def test_port_imports_no_jax_and_no_reference_package():
          os.path.join(ROOT, "scripts", "port_gossip_procs.py")],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 71, out.stdout
+    assert int(n) >= 73, out.stdout
     assert bad == "[]", bad
 
 

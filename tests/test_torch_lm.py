@@ -110,19 +110,54 @@ def test_lm_loss_gradients_match_jax_and_remat_changes_nothing(model):
 
 @pytest.mark.parametrize("case", ["cross", "mla", "mtp"],
                          ids=["cross-none", "mla", "mtp"])
-def test_unported_layer_kinds_raise(case):
-    """Cross attention, MLA and DeepSeek MTP wait for later slices and say
-    which."""
+def test_unported_layer_kinds_raise(case, model):
+    """Cross attention waits for a later slice and says which. MLA and
+    DeepSeek MTP, ported since, build and run in place of raising: the
+    reduced skeleton with two full-attention MLA layers, and with the MTP
+    block after its Mamba2 layers, each holding its loss and metrics to
+    the reference's from the same params."""
+    from repro.models.config import (LayerSpec as JLayerSpec,
+                                     MLAConfig as JMLAConfig,
+                                     uniform_stages as j_uniform)
     from repro_torch.models.config import MLAConfig
 
+    jcfg, _, _, tokens = model
     cfg = get_reduced(NAME)
-    cfg = {"cross": dataclasses.replace(
-        cfg, name="cross", stages=uniform_stages(2, LayerSpec(
-            attn="cross", ffn="none"))),
-        "mla": dataclasses.replace(cfg, name="mla", mla=MLAConfig()),
-        "mtp": dataclasses.replace(cfg, name="mtp", mtp=True)}[case]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-        TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    if case == "cross":
+        cfg = dataclasses.replace(cfg, name="cross", stages=uniform_stages(
+            2, LayerSpec(attn="cross", ffn="none")))
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+            TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+        return
+    mla = dict(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+               qk_rope_head_dim=8, v_head_dim=16)
+    if case == "mla":
+        spec = dict(attn="full", ffn="dense")
+        cfg = dataclasses.replace(cfg, name="mla", d_ff=96, mla=MLAConfig(
+            **mla), stages=uniform_stages(2, LayerSpec(**spec)))
+        jcfg = dataclasses.replace(jcfg, name="mla", d_ff=96, mla=JMLAConfig(
+            **mla), stages=j_uniform(2, JLayerSpec(**spec)))
+    else:
+        cfg = dataclasses.replace(cfg, name="mtp", d_ff=96, mtp=True)
+        jcfg = dataclasses.replace(jcfg, name="mtp", d_ff=96, mtp=True)
+    params = TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert ("stage0/layer0/attn/w_uk" in params) == (case == "mla")
+    assert ("mtp/proj" in params) == (case == "mtp")
+    jp = jax.jit(lambda k: JTF.init_lm(k, jcfg))(jax.random.PRNGKey(0))
+    flat = {k: np.asarray(v) for k, v in JIO.flatten_with_paths(jp).items()}
+    assert {k: tuple(v.shape) for k, v in params.items()} == \
+        {k: v.shape for k, v in flat.items()}
+    tokens = tokens[:, :32]
+    loss_j, m_j = jax.jit(lambda p, b: JTF.lm_loss(p, jcfg, b))(
+        jp, {"tokens": jnp.asarray(tokens)})
+    loss, m = TTF.lm_loss(TIO.params_from_jax(flat, device="cpu"), cfg,
+                          {"tokens": torch.from_numpy(tokens)})
+    assert set(m) == set(m_j) == {"ce", "aux_loss"} | (
+        {"mtp_ce"} if case == "mtp" else set())
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=2e-5)
+    for k in m_j:
+        np.testing.assert_allclose(float(m[k]), float(m_j[k]), rtol=2e-5,
+                                   atol=1e-7, err_msg=k)
 
 
 def _parity(jcfg, cfg, tokens, seed=0):

@@ -103,6 +103,43 @@ def test_frames_match_jax_and_decode_across(exchange, budget, compression,
         np.testing.assert_array_equal(d_port[key], d_ref[key])
 
 
+DEEPSEEK_VOCAB = 129_280  # deepseek-v3-671b: idx travel as u32 above 65,535
+
+
+@pytest.mark.parametrize("exchange,budget,compression", [
+    ("prediction_topk", 0, "none"), ("prediction_adaptive", 24, "delta")],
+    ids=["fixed_topk", "adaptive_delta"])
+def test_u32_frames_match_jax_at_deepseek_vocab(exchange, budget,
+                                                compression):
+    """The fixed top-k frame and the adaptive delta frame at deepseek-v3's
+    vocabulary, where each index is a u32 (6 B an f16 entry, not 4): byte
+    for byte the reference's outside the lse lane, from the numpy and the
+    tensor paths, and decoded across both ways to the same arrays and
+    dense teacher rows. Indices above 65,535 are on the wire."""
+    outs = _window_outs(W=1, B=6, E=8, C=DEEPSEEK_VOCAB, m=2, seed=13,
+                        peaked=2, scale=3.0)
+    ids = _ids(1, 6)
+    kw = dict(topk=8, val_dtype="float16", emb_encoding="none",
+              budget_bytes_per_token=budget, compression=compression)
+    port, ref = (make_codec(exchange, CommConfig(**kw)),
+                 jax_make_codec(exchange, JCommConfig(**kw)))
+    p_port, p_ref = port.encode(1, 4, 4, ids, outs), ref.encode(1, 4, 4, ids,
+                                                                outs)
+    assert len(p_port) == len(p_ref)
+    assert port.encode(1, 4, 4, ids, {k: torch.from_numpy(v)
+                                      for k, v in outs.items()}) == p_port
+    m_port, m_ref = port.decode(p_port), ref.decode(p_ref)
+    _assert_same_frame(m_port, m_ref)
+    idx = m_port.arrays["idx"]
+    assert idx.dtype == np.uint32 and idx.max() > 0xFFFF
+    _assert_same_frame(ref.decode(p_port), m_port)
+    _assert_same_frame(port.decode(p_ref), m_ref)
+    d_port, d_ref = port.densify(port.decode(p_ref)), ref.densify(m_ref)
+    assert d_port.keys() == d_ref.keys()
+    for key in d_ref:
+        np.testing.assert_array_equal(d_port[key], d_ref[key])
+
+
 def test_device_graph_k_per_token_matches_jax():
     """The retention plan from the port's frame function equals the JAX
     graph's on LM-like logits (two windows of 64 tokens, vocab 512)."""

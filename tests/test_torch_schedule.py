@@ -12,7 +12,11 @@ and so one schedule, `chip_smoke.REFERENCE_DISTILLED_LM`: each is derived
 here with its own architecture's reduced config, zamba2-7b's cut to one
 period of its pattern (6 layers) as on the card. The MoE path (arctic-480b)
 runs the same data, wire and training over K=2 clients, whose schedule is
-`chip_smoke.REFERENCE_DISTILLED_MOE`, derived with reduced arctic-480b.
+`chip_smoke.REFERENCE_DISTILLED_MOE`, derived with reduced arctic-480b; the
+DeepSeek path (deepseek-v3-671b) the same over K=2, whose schedule is
+`chip_smoke.REFERENCE_DISTILLED_DEEPSEEK`, derived with reduced
+deepseek-v3-671b cut as on the card to one MoE layer (MLA, sigmoid
+top-8 routing over 12 experts, the shared expert) without MTP.
 """
 import dataclasses
 
@@ -82,7 +86,8 @@ def _run_lm(pkg, arch, k):
     period) on the first 16 tokens of each sequence in place of the full
     model on 512, over ``k`` clients: the schedule is a function of the
     numpy draws alone. The hybrid path (zamba2-7b) runs the same fleet;
-    the MoE path (arctic-480b) the same over two clients."""
+    the MoE path (arctic-480b) and the DeepSeek path the same over two
+    clients."""
     if pkg == "jax":
         from repro import data as D
         from repro import lm as LM
@@ -110,6 +115,13 @@ def _run_lm(pkg, arch, k):
         n = CS.ZAMBA_CFG.num_layers
         cfg = dataclasses.replace(cfg, num_layers=n, stages=patterned_stages(
             n, cfg.stages[0].block)).validate()
+    if arch == CS.DS_ARCH:  # the card's cut: one MoE layer, no MTP, and
+        # the card's routing (12 experts, top-8, capacity 1.25)
+        cfg = dataclasses.replace(cfg, num_layers=1, stages=(
+            dataclasses.replace(cfg.stages[-1], repeats=1),), mtp=False,
+            moe=dataclasses.replace(cfg.moe, **{
+                f: getattr(CS.DS_CFG.moe, f) for f in (
+                    "num_experts", "top_k", "capacity_factor")})).validate()
     arrays, _, part = CS.lm_path_data(LM, D, k)
     arrays = {"tokens": np.ascontiguousarray(arrays["tokens"][:, :LM_TOKENS]),
               "labels": arrays["labels"]}
@@ -130,8 +142,9 @@ def _run_lm(pkg, arch, k):
 @pytest.mark.parametrize("arch,k,name", [
     (CS.LM_ARCH, CS.LM_K, "REFERENCE_DISTILLED_LM"),
     (CS.ZAMBA_ARCH, CS.LM_K, "REFERENCE_DISTILLED_LM"),
-    (CS.MOE_ARCH, CS.MOE_K, "REFERENCE_DISTILLED_MOE")],
-    ids=[CS.LM_ARCH, CS.ZAMBA_ARCH, CS.MOE_ARCH])
+    (CS.MOE_ARCH, CS.MOE_K, "REFERENCE_DISTILLED_MOE"),
+    (CS.DS_ARCH, CS.DS_K, "REFERENCE_DISTILLED_DEEPSEEK")],
+    ids=[CS.LM_ARCH, CS.ZAMBA_ARCH, CS.MOE_ARCH, CS.DS_ARCH])
 def test_smoke_lm_teacher_schedule_is_the_references(arch, k, name):
     jax_sched = _run_lm("jax", arch, k)
     assert _run_lm("torch", arch, k) == jax_sched
