@@ -12,9 +12,11 @@ the checkout (into ``build/``), then
   2. builds the CUDA kernels (one nvcc per source, started together);
   3. holds each kernel — topk_wire, dist_ce forward and backward, emb_dist
      forward and backward, ssd_scan forward and backward, flash_attention
-     forward and backward (at arctic-480b's GQA with G = 7 among its
-     cases; topk_wire and dist_ce also at deepseek-v3's 129,280-word
-     vocabulary) — against its plain PyTorch version on the card,
+     forward and backward (at arctic-480b's GQA with G = 7 and at
+     whisper-large-v3's and llama-3.2-vision-90b's bidirectional, cross
+     and causal shapes among its cases; topk_wire and dist_ce also at
+     deepseek-v3's 129,280-word vocabulary) — against its plain PyTorch
+     version on the card,
      at the main paths' shapes and at edge cases, and times kernel, plain
      version and one library yardstick with CUDA events (median of
      repeated calls), and the launch floor (a one-element fill's device
@@ -96,7 +98,7 @@ the checkout (into ``build/``), then
   12. drives the DeepSeek path (`phase_deepseek_path`): (a) K=2
      full-width deepseek-v3-671b clients (d_model 7168, MLA with 128
      heads, sigmoid top-8 routing with a shared expert) cut to one MoE
-     layer of 8 experts at a 32,000-word vocabulary and without MTP,
+     layer of 12 experts at a 32,000-word vocabulary and without MTP,
      through the LM path's run, each step's expert load logged, then a
      profiled publish round; (b) the model bundle's loss with MTP at the
      full 129,280-word vocabulary (one dense and one MoE layer, 3,706.6 M
@@ -104,16 +106,29 @@ the checkout (into ``build/``), then
      finite and the loss falling; (c) one full-width deepseek MoE block
      with all 256 experts and the shared expert (45.3 GB of f32 weights),
      forward only, held against float64 and timed against its bound;
-  13. prints one ``{"kernels": [...]}`` line and, last, the device line
+  13. drives the cross-attention path (`phase_xattn_path`) through the
+     training launcher's train state and step (`launch.train`'s
+     supervised mode, AdamW, f32): (a) whisper-large-v3 uncut (32 encoder
+     and 32 decoder layers, 4 clips of 1,500 frames under 448 tokens) and
+     (b) llama-3.2-vision-90b at its published widths cut to its gated
+     cross layer and one self-attention layer at a 32,000-word vocabulary
+     (4 x 512 tokens, 1,600 patch embeddings each), a warm-up, 4 timed
+     and one profiled step each: losses finite, flash_attention launched
+     twice a call forward (remat) and once backward at shapes
+     `phase_flash` held, the front ends live (llama-vision's cross gate
+     moved from 0, then gradients reaching vision_proj and the cross
+     layer's wk; other embeddings or frames change the logits);
+  14. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line. The full record also goes to ``chiprun_out/chip_smoke.json``
-and the profiles' tables to
-``chiprun_out/profile_{resnet,lm,zamba2,moe,deepseek}.txt``.
+and the profiles' tables to ``chiprun_out/profile_{resnet,lm,zamba2,moe,
+deepseek,whisper,llama-vision}.txt``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import importlib.util
 import json
@@ -156,7 +171,11 @@ from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.models.config import (Stage, patterned_stages,  # noqa: E402
                                        uniform_stages)
-from repro_torch.optim import OptimizerConfig, make_optimizer  # noqa: E402
+from repro_torch.launch.steps import (init_train_state,  # noqa: E402
+                                      make_train_step)
+from repro_torch.launch.train import supervised_batch  # noqa: E402
+from repro_torch.optim import (Optimizer, OptimizerConfig,  # noqa: E402
+                               make_optimizer)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 (no
 # tensor cores) flop/s, TF32 tensor-core flop/s
@@ -376,6 +395,36 @@ REFERENCE_DISTILLED_HETERO = [
     [1] * 20 + [0, 0, 1, 0, 1, 1, 1, 1, 0, 0],
     [1] * 30]
 
+# the cross-attention path: supervised training through the launcher's
+# train step (`launch.train`), f32, AdamW at lr 1e-4 (its `--optimizer
+# adamw`), one warm-up step, XATTN_STEPS timed steps and one profiled step,
+# B = 4, each step a fresh batch of the launcher's draws.
+# (a) whisper-large-v3 (arXiv:2212.04356) uncut: 32 encoder and 32 decoder
+# layers, d_model 1,280, 20 x 64 heads, GELU d_ff 5,120, LayerNorm, tied
+# vocabulary of 51,866, 448 learned positions, the encoder's sinusoidal
+# ones; 1,500 frames of 1,280 (30 s) under 448 decoder tokens a clip.
+# (b) llama-3.2-vision-90b at its published widths (d_model 8,192, 64 query
+# and 8 KV heads x 128, SwiGLU d_ff 28,672, RoPE 500,000, vision_proj 7,680
+# -> 8,192, 2 aux heads), cut to the first two layers of its five-layer unit
+# (the gated cross layer and one self-attention layer, 2 of 100) and to
+# vocabulary 32,000 (its four 128,256 x 8,192 matrices alone are 67.2 GB
+# under f32 AdamW): 2,822.8 M params; 512 tokens and 1,600 patch
+# embeddings of 7,680 a sequence
+XATTN_BATCH, XATTN_STEPS, XATTN_SEED = 4, 4, 25
+XATTN_OPTIMIZER = dict(name="adamw", init_lr=1e-4,
+                       total_steps=XATTN_STEPS + 2)
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_CFG = get_config(WHISPER_ARCH)
+WHISPER_FRAMES = 1500
+LLAMA_V_ARCH = "llama-3.2-vision-90b"
+_LLAMA_V_FULL = get_config(LLAMA_V_ARCH)
+LLAMA_V_CFG = dataclasses.replace(
+    _LLAMA_V_FULL, name=f"{LLAMA_V_ARCH}-2-layers-32k", num_layers=2,
+    stages=patterned_stages(2, _LLAMA_V_FULL.stages[0].block),
+    vocab_size=32_000).validate()
+LLAMA_V_TOKENS = 512
+XATTN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+
 
 def lm_path_data(LM, D, k: int = LM_K):
     """The LM path's train and test token arrays and its partition over
@@ -428,6 +477,18 @@ FLASH_LONG = (1, 4096, 32, 112)
 # of G = 7 query heads a KV head, the first group size that is not a power
 # of two
 FLASH_ARCTIC = (8, 512, 56, 8, 128)
+# the shapes the cross-attention path launches flash_attention at: whisper
+# -large-v3's 1,500-frame encoder (bidirectional), its decoder's cross
+# attention over the encoder and its causal self-attention at 448 tokens,
+# MHA 20 x 64, B = 4 clips; llama-3.2-vision-90b's gated cross attention
+# over 1,600 patches and its causal self-attention, 64 query and 8 KV
+# heads x 128 (G = 8), B = 4 sequences of 512 tokens. Each is also timed
+# against SDPA with its own causality (``enable_gqa`` at G = 8)
+XATTN_FLASH = [("whisper encoder", (4, 1500, 1500, 20, 20, 64), False),
+               ("whisper cross", (4, 448, 1500, 20, 20, 64), False),
+               ("whisper decoder self", (4, 448, 448, 20, 20, 64), True),
+               ("llama-vision cross", (4, 512, 1600, 64, 8, 128), False),
+               ("llama-vision self", (4, 512, 512, 64, 8, 128), True)]
 # flash_attention's cases: name, (B, T, S, H, KV, d), causal, window, dtype
 FLASH_CASES = [
     ("path", (8, 512, 512, 32, 32, 112), True, 0, "float32"),
@@ -445,7 +506,9 @@ FLASH_CASES = [
     # scalar loop (d % 4 != 0), T not a multiple of the query tile
     ("d=50", (1, 130, 130, 4, 2, 50), True, 0, "float32"),
     ("bf16", (8, 512, 512, 32, 32, 112), True, 0, "bfloat16"),
-    ("arctic GQA G=7", (8, 512, 512, 56, 8, 128), True, 0, "float32")]
+    ("arctic GQA G=7", (8, 512, 512, 56, 8, 128), True, 0, "float32"),
+    *[(f"{name}", shape, causal, 0, "float32")
+      for name, shape, causal in XATTN_FLASH]]
 # the kernels each path runs, and must have launched
 RESNET_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
                   "emb_dist_bwd")
@@ -463,10 +526,13 @@ HETERO_RANK_KERNELS = {0: LM_KERNELS, 1: MOE_KERNELS, 2: MOE_KERNELS}
 # kernels that several wrappers launch, once a call each: ssd_scan's prep
 # kernel (C·Bᵀ and the cumsums) runs in the forward and in the backward
 SHARED_KERNELS = {"ssd_scan_prep_kernel": ("ssd_scan_fwd", "ssd_scan_bwd")}
-# the shapes at which the kernel phases held topk_wire ((rows, V, k)) and
-# dist_ce ((rows, V, student dtype, teacher dtype)) against their plain
-# versions; phase_lm_path checks that each shape its run launched is one
-SHAPES_HELD: dict = {"topk_wire": set(), "dist_ce": set()}
+# the shapes at which the kernel phases held topk_wire ((rows, V, k)),
+# dist_ce ((rows, V, student dtype, teacher dtype)) and flash_attention
+# ((B, T, S, H, KV, d, causal, window, dtype)) against their plain
+# versions; each path that launches them checks (KernelShapes) that every
+# shape its run launched is one
+SHAPES_HELD: dict = {"topk_wire": set(), "dist_ce": set(),
+                     "flash_attention": set()}
 
 RECORD: dict = {}
 
@@ -979,31 +1045,33 @@ def fwd_tile_pairs(T: int, S: int, causal: bool, window: int, d: int) -> int:
     return pairs
 
 
-def _sdpa(q, k, v):
-    """The library yardstick: one causal scaled_dot_product_attention call
-    on the same tensors, viewed (B, H, T, d); GQA (fewer KV heads) through
-    ``enable_gqa``."""
+def _sdpa(q, k, v, causal: bool = True):
+    """The library yardstick: one scaled_dot_product_attention call on the
+    same tensors, viewed (B, H, T, d), causal or not as the case; GQA
+    (fewer KV heads) through ``enable_gqa``."""
     gqa = {"enable_gqa": True} if k.shape[2] != q.shape[2] else {}
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, **gqa)
+        is_causal=causal, **gqa)
 
 
-def _flash_timing(dev, g, B, T, H, d, iters: int, KV: int = 0) -> tuple:
+def _flash_timing(dev, g, B, T, H, d, iters: int, KV: int = 0, S: int = 0,
+                  causal: bool = True) -> tuple:
     """Kernel, plain and library times of the forward and of the backward
-    alone at (B, T, H, d), causal, f32; MHA, or GQA with ``KV`` heads."""
-    KV = KV or H
+    alone at (B, T, S, H, d), f32, causal unless asked; MHA, or GQA with
+    ``KV`` heads; S = T unless given."""
+    KV, S = KV or H, S or T
     q, do = (torch.randn(B, T, H, d, generator=g, device=dev)
              for _ in range(2))
-    k, v = (torch.randn(B, T, KV, d, generator=g, device=dev)
+    k, v = (torch.randn(B, S, KV, d, generator=g, device=dev)
             for _ in range(2))
-    o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=True)
-    (fb, fby), (bb, bby), fl_f, fl_b = _flash_bounds(B, T, T, H, KV, d, True,
-                                                     0, 4)
+    o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=causal)
+    (fb, fby), (bb, bby), fl_f, fl_b = _flash_bounds(B, T, S, H, KV, d,
+                                                     causal, 0, 4)
     # the plain and library backward alone: autograd on one saved graph
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    o_plain = FA.flash_attention_plain(*leaves, causal=True)
-    o_lib = _sdpa(*leaves)
+    o_plain = FA.flash_attention_plain(*leaves, causal=causal)
+    o_lib = _sdpa(*leaves, causal=causal)
 
     def plain_bwd():
         torch.autograd.grad(o_plain, leaves, do, retain_graph=True)
@@ -1013,18 +1081,20 @@ def _flash_timing(dev, g, B, T, H, d, iters: int, KV: int = 0) -> tuple:
                             retain_graph=True)
 
     # the forward computes whole tiles, at mma.sync's rate at best
-    tiles = 4 * B * H * d * fwd_tile_pairs(T, T, True, 0, d)
-    fwd = {"shape": [B, T, H, KV, d], "gflop": fl_f / 1e9,
+    tiles = 4 * B * H * d * fwd_tile_pairs(T, S, causal, 0, d)
+    shape = [B, T, S, H, KV, d, causal]
+    fwd = {"shape": shape, "gflop": fl_f / 1e9,
            "mma_sync_floor_ms": 3 * tiles / MMA_SYNC_TF32 * 1e3,
            "ms": time_ms(lambda: FA.flash_attention_fwd_kernel(
-               q, k, v, causal=True), iters=iters),
+               q, k, v, causal=causal), iters=iters),
            "plain_ms": time_ms(lambda: FA.flash_attention_plain(
-               q, k, v, causal=True), iters=iters, warmup=2),
+               q, k, v, causal=causal), iters=iters, warmup=2),
            "bound_ms": fb, "bound_by": fby,
-           "library_ms": time_ms(lambda: _sdpa(q, k, v), iters=iters)}
-    bwd = {"shape": [B, T, H, KV, d], "gflop": fl_b / 1e9,
+           "library_ms": time_ms(lambda: _sdpa(q, k, v, causal),
+                                 iters=iters)}
+    bwd = {"shape": shape, "gflop": fl_b / 1e9,
            "ms": time_ms(lambda: FA.flash_attention_bwd_kernel(
-               q, k, v, o, lse, do, causal=True, window=0), iters=iters),
+               q, k, v, o, lse, do, causal=causal, window=0), iters=iters),
            "plain_ms": time_ms(plain_bwd, iters=iters, warmup=2),
            "bound_ms": bb, "bound_by": bby,
            "library_ms": time_ms(lib_bwd, iters=iters)}
@@ -1082,11 +1152,13 @@ def phase_flash(dev) -> list:
     below). Cases: the hybrid path's shared block, ragged T, GQA with a
     sliding window at gemma3 / qwen2.5 widths and T = 4096, d = 256,
     non-causal S != T, rows with no key in their band (T > S + window),
-    bf16 inputs, arctic-480b's GQA with G = 7, and lm_hetero's two
-    transformers (d = 32, GQA G = 2, T = 12, with and without its
-    sliding window). Timed at the path's shape,
-    at zamba2's context, T = 4096, and at arctic's shape against SDPA with
-    ``enable_gqa``."""
+    bf16 inputs, arctic-480b's GQA with G = 7, the cross-attention
+    path's five shapes (XATTN_FLASH) and lm_hetero's two transformers (d
+    = 32, GQA G = 2, T = 12, with and without its sliding window); each
+    case's shape goes into SHAPES_HELD. Timed at the path's shape, at
+    zamba2's context, T = 4096, at arctic's shape against SDPA with
+    ``enable_gqa``, and at XATTN_FLASH's shapes against SDPA with each
+    case's causality."""
     g = torch.Generator(device=dev).manual_seed(7)
     names = ("o", "lse", "dq", "dk", "dv")
     record, err_f, err_b = [], 0.0, 0.0
@@ -1104,6 +1176,8 @@ def phase_flash(dev) -> list:
         grads = FA.flash_attention_bwd_kernel(q, k, v, o, lse, do,
                                               causal=causal, window=window)
         torch.cuda.synchronize()
+        SHAPES_HELD["flash_attention"].add(flash_key(q, k, v, causal,
+                                                     window))
         leaves = [x.double().requires_grad_() for x in (q, k, v)]
         o2 = FA.flash_attention_plain(*leaves, causal=causal, window=window)
         grads2 = torch.autograd.grad(o2, leaves, do.double())
@@ -1158,15 +1232,29 @@ def phase_flash(dev) -> list:
             f"library (SDPA, enable_gqa) {x['library_ms']:.3f}, 3xTF32 "
             f"bound {x['bound_ms']:.4f} {x['bound_by']}, "
             f"{x['gflop']:.2f} GFLOP)")
+    at_x = {"fwd": {}, "bwd": {}}
+    for name, (b, t, s_, h, kv, dd), causal in XATTN_FLASH:
+        xf, xb = _flash_timing(dev, g, b, t, h, dd, iters=10, KV=kv, S=s_,
+                               causal=causal)
+        at_x["fwd"][name], at_x["bwd"][name] = xf, xb
+        torch.cuda.empty_cache()
+        for nm, x in (("fwd", xf), ("bwd", xb)):
+            log(f"flash_attention timing {nm} at {name} (B, T, S, H, KV, d) "
+                f"= {(b, t, s_, h, kv, dd)} causal={causal}: "
+                f"{x['ms']:.3f} ms (plain {x['plain_ms']:.3f}, library "
+                f"(SDPA{', enable_gqa' if kv != h else ''}) "
+                f"{x['library_ms']:.3f}, 3xTF32 bound {x['bound_ms']:.4f} "
+                f"{x['bound_by']}, {x['gflop']:.2f} GFLOP)")
     RECORD["sdpa_kernels"] = _sdpa_kernels(dev, g, *FLASH_SHAPE)
     RECORD["sdpa_kernels_arctic"] = _sdpa_kernels(dev, g, B, T, H, d, KV)
     log(f"flash_attention library yardstick: scaled_dot_product_attention "
         f"at {FLASH_SHAPE} causal f32 runs {RECORD['sdpa_kernels']}; at "
         f"arctic's {FLASH_ARCTIC} it runs {RECORD['sdpa_kernels_arctic']}")
     return [{**FA.INFO_FWD, **fwd, "max_abs_err": err_f,
-             "at_T4096": fwd_l, "at_arctic": fwd_a},
+             "at_T4096": fwd_l, "at_arctic": fwd_a, "at_xattn": at_x["fwd"]},
             {**FA.INFO_BWD, **bwd, "max_abs_err": err_b,
-             "at_T4096": bwd_l, "at_arctic": bwd_a}]
+             "at_T4096": bwd_l, "at_arctic": bwd_a,
+             "at_xattn": at_x["bwd"]}]
 
 
 def _dist_ce_library(s, t):
@@ -2290,7 +2378,9 @@ def _adaptive_frame(dev, g, W: int, N: int, V: int, label: str) -> dict:
     V columns, encoded on the card and by the same encoder on CPU tensors:
     byte-identical outside the lse lane, k_per_token identical, entries
     within budget·N. Its indices travel as u16 up to V = 65,535 and as u32
-    above."""
+    above. Its bound: the heads read once and the frame written once, or
+    three f32 operations an entry (as topk_wire's: max, exp, sum), the
+    larger."""
     heads = torch.randn(W, LM_H, N, V, generator=g, device=dev) * 2
     heads[:, :, :N // 4, 7] += 25.0  # a quarter of the tokens near-certain
     outs = {"logits": heads[:, 0], "aux_logits": heads[:, 1:]}
@@ -2322,6 +2412,8 @@ def _adaptive_frame(dev, g, W: int, N: int, V: int, label: str) -> dict:
     kt = b["k_per_token"].astype(np.int64)
     entry_bytes = b["vals"].nbytes + b["idx"].nbytes
     budget = LM_COMM["budget_bytes_per_token"] * W * N
+    entries = W * LM_H * N * V
+    b_ms, b_by = bound(entries * 4 + len(on_card), 3 * entries)
     check(entry_bytes <= budget,
           f"adaptive wire {label}: entries {entry_bytes} B > budget "
           f"{budget} B")
@@ -2331,8 +2423,10 @@ def _adaptive_frame(dev, g, W: int, N: int, V: int, label: str) -> dict:
         f"(lse max|d|={np.abs(a['lse'] - b['lse']).max():.3g}); idx "
         f"{b['idx'].dtype}, largest {int(b['idx'].max())}; k per token "
         f"{kt.min()}..{kt.max()}, mean {kt.mean():.3f}; entries "
-        f"{entry_bytes} B <= budget {budget} B")
+        f"{entry_bytes} B <= budget {budget} B; bound {b_ms:.4f} ms "
+        f"{b_by}")
     return {"shape": [W, LM_H, N, V], "frame_bytes": len(on_card),
+            "bound_ms": b_ms, "bound_by": b_by,
             "entry_bytes": entry_bytes, "budget_bytes": budget,
             "idx_dtype": str(b["idx"].dtype), "card_s": t_card,
             "cpu_tensors_s": t_cpu}
@@ -2358,29 +2452,42 @@ def phase_adaptive_wire(dev) -> None:
                                                        DS_VOCAB, "deepseek")
 
 
+def flash_key(q, k, v=None, causal: bool = True, window: int = 0) -> tuple:
+    """A flash_attention launch's SHAPES_HELD key: (B, T, S, H, KV, d,
+    causal, window, dtype)."""
+    B, T, H, d = q.shape
+    return (B, T, k.shape[1], H, k.shape[2], d, bool(causal), int(window),
+            str(q.dtype))
+
+
 class KernelShapes:
-    """While a path trains: the shape each launch of topk_wire's and
-    dist_ce's forward kernel was given, keyed as in SHAPES_HELD (dist_ce's
-    backward takes its forward's inputs). The wrappers look their kernels
-    up in their modules at each call, so replacing the module attribute
-    sees every launch; the counts stay the wrappers' own."""
+    """While a path trains: the shape each launch of topk_wire's,
+    dist_ce's and flash_attention's forward kernel was given, keyed as in
+    SHAPES_HELD (each backward takes its forward's inputs). The wrappers
+    look their kernels up in their modules at each call, so replacing the
+    module attribute sees every launch; the counts stay the wrappers'
+    own. ``check(label)`` fails a launch at a shape no kernel phase
+    held; ``record()`` gives each shape with its launches."""
 
     # (module, kernel wrapper, SHAPES_HELD key, shape of the call's args)
     WATCH = [(TOPK, "topk_wire_kernel", "topk_wire",
               lambda x, k: (*x.shape, k)),
              (DCE, "dist_ce_fwd_kernel", "dist_ce",
-              lambda s, t: (*s.shape, str(s.dtype), str(t.dtype)))]
+              lambda s, t: (*s.shape, str(s.dtype), str(t.dtype))),
+             (FA, "flash_attention_fwd_kernel", "flash_attention",
+              flash_key)]
 
     def __enter__(self):
-        self.seen = {key: set() for _, _, key, _ in self.WATCH}
+        self.seen = {key: collections.Counter()
+                     for _, _, key, _ in self.WATCH}
         self.orig = []
         for mod, name, key, shape in self.WATCH:
             fn = getattr(mod, name)
             self.orig.append((mod, name, fn))
 
-            def watched(*args, _fn=fn, _key=key, _shape=shape):
-                self.seen[_key].add(_shape(*args))
-                return _fn(*args)
+            def watched(*args, _fn=fn, _key=key, _shape=shape, **kw):
+                self.seen[_key][_shape(*args, **kw)] += 1
+                return _fn(*args, **kw)
 
             setattr(mod, name, watched)
         return self
@@ -2388,6 +2495,16 @@ class KernelShapes:
     def __exit__(self, *exc):
         for mod, name, fn in self.orig:
             setattr(mod, name, fn)
+
+    def check(self, label: str) -> None:
+        for key, seen in self.seen.items():
+            missed = sorted(set(seen) - SHAPES_HELD[key])
+            check(not missed, f"{label}: {key} launched at {missed}, where "
+                  f"no kernel phase held it against its plain version")
+
+    def record(self) -> dict:
+        return {k: sorted([*shape, n] for shape, n in v.items())
+                for k, v in self.seen.items()}
 
 
 def phase_lm_path(dev, cfg, label: str, kernels, n_clients: int = LM_K,
@@ -2436,10 +2553,7 @@ def phase_lm_path(dev, cfg, label: str, kernels, n_clients: int = LM_K,
         ev = trainer.evaluate(test)
         eval_s = time.perf_counter() - a
     counts = ops.launch_counts()
-    for key, seen in shapes.seen.items():
-        missed = sorted(seen - SHAPES_HELD[key])
-        check(not missed, f"{label} path: {key} launched at {missed}, where "
-              f"no kernel phase held it against its plain version")
+    shapes.check(f"{label} path")
 
     distilled = [[int(mt[f"c{i}/distill_active"]) for mt in history]
                  for i in range(n_clients)]
@@ -2490,7 +2604,7 @@ def phase_lm_path(dev, cfg, label: str, kernels, n_clients: int = LM_K,
         "frame_bytes_mean": statistics.mean(len(p) for p in transport.frames),
         "entry_bytes_per_token": statistics.mean(entry_bytes) / (W * N),
         "distilled": distilled, "params_per_client": n_params,
-        "kernel_shapes": {k: sorted(v) for k, v in shapes.seen.items()},
+        "kernel_shapes": shapes.record(),
         "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "beta": {k: v for k, v in ev.items() if k.startswith("mean/")},
         "loss": [[mt[f"c{i}/loss"] for i in range(n_clients)]
@@ -2784,7 +2898,10 @@ def phase_moe_path(dev) -> dict:
     t0 = time.perf_counter()
     spec = EXP.get_preset("lm_hetero")
     ops.reset_launch_counts()
-    out = {"inprocess": _hetero_inprocess(dev, spec, script)}
+    with KernelShapes() as shapes:
+        out = {"inprocess": _hetero_inprocess(dev, spec, script)}
+    shapes.check("moe (a)")
+    out["inprocess"]["kernel_shapes"] = shapes.record()
     torch.cuda.empty_cache()
     out["procs"] = _hetero_procs(dev, spec, script)
     counts = dict(ops.launch_counts())
@@ -2958,6 +3075,242 @@ def phase_deepseek_path(dev) -> dict:
     return out
 
 
+def attn_calls(cfg) -> int:
+    """flash_attention calls in one forward of ``cfg``: every self-, cross
+    and shared attention layer, the decoder's cross sublayers and the
+    encoder's layers."""
+    n = 0
+    for st in cfg.stages:
+        for sp in st.block:
+            n += st.repeats * ((sp.attn in ("full", "swa", "cross")
+                                and cfg.mla is None)
+                               + sp.shared_attn + sp.cross_attn)
+    return n + (cfg.encoder.num_layers if cfg.audio is not None else 0)
+
+
+class GradWatch:
+    """An optimizer that reads the largest |gradient| of some leaves
+    before it hands every gradient to ``opt``'s update: what the train step
+    computed, seen where it is consumed."""
+
+    def __init__(self, opt: Optimizer, keys):
+        self.keys, self.steps = list(keys), []
+        self.opt = Optimizer(init=opt.init, update=self._update)
+        self._inner = opt
+
+    def _update(self, grads, state, params, step):
+        self.steps.append({k: float(grads[k].abs().max())
+                           for k in self.keys})
+        return self._inner.update(grads, state, params, step)
+
+
+def _step_profile(step_fn, state, batch, name: str, vocab: int) -> tuple:
+    """One more train step under torch.profiler: the device time by
+    kernel and by op. Categories: ``flash_attention`` (its kernels by
+    name); ``heads`` (every op with an input dimension that is a multiple
+    of the vocabulary: the tied or untied head's GEMMs, the aux heads'
+    one product of m·V columns, the softmax CE and their backward); ``gemm`` (the other matmuls: projections, FFNs, the front
+    ends); ``other`` (norms, activations, residual adds, copies). The
+    table goes to chiprun_out/profile_<name>.txt. Returns (state, row)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mm = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    flash = sum(e.self_device_time_total for e in kernels
+                if "flash_attention" in e.key)
+    rows = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                   if e.device_type == DeviceType.CPU
+                   and e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    def head(e) -> bool:
+        return any(isinstance(n, int) and n and n % vocab == 0
+                   for sh in e.input_shapes if sh for n in sh)
+
+    heads = sum(e.self_device_time_total for e in rows if head(e))
+    gemm = sum(e.self_device_time_total for e in rows
+               if e.key in mm and not head(e))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"profile_{name}.txt").write_text(prof.key_averages(
+        group_by_input_shape=True).table(sort_by="self_device_time_total",
+                                         row_limit=60))
+    by = {"gemm": gemm, "heads": heads, "flash_attention": flash,
+          "other": busy - gemm - heads - flash}
+    top = [{"op": e.key, "shapes": str(e.input_shapes)[:160],
+            "calls": e.count, "device_us": e.self_device_time_total}
+           for e in rows[:20]]
+    log(f"profile {name}: one step, wall {wall_us / 1e3:.1f} ms, device "
+        f"busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f} %), "
+        f"{sum(e.count for e in kernels)} kernel launches; by op: " +
+        ", ".join(f"{k} {v / 1e3:.1f} ms ({100 * v / max(busy, 1):.1f} %)"
+                  for k, v in by.items()))
+    for row in top[:12]:
+        log(f"  {row['device_us'] / 1e3:8.2f} ms {row['calls']:6d}x "
+            f"{row['op']} {row['shapes']}")
+    return state, {"wall_us": wall_us, "busy_us": busy, "by_op_us": by,
+                   "ops": top, "loss": float(metrics["loss"]),
+                   "launches": sum(e.count for e in kernels)}
+
+
+def _xattn_model(dev, cfg, seq_len: int, label: str) -> dict:
+    """One model through the launcher's train state and step on the card:
+    its params drawn there, one warm-up step, XATTN_STEPS timed steps and
+    a profiled one, each a fresh batch of `supervised_batch`'s draws
+    (``seq_len``: the encoder's frames for whisper, the tokens for
+    llama-vision). The loss and ce of every step finite; flash_attention
+    launched exactly twice per attention call a step forward (each unit
+    runs again under remat) and once backward, at shapes the kernel phase
+    held. The front end live: its projection's gradients nonzero and
+    finite — for llama-vision, whose cross gates start at 0 (tanh(0) = 0
+    multiplies the cross layer away, so no gradient reaches it at step 0),
+    every gate moved after step 0 and ``vision_proj``'s and the cross
+    layer's ``wk`` gradients nonzero from step 1 — and, after the steps,
+    other embeddings (or frames) change the logits. The peak is reckoned
+    before the run: four f32 copies of the params (params, grads, AdamW's
+    two moments) and the update's transient of four copies of the largest
+    leaf; activations come on top."""
+    sizes = _leaf_bytes(cfg)
+    n_bytes = sum(sizes)
+    reckoned = (4 * n_bytes + 4 * sizes[0]) / 2**30
+    audio = cfg.audio is not None
+    front = "audio_proj" if audio else "vision_proj"
+    calls = attn_calls(cfg)
+    runs = 2 if cfg.remat != "none" else 1  # remat runs each unit again
+    log(f"xattn {label}: {cfg.name}, {n_bytes / 4e6:.1f} M params, "
+        f"{cfg.num_layers} decoder layers"
+        + (f" + {cfg.encoder.num_layers} encoder layers" if audio else "")
+        + f", vocab {cfg.vocab_size}; B = {XATTN_BATCH} x {seq_len} "
+        f"{'frames' if audio else 'tokens'}; {calls} attention calls a "
+        f"forward; reckoned peak {reckoned:.1f} GiB (4 x "
+        f"{n_bytes / 2**30:.2f} GiB + the update's 4 x "
+        f"{sizes[0] / 2**30:.2f} GiB) before activations")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_bundle(cfg)
+    keys = [front] + ([] if audio else ["stage0/layer0/attn/wk"])
+    watch = GradWatch(make_optimizer(OptimizerConfig(**XATTN_OPTIMIZER)),
+                      keys)
+    t0 = time.perf_counter()
+    state = init_train_state(bundle, watch.opt, seed=XATTN_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gates = sorted(k for k in state["params"] if k.endswith("cross_gate"))
+    check(audio or len(gates) == 1, f"xattn {label}: cross gates {gates}")
+    step_fn = make_train_step(bundle, watch.opt)
+    rng = np.random.default_rng(XATTN_SEED)
+    steps = []
+    with KernelShapes() as shapes:
+        for t in range(1 + XATTN_STEPS):
+            batch = supervised_batch(rng, cfg, XATTN_BATCH, seq_len, dev)
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            row = {k: float(v) for k, v in metrics.items()}
+            row["s"] = time.perf_counter() - a
+            after = ops.launch_counts()
+            row["flash"] = [after[n] - before[n] for n in XATTN_KERNELS]
+            row["grad_max"] = watch.steps[-1]
+            row["gates"] = [float(state["params"][k].abs().max())
+                            for k in gates]
+            steps.append(row)
+            _finite({k: row[k] for k in ("loss", "ce", "aux_loss")},
+                    f"xattn {label}: step {t}")
+            check(row["flash"] == [runs * calls, calls],
+                  f"xattn {label}: step {t} flash_attention launches "
+                  f"{row['flash']} != [{runs * calls}, {calls}]")
+            log(f"xattn {label}: step {t} loss {row['loss']:.4f} (ce "
+                f"{row['ce']:.4f}) in {row['s']:.3f} s; flash_attention "
+                f"fwd/bwd {row['flash']}; max |grad| " + ", ".join(
+                    f"{k} {v:.3g}" for k, v in row["grad_max"].items())
+                + (f"; |cross_gate| {row['gates']}" if gates else ""))
+        state, prof = _step_profile(step_fn, state, supervised_batch(
+            rng, cfg, XATTN_BATCH, seq_len, dev), label, cfg.vocab_size)
+        # the front end reaches the logits: the last batch with other
+        # embeddings (or frames), drawn from another stream
+        other = dict(batch)
+        key = "audio_frames" if audio else "vision_embeds"
+        other[key] = torch.from_numpy(np.random.default_rng(
+            XATTN_SEED + 1).standard_normal(tuple(batch[key].shape)).astype(
+            np.float32)).to(dev)
+        with torch.no_grad():
+            lo = bundle.apply(state["params"], batch)["logits"]
+            lo2 = bundle.apply(state["params"], other)["logits"]
+            moved = float((lo - lo2).abs().max())
+            finite = bool(torch.isfinite(lo).all())
+        del lo, lo2
+    shapes.check(f"xattn {label}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(finite, f"xattn {label}: logits finite")
+    check(moved > 0, f"xattn {label}: other {key} change the logits "
+          f"({moved})")
+    for t, row in enumerate(steps):
+        for k, v in row["grad_max"].items():
+            check(math.isfinite(v), f"xattn {label}: {k} gradient finite "
+                  f"at step {t}")
+            if audio or t >= 1:
+                check(v > 0, f"xattn {label}: {k} gradient nonzero at step "
+                      f"{t} ({v})")
+        if gates:
+            check(all(g > 0 for g in row["gates"]),
+                  f"xattn {label}: cross_gate moved after step {t} "
+                  f"{row['gates']}")
+    med = statistics.median(r["s"] for r in steps[1:])
+    log(f"xattn {label}: init {init_s:.2f} s; step median {med:.3f} s "
+        f"(warm-up {steps[0]['s']:.3f} s); card peak {peak:.1f} GiB "
+        f"(reckoned {reckoned:.1f} before activations); other {key} move "
+        f"the logits by up to {moved:.4g}; flash_attention at "
+        f"{shapes.record()['flash_attention']} (shape, launches)")
+    return {"config": cfg.name, "params": n_bytes // 4,
+            "reckoned_gib": reckoned, "init_s": init_s, "steps": steps,
+            "step_median_s": med, "max_memory_gib": peak,
+            "logits_moved": moved, "attn_calls": calls,
+            "kernel_shapes": shapes.record(), "profile": prof}
+
+
+def phase_xattn_path(dev) -> dict:
+    """The cross-attention path (`launch.train`'s supervised mode): (a)
+    whisper-large-v3 uncut, (b) llama-3.2-vision-90b cut to its gated
+    cross layer and one self-attention layer at vocabulary 32,000, each
+    through `_xattn_model`. The counts are set to 0 just before (a) and
+    read just after (b); flash_attention forward and backward must have
+    launched."""
+    t0 = time.perf_counter()
+    log(f"xattn path: {WHISPER_ARCH} at {WHISPER_CFG.num_layers} + "
+        f"{WHISPER_CFG.encoder.num_layers} layers; {LLAMA_V_ARCH} at full "
+        f"width, cut in depth from {_LLAMA_V_FULL.num_layers} to "
+        f"{LLAMA_V_CFG.num_layers} layers "
+        f"({[sp.attn for sp in LLAMA_V_CFG.stages[0].block]}) and in "
+        f"vocabulary from {_LLAMA_V_FULL.vocab_size} to "
+        f"{LLAMA_V_CFG.vocab_size}; AdamW lr "
+        f"{XATTN_OPTIMIZER['init_lr']}, f32")
+    ops.reset_launch_counts()
+    out = {"whisper": _xattn_model(dev, WHISPER_CFG, WHISPER_FRAMES,
+                                   "whisper")}
+    torch.cuda.empty_cache()
+    out["llama_vision"] = _xattn_model(dev, LLAMA_V_CFG, LLAMA_V_TOKENS,
+                                       "llama-vision")
+    out["counts"] = counts = ops.launch_counts()
+    for name in XATTN_KERNELS:
+        check(counts[name] > 0, f"xattn path: kernel {name} launched "
+              f"({counts[name]})")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"xattn phase: {out['seconds']:.1f} s; launches {counts}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -3006,9 +3359,11 @@ def main() -> int:
     moe_path = phase_moe_path(dev)
     torch.cuda.empty_cache()
     deepseek_path = phase_deepseek_path(dev)
+    torch.cuda.empty_cache()
+    xattn_path = phase_xattn_path(dev)
     paths = {"resnet": resnet, "exp": exp_path["mhd"], "fleet": fleet_path,
              "socket": socket_path, "lm": lm_path, "zamba2": zamba_path,
-             "moe": moe_path, "deepseek": deepseek_path}
+             "moe": moe_path, "deepseek": deepseek_path, "xattn": xattn_path}
     for k in kernels:
         k["launches_by_path"] = {p: r["counts"][k["name"]]
                                  for p, r in paths.items()}
@@ -3016,7 +3371,7 @@ def main() -> int:
     RECORD.update(kernels=kernels, resnet_path=resnet, exp_path=exp_path,
                   fleet_path=fleet_path, socket_path=socket_path,
                   lm_path=lm_path, zamba2_path=zamba_path, moe_path=moe_path,
-                  deepseek_path=deepseek_path,
+                  deepseek_path=deepseek_path, xattn_path=xattn_path,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,10 +1,11 @@
-"""Architecture config registry (``repro/configs/__init__.py``), over the
-architectures the port runs so far: the paper's ResNets, mamba2-370m,
-zamba2-7b, gemma3-12b, arctic-480b and deepseek-v3-671b.
+"""Architecture config registry (``repro/configs/__init__.py``): the
+paper's ResNets and every assigned LM architecture, each config a copy of
+the reference's.
 
 Every entry exposes ``full()`` (the exact configuration) and ``reduced()``
 (the CPU-scale variant the parity tests use); ``get_config(name)`` /
-``get_reduced(name)`` look them up.
+``get_reduced(name)`` look them up, and ``arch_ids()`` lists the LM
+architectures in the reference's order (``--arch`` of `launch/train.py`).
 """
 from __future__ import annotations
 
@@ -14,8 +15,32 @@ from repro_torch.common.registry import Registry
 
 ARCHS = Registry("architecture")
 
-_MODULES = ["arctic_480b", "deepseek_v3_671b", "gemma3_12b", "mamba2_370m",
-            "resnet", "zamba2_7b"]
+_MODULES = [
+    "gemma3_27b",
+    "gemma3_12b",
+    "llama_3_2_vision_90b",
+    "qwen2_5_32b",
+    "mamba2_370m",
+    "minitron_4b",
+    "whisper_large_v3",
+    "deepseek_v3_671b",
+    "zamba2_7b",
+    "arctic_480b",
+    "resnet",
+]
+
+ARCH_IDS = [
+    "gemma3-27b",
+    "gemma3-12b",
+    "llama-3.2-vision-90b",
+    "qwen2.5-32b",
+    "mamba2-370m",
+    "minitron-4b",
+    "whisper-large-v3",
+    "deepseek-v3-671b",
+    "zamba2-7b",
+    "arctic-480b",
+]
 
 
 def _load():
@@ -34,4 +59,8 @@ def get_reduced(name: str):
     return ARCHS.get(name)["reduced"]()
 
 
-__all__ = ["ARCHS", "get_config", "get_reduced"]
+def arch_ids():
+    return list(ARCH_IDS)
+
+
+__all__ = ["ARCHS", "ARCH_IDS", "arch_ids", "get_config", "get_reduced"]

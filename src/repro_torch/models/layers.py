@@ -1,6 +1,6 @@
 """Core neural layers for the LM path (port of ``repro/models/layers.py``):
-initializers, norms, RoPE, the MLP, self-attention and the Mamba2 causal
-conv.
+initializers, norms, RoPE, the MLP, self-, bidirectional and cross
+attention and the Mamba2 causal conv.
 
 Parameters are flat dicts of tensors keyed as the reference's pytrees
 flatten (``"scale"``, ``"w"``, ``"wq"``, ``"q_norm/scale"`` ...). Dense
@@ -12,9 +12,10 @@ the reference accumulates in f32.
 Attention runs through `kernels.ops.flash_attention` at every length: the
 reference picks between a dense score matrix and a query-block scan by
 size (``attention_scores`` / ``_blockwise_attention``), a memory lever of
-the same value that the kernel replaces. Cross attention and
-``logit_softcap`` raise NotImplementedError naming the ROADMAP item that
-ports them; decode comes with serving.
+the same value that the kernel replaces. Cross attention takes K and V
+from ``kv_src`` (B, S, ·) and calls the kernel non-causal with S ≠ T.
+``logit_softcap`` raises NotImplementedError naming the ROADMAP item that
+ports it; decode comes with serving.
 """
 from __future__ import annotations
 
@@ -128,7 +129,7 @@ def mlp_apply(params: Params, x: Tensor, act: str = "silu") -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA; full and sliding-window self-attention)
+# attention (GQA; full / sliding-window / bidirectional / cross)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -139,10 +140,9 @@ class AttnDims:
     head_dim: int
     qkv_bias: bool = False
     qk_norm: bool = False
+    kv_input_dim: Optional[int] = None  # cross-attn: K/V source dim
 
 
-_CROSS = "ROADMAP Queue 1 item 13 (cross attention, with the modality " \
-         "front ends)"
 _SOFTCAP = "ROADMAP Queue 2 item 2.5 (logit_softcap: no configuration " \
            "sets it, and the flash_attention kernel does not apply it)"
 
@@ -150,9 +150,10 @@ _SOFTCAP = "ROADMAP Queue 2 item 2.5 (logit_softcap: no configuration " \
 def init_attention(gen: torch.Generator, dims: AttnDims,
                    dtype=torch.float32) -> Params:
     H, KV, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    kv_in = dims.kv_input_dim or dims.d_model
     params = {"wq": dense_init(gen, dims.d_model, H * hd, dtype),
-              "wk": dense_init(gen, dims.d_model, KV * hd, dtype),
-              "wv": dense_init(gen, dims.d_model, KV * hd, dtype),
+              "wk": dense_init(gen, kv_in, KV * hd, dtype),
+              "wv": dense_init(gen, kv_in, KV * hd, dtype),
               "wo": dense_init(gen, H * hd, dims.d_model, dtype)}
     if dims.qkv_bias:
         params["bq"] = torch.zeros(H * hd, dtype=dtype)
@@ -164,14 +165,16 @@ def init_attention(gen: torch.Generator, dims: AttnDims,
     return params
 
 
-def _project_qkv(params: Params, dims: AttnDims, x: Tensor,
-                 positions: Tensor, rope_theta: Optional[float]):
-    """q (B, T, H, hd), k and v (B, T, KV, hd) from x (B, T, D): bias,
-    per-head RMSNorm of q and k, then RoPE on both."""
+def _project_qkv(params: Params, dims: AttnDims, x: Tensor, kv_src: Tensor,
+                 positions: Tensor, kv_positions: Tensor,
+                 rope_theta: Optional[float]):
+    """q (B, T, H, hd) from x (B, T, D), k and v (B, S, KV, hd) from
+    kv_src (B, S, ·): bias, per-head RMSNorm of q and k, then RoPE on both
+    (q at ``positions``, k at ``kv_positions``)."""
     H, KV, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
     q = (x @ params["wq"]).to(x.dtype)
-    k = (x @ params["wk"]).to(x.dtype)
-    v = (x @ params["wv"]).to(x.dtype)
+    k = (kv_src @ params["wk"]).to(x.dtype)
+    v = (kv_src @ params["wv"]).to(x.dtype)
     if dims.qkv_bias:
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
@@ -184,7 +187,7 @@ def _project_qkv(params: Params, dims: AttnDims, x: Tensor,
         k = norm_apply({"scale": params["k_norm/scale"]}, k, "rmsnorm")
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        k = apply_rope(k, kv_positions, rope_theta)
     return q, k, v
 
 
@@ -192,22 +195,29 @@ def attention_apply(params: Params, dims: AttnDims, x: Tensor, *,
                     mask_kind: str = "causal", window: int = 0,
                     rope_theta: Optional[float] = 10_000.0,
                     kv_src: Optional[Tensor] = None,
+                    positions: Optional[Tensor] = None,
+                    kv_positions: Optional[Tensor] = None,
                     logit_softcap: Optional[float] = None) -> Tensor:
-    """Causal self-attention over full sequences (training / prefill) at
-    positions 0..T−1, through the ``flash_attention`` kernel. mask_kind:
-    causal | swa (keys within ``window`` of the query)."""
-    if kv_src is not None:
-        raise NotImplementedError(f"cross attention is not ported yet: "
-                                  f"{_CROSS}")
+    """Self- or cross-attention over full sequences (training / prefill),
+    through the ``flash_attention`` kernel. K and V come from ``kv_src``
+    (B, S, ·), x itself when None; positions default to 0..T−1 and
+    0..S−1. mask_kind: causal | swa (keys within ``window`` of the query)
+    | none (every key: the encoder and cross attention)."""
     if logit_softcap is not None:
         raise NotImplementedError(f"attention logit_softcap is not ported "
                                   f"yet: {_SOFTCAP}")
-    if mask_kind not in ("causal", "swa"):
+    if mask_kind not in ("causal", "swa", "none"):
         raise ValueError(mask_kind)
     B, T = x.shape[0], x.shape[1]
-    positions = torch.arange(T, device=x.device)[None]
-    q, k, v = _project_qkv(params, dims, x, positions, rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True,
+    kv_src = x if kv_src is None else kv_src
+    S = kv_src.shape[1]
+    if positions is None:
+        positions = torch.arange(T, device=x.device)[None]
+    if kv_positions is None:
+        kv_positions = torch.arange(S, device=x.device)[None]
+    q, k, v = _project_qkv(params, dims, x, kv_src, positions, kv_positions,
+                           rope_theta)
+    out = ops.flash_attention(q, k, v, causal=mask_kind != "none",
                               window=window if mask_kind == "swa" else 0)
     out = out.reshape(B, T, dims.num_heads * dims.head_dim)
     return (out @ params["wo"]).to(x.dtype)

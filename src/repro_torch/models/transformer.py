@@ -14,7 +14,16 @@ applied after the layer's own mixer wherever a layer asks for it), and
 DeepSeek's multi-token prediction (``cfg.mtp``: ``mtp/proj`` (2D, D),
 ``mtp/norm`` and one unstacked full-attention dense layer ``mtp/layer``
 predicting token t+2 from [h_t ; emb(token t+1)]; ``lm_loss`` adds 0.3 of
-its CE).
+its CE), and the
+encoder-decoder and vision pieces: llama-vision's gated cross-attention
+layer (``attn="cross"``: ``attn``, ``attn_norm`` and a 0-d ``cross_gate``
+stacked to (repeats,), adding tanh(gate)·attn(h, vision) without RoPE),
+whisper's decoder cross sublayer (``cross_attn=True``: ``xattn``,
+``xattn_norm``, attending to the encoder's output), the front ends
+(``vision_proj`` over stub patch embeddings; ``audio_proj`` and the
+``encoder/`` subtree, bidirectional full-attention dense layers under
+sinusoidal positions and ``encoder/final_norm``), and learned
+(``pos_embed``) and sinusoidal positions.
 
 Depth is organized as the reference's *stages* of repeat-units. Each leaf
 of a stage keeps the reference's stacked layout, with a leading
@@ -32,6 +41,7 @@ Public API (pure functions over a flat path-keyed param dict):
   apply_lm(params, cfg, batch, mtp=True)
                                      -> {"logits", "hidden", "aux_heads",
                                          "aux_loss"} (+ "mtp_hidden")
+  encode_audio(params, cfg, frames)  -> the encoder's output (B, T_enc, D)
   lm_loss(params, cfg, batch)        -> (loss, metrics)
 
 The reference's ``apply_lm`` always computes the MTP branch and its
@@ -40,10 +50,10 @@ eagerly, so ``apply_lm(..., mtp=False)`` leaves it out, and the MTP
 leaves get zero gradients there as in the reference.
 
 ``moe_impl="a2a"`` runs the scatter form, as the reference does without a
-``model`` mesh axis; the expert-parallel form is item 15. Cross
-attention, the vision and audio front ends, learned and sinusoidal
-positions and ``attn_logit_softcap`` raise NotImplementedError naming the
-ROADMAP item that ports them; decode comes with serving (item 14).
+``model`` mesh axis; the expert-parallel form is item 15.
+``attn_logit_softcap`` raises NotImplementedError naming the ROADMAP item
+that ports it; decode (with the cross caches) comes with serving (item
+14).
 """
 from __future__ import annotations
 
@@ -58,42 +68,25 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.config import LayerSpec, ModelConfig, Stage
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
-_LATER = {
-    "cross": "ROADMAP Queue 1 item 13 (cross attention, with the vision "
-             "and audio front ends)",
-    "modality": "ROADMAP Queue 1 item 13 (the vision and audio front ends)",
-    "positions": "ROADMAP Queue 1 item 13 (learned and sinusoidal "
-                 "positions, with the audio encoder)",
-    "softcap": "ROADMAP Queue 2 item 2.5 (logit_softcap: no configuration "
-               "sets it, and the flash_attention kernel does not apply it)",
-}
-
-
-def _not_yet(what: str, key: str):
-    raise NotImplementedError(f"{what} is not ported yet: {_LATER[key]}")
+_SOFTCAP = ("ROADMAP Queue 2 item 2.5 (logit_softcap: no configuration "
+            "sets it, and the flash_attention kernel does not apply it)")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    for stage in cfg.stages:
-        for spec in stage.block:
-            if spec.attn == "cross" or spec.cross_attn:
-                _not_yet("cross attention", "cross")
-    if cfg.vision is not None or cfg.audio is not None or \
-            cfg.encoder is not None:
-        _not_yet("the vision/audio front ends", "modality")
-    if cfg.pos_embed in ("learned", "sinusoidal"):
-        _not_yet(f"{cfg.pos_embed} positions", "positions")
     if cfg.attn_logit_softcap is not None:
-        _not_yet("attn_logit_softcap", "softcap")
+        raise NotImplementedError(
+            f"attn_logit_softcap is not ported yet: {_SOFTCAP}")
 
 
-# the MTP block's one layer (unstacked), MLA when the model's attention is
+# the MTP block's one layer (unstacked), MLA when the model's attention is;
+# and the encoder's (bidirectional under mask_kind_override="none")
 _MTP_LAYER = LayerSpec(attn="full", ffn="dense")
+_ENCODER_LAYER = LayerSpec(attn="full", ffn="dense")
 
 
 def _with_prefix(prefix: str, tree: Params) -> Params:
@@ -110,11 +103,13 @@ def _sub(params: Params, prefix: str) -> Params:
 # parameter init
 # ---------------------------------------------------------------------------
 
-def _attn_dims(cfg: ModelConfig) -> L.AttnDims:
+def _attn_dims(cfg: ModelConfig, cross: bool = False) -> L.AttnDims:
+    # vision tokens are projected to d_model before the cross layers
+    kv_in = cfg.d_model if cross and cfg.vision is not None else None
     return L.AttnDims(d_model=cfg.d_model, num_heads=cfg.num_heads,
                       num_kv_heads=cfg.num_kv_heads,
                       head_dim=cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
-                      qk_norm=cfg.qk_norm)
+                      qk_norm=cfg.qk_norm, kv_input_dim=kv_in)
 
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
@@ -126,6 +121,10 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     elif spec.attn in ("full", "swa"):
         p.update(_with_prefix("attn", L.init_attention(gen, _attn_dims(cfg),
                                                        dtype)))
+    elif spec.attn == "cross":
+        p.update(_with_prefix("attn", L.init_attention(
+            gen, _attn_dims(cfg, cross=True), dtype)))
+        p["cross_gate"] = torch.zeros((), dtype=dtype)  # llama-vision gate
     elif spec.attn == "mamba2":
         p.update(_with_prefix("attn", SSM.init_mamba2(gen, cfg.d_model,
                                                       cfg.mamba, dtype)))
@@ -134,6 +133,11 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     if spec.attn != "none":
         p.update(_with_prefix("attn_norm", L.init_norm(cfg.d_model, cfg.norm,
                                                        dtype)))
+    if spec.cross_attn:  # whisper decoder sublayer
+        p.update(_with_prefix("xattn", L.init_attention(gen, _attn_dims(cfg),
+                                                        dtype)))
+        p.update(_with_prefix("xattn_norm", L.init_norm(
+            cfg.d_model, cfg.norm, dtype)))
     if spec.ffn == "dense":
         p.update(_with_prefix("ffn", L.init_mlp(gen, cfg.d_model, cfg.d_ff,
                                                 cfg.act, dtype)))
@@ -166,15 +170,7 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     params.update(_with_prefix("final_norm", L.init_norm(cfg.d_model,
                                                          cfg.norm, dtype)))
     for si, stage in enumerate(cfg.stages):
-        units = []
-        for _ in range(stage.repeats):
-            unit: Params = {}
-            for li, spec in enumerate(stage.block):
-                unit.update(_with_prefix(f"layer{li}",
-                                         _init_layer(gen, cfg, spec, dtype)))
-            units.append(unit)
-        for k in units[0]:
-            params[f"stage{si}/{k}"] = torch.stack([u[k] for u in units])
+        params.update(_init_stage(gen, cfg, stage, f"stage{si}", dtype))
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                          dtype)
@@ -195,7 +191,39 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
             cfg.d_model, cfg.norm, dtype)))
         params.update(_with_prefix("mtp/layer", _init_layer(
             gen, cfg, _MTP_LAYER, dtype)))
+    if cfg.vision is not None:
+        params["vision_proj"] = L.dense_init(gen, cfg.vision.embed_dim,
+                                             cfg.d_model, dtype)
+    if cfg.audio is not None:
+        params["audio_proj"] = L.dense_init(gen, cfg.audio.frame_dim,
+                                            cfg.d_model, dtype)
+        params.update(_init_stage(gen, cfg, _encoder_stage(cfg),
+                                  "encoder/stage0", dtype))
+        params.update(_with_prefix("encoder/final_norm", L.init_norm(
+            cfg.d_model, cfg.norm, dtype)))
+    if cfg.pos_embed == "learned":
+        params["pos_embed"] = (torch.randn(
+            cfg.max_seq_len, cfg.d_model, generator=gen, device=gen.device)
+            * 0.02).to(dtype)
     return {k: v.to(device) for k, v in params.items()}
+
+
+def _init_stage(gen: torch.Generator, cfg: ModelConfig, stage: Stage,
+                prefix: str, dtype) -> Params:
+    """One stage's units, each leaf stacked over ``stage.repeats``."""
+    units = []
+    for _ in range(stage.repeats):
+        unit: Params = {}
+        for li, spec in enumerate(stage.block):
+            unit.update(_with_prefix(f"layer{li}",
+                                     _init_layer(gen, cfg, spec, dtype)))
+        units.append(unit)
+    return {f"{prefix}/{k}": torch.stack([u[k] for u in units])
+            for k in units[0]}
+
+
+def _encoder_stage(cfg: ModelConfig) -> Stage:
+    return Stage(block=(_ENCODER_LAYER,), repeats=cfg.encoder.num_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -203,10 +231,15 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def _layer_forward(lp: Params, cfg: ModelConfig, spec: LayerSpec,
-                   x: Tensor, shared: Params) -> Tuple[Tensor, Tensor]:
-    """One layer (full-sequence path) of a kind `_check_supported`
-    admits: its mixer, the shared attention block if it asks for it, then
-    its FFN. Returns (x, aux_loss)."""
+                   x: Tensor, shared: Params,
+                   cross_src: Optional[Tensor] = None,
+                   enc_out: Optional[Tensor] = None,
+                   mask_kind_override: Optional[str] = None
+                   ) -> Tuple[Tensor, Tensor]:
+    """One layer (full-sequence path): its mixer, the shared attention
+    block if it asks for it, whisper's cross sublayer over ``enc_out`` if
+    it has one, then its FFN. A cross layer attends to ``cross_src``, the
+    projected vision tokens. Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     rope = cfg.rope_theta if cfg.pos_embed == "rope" else None
     if spec.attn in ("full", "swa") and cfg.mla is not None:
@@ -217,8 +250,15 @@ def _layer_forward(lp: Params, cfg: ModelConfig, spec: LayerSpec,
         h = L.norm_apply(_sub(lp, "attn_norm"), x, cfg.norm)
         x = x + L.attention_apply(
             _sub(lp, "attn"), _attn_dims(cfg), h,
-            mask_kind="swa" if spec.attn == "swa" else "causal",
+            mask_kind=mask_kind_override or (
+                "swa" if spec.attn == "swa" else "causal"),
             window=cfg.window_size, rope_theta=rope)
+    elif spec.attn == "cross":
+        h = L.norm_apply(_sub(lp, "attn_norm"), x, cfg.norm)
+        a = L.attention_apply(_sub(lp, "attn"), _attn_dims(cfg, cross=True),
+                              h, mask_kind="none", kv_src=cross_src,
+                              rope_theta=None)
+        x = x + torch.tanh(lp["cross_gate"]).to(x.dtype) * a
     elif spec.attn == "mamba2":
         h = L.norm_apply(_sub(lp, "attn_norm"), x, cfg.norm)
         x = x + SSM.mamba2_apply(_sub(lp, "attn"), h, cfg.mamba)
@@ -227,6 +267,11 @@ def _layer_forward(lp: Params, cfg: ModelConfig, spec: LayerSpec,
         x = x + L.attention_apply(_sub(shared, "shared_attn"),
                                   _attn_dims(cfg), h, mask_kind="causal",
                                   rope_theta=rope)
+    if spec.cross_attn:
+        h = L.norm_apply(_sub(lp, "xattn_norm"), x, cfg.norm)
+        x = x + L.attention_apply(_sub(lp, "xattn"), _attn_dims(cfg), h,
+                                  mask_kind="none", kv_src=enc_out,
+                                  rope_theta=None)
     if spec.ffn == "dense":
         h = L.norm_apply(_sub(lp, "ffn_norm"), x, cfg.norm)
         x = x + L.mlp_apply(_sub(lp, "ffn"), h, cfg.act)
@@ -241,15 +286,20 @@ def _layer_forward(lp: Params, cfg: ModelConfig, spec: LayerSpec,
     return x, aux
 
 
-def _run_stages(params: Params, cfg: ModelConfig, x: Tensor
+def _run_stages(params: Params, cfg: ModelConfig, x: Tensor, stages=None,
+                cross_src: Optional[Tensor] = None,
+                enc_out: Optional[Tensor] = None,
+                mask_kind_override: Optional[str] = None
                 ) -> Tuple[Tensor, Tensor]:
-    """Every stage's units, in order, over x. Returns (x, total_aux). The
-    shared block's weights go into every unit as they are (one leaf each,
-    not stacked), so autograd sums their gradient over the units."""
+    """Every stage's units (``cfg.stages`` unless given; their leaves under
+    ``stage{i}/`` of ``params``), in order, over x. Returns (x,
+    total_aux). The shared block's weights, the vision tokens and the
+    encoder's output go into every unit as they are, so autograd sums
+    their gradients over the units."""
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = {k: v for k, v in params.items()
               if k.startswith(("shared_attn/", "shared_attn_norm/"))}
-    for si, stage in enumerate(cfg.stages):
+    for si, stage in enumerate(cfg.stages if stages is None else stages):
         # one unbind per leaf: its backward stacks the units' gradients
         # into one tensor, where indexing would add a full-size zero
         # tensor per unit
@@ -258,8 +308,10 @@ def _run_stages(params: Params, cfg: ModelConfig, x: Tensor
 
         def unit_fn(h, aux_acc, unit_params, _stage=stage):
             for li, spec in enumerate(_stage.block):
-                h, aux = _layer_forward(_sub(unit_params, f"layer{li}"), cfg,
-                                        spec, h, shared)
+                h, aux = _layer_forward(
+                    _sub(unit_params, f"layer{li}"), cfg, spec, h, shared,
+                    cross_src=cross_src, enc_out=enc_out,
+                    mask_kind_override=mask_kind_override)
                 aux_acc = aux_acc + aux
             return h, aux_acc
 
@@ -279,6 +331,37 @@ def _embed_tokens(params: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
+
+
+def _sinusoidal(T: int, D: int, device=None) -> Tensor:
+    """(T, D) f32: sin then cos of position / 10000^(2i/D), i < D/2."""
+    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(D // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=device), 2 * dim / D)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _add_positional(params: Params, cfg: ModelConfig, x: Tensor,
+                    offset: int = 0) -> Tensor:
+    T = x.shape[1]
+    if cfg.pos_embed == "learned":
+        x = x + params["pos_embed"][offset:offset + T][None].to(x.dtype)
+    elif cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(T, cfg.d_model, x.device)[None].to(x.dtype)
+    return x
+
+
+def encode_audio(params: Params, cfg: ModelConfig, frames: Tensor) -> Tensor:
+    """Whisper's encoder over stub frame embeddings (B, T_enc, frame_dim):
+    the projection, sinusoidal positions, ``cfg.encoder.num_layers``
+    bidirectional full-attention dense layers through the same unit loop
+    and remat as the decoder, then ``encoder/final_norm``."""
+    x = (frames @ params["audio_proj"]).to(frames.dtype)
+    x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
+    enc = _sub(params, "encoder")
+    x, _ = _run_stages(enc, cfg, x, (_encoder_stage(cfg),),
+                       mask_kind_override="none")
+    return L.norm_apply(_sub(enc, "final_norm"), x, cfg.norm)
 
 
 def _heads(params: Params, cfg: ModelConfig, hidden: Tensor
@@ -308,12 +391,23 @@ def _mtp_hidden(params: Params, cfg: ModelConfig, tokens: Tensor,
 
 def apply_lm(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
              mtp: bool = True) -> Dict[str, Any]:
-    """Full-sequence forward. batch: {"tokens": (B, T)}. Returns hidden
-    (B, T, D), logits (B, T, V), aux_heads (m, B, T, V) or None, aux_loss,
-    and, when ``cfg.mtp`` and ``mtp`` are set, mtp_hidden (B, T, D)."""
+    """Full-sequence forward. batch: {"tokens": (B, T)} plus, as the
+    config asks, "vision_embeds" (B, P, embed_dim) or "audio_frames"
+    (B, T_enc, frame_dim). Returns hidden (B, T, D), logits (B, T, V),
+    aux_heads (m, B, T, V) or None, aux_loss, and, when ``cfg.mtp`` and
+    ``mtp`` are set, mtp_hidden (B, T, D)."""
     _check_supported(cfg)
     x = _embed_tokens(params, cfg, batch["tokens"])
-    x, aux_loss = _run_stages(params, cfg, x)
+    x = _add_positional(params, cfg, x)
+    cross_src = None
+    if cfg.vision is not None:
+        cross_src = (batch["vision_embeds"] @ params["vision_proj"]).to(
+            x.dtype)
+    enc_out = None
+    if cfg.audio is not None:
+        enc_out = encode_audio(params, cfg, batch["audio_frames"])
+    x, aux_loss = _run_stages(params, cfg, x, cross_src=cross_src,
+                              enc_out=enc_out)
     hidden = L.norm_apply(_sub(params, "final_norm"), x, cfg.norm)
     logits, aux_logits = _heads(params, cfg, hidden)
     out = {"hidden": hidden, "logits": logits, "aux_heads": aux_logits,

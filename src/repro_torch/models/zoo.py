@@ -17,13 +17,17 @@ from repro_torch.models.config import ModelConfig
 class ModelBundle:
     name: str
     config: Any  # ModelConfig | ResNetConfig
-    # torch.Generator -> flat param dict on the CPU; the trainer moves it
-    # to its device. (The JAX init draws from jax.random, which torch
-    # cannot replay: parity tests hand in bundles whose init returns the
-    # reference's params through `checkpoint.io.params_from_jax`.)
+    # torch.Generator -> flat param dict on the CPU (an LM's on the
+    # generator's device: a CUDA generator draws it on the card); the
+    # trainer moves it to its device. (The JAX init draws from jax.random,
+    # which torch cannot replay: parity tests hand in bundles whose init
+    # returns the reference's params through
+    # `checkpoint.io.params_from_jax`.)
     init: Callable[[torch.Generator], Dict[str, torch.Tensor]]
-    # (params, batch) -> outputs; an LM bundle's also takes mtp=False,
-    # which leaves out DeepSeek's MTP branch (`lm_mhd_outputs`)
+    # (params, batch) -> outputs; an LM's batch carries "vision_embeds" or
+    # "audio_frames" beside "tokens" where its config has a front end, and
+    # its apply also takes mtp=False, which leaves out DeepSeek's MTP
+    # branch (`lm_mhd_outputs`)
     apply: Callable[..., Dict[str, Any]]
     loss: Callable[..., Any]  # (params, batch) -> (loss, metrics)
 
@@ -62,7 +66,7 @@ def _lm_bundle(cfg: ModelConfig, dtype) -> ModelBundle:
     cfg.validate()
 
     def init(gen: torch.Generator):
-        return TF.init_lm(gen, cfg, dtype=dtype, device="cpu")
+        return TF.init_lm(gen, cfg, dtype=dtype, device=gen.device)
 
     def apply(params, batch, mtp: bool = True):
         return TF.apply_lm(params, cfg, batch, mtp=mtp)

@@ -149,14 +149,29 @@ def test_cpu_route_counts_no_launch_and_kernel_refuses_cpu():
 
 
 def test_logit_softcap_raises():
+    """logit_softcap raises naming its ROADMAP item. Cross attention,
+    ported since, runs in place of raising: ``kv_src`` of another length
+    (S = 6 against T = 4), every key visible, against
+    `repro.models.layers.attention_apply` on the same params within 2e-5."""
     dims = TL.AttnDims(d_model=16, num_heads=2, num_kv_heads=2, head_dim=8)
     params = TL.init_attention(torch.Generator().manual_seed(0), dims)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TL.attention_apply(params, dims, torch.randn(1, 4, 16),
                            logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.attention_apply(params, dims, torch.randn(1, 4, 16),
-                           kv_src=torch.randn(1, 4, 16))
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 4, 16)).astype(np.float32)
+    src = rng.standard_normal((1, 6, 16)).astype(np.float32)
+    ref = JL.attention_apply(
+        {k: jnp.asarray(v.numpy()) for k, v in params.items()},
+        JL.AttnDims(d_model=16, num_heads=2, num_kv_heads=2, head_dim=8),
+        jnp.asarray(x), mask_kind="none", kv_src=jnp.asarray(src),
+        rope_theta=None)
+    out = TL.attention_apply(params, dims, torch.from_numpy(x),
+                             mask_kind="none", kv_src=torch.from_numpy(src),
+                             rope_theta=None)
+    assert out.shape == (1, 4, 16)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
 
 
 # ---------------------------------------------------------------------------

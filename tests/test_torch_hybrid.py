@@ -132,18 +132,20 @@ def test_params_npz_round_trip(model, tmp_path):
                                          ("mtp", True),
                                          ("pos_embed", "learned")])
 def test_unported_config_options_raise(field, value):
-    """softcap and learned positions raise naming their ROADMAP item.
-    DeepSeek MTP, ported since, builds and runs on reduced gemma3-12b in
-    place of raising (the MTP block's one full-attention layer on the
-    flash_attention path, the tied head): lm_loss and its mtp_ce against
-    the reference's from the same params."""
+    """softcap raises naming its ROADMAP item. DeepSeek MTP and learned
+    positions, ported since, build and run on reduced gemma3-12b in place
+    of raising (the MTP block's one full-attention layer on the
+    flash_attention path, the tied head; a (max_seq_len, d_model)
+    ``pos_embed`` added to the embeddings): lm_loss and its metrics
+    against the reference's from the same params."""
     cfg = dataclasses.replace(get_reduced("gemma3-12b"), **{field: value})
-    if field != "mtp":
+    if field == "attn_logit_softcap":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
         return
-    jcfg = dataclasses.replace(jax_reduced("gemma3-12b"), mtp=True)
+    jcfg = dataclasses.replace(jax_reduced("gemma3-12b"), **{field: value})
     params = TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert ("pos_embed" in params) == (field == "pos_embed")
     jp = jax.jit(lambda k: JTF.init_lm(k, jcfg))(jax.random.PRNGKey(0))
     flat = {k: np.asarray(v) for k, v in JIO.flatten_with_paths(jp).items()}
     assert {k: tuple(v.shape) for k, v in params.items()} == \
@@ -154,7 +156,10 @@ def test_unported_config_options_raise(field, value):
         jp, {"tokens": jnp.asarray(tokens)})
     loss, m = TTF.lm_loss(TIO.params_from_jax(flat, device="cpu"), cfg,
                           {"tokens": torch.from_numpy(tokens)})
-    assert set(m) == set(m_j) == {"ce", "aux_loss", "mtp_ce"}
+    assert set(m) == set(m_j) == {"ce", "aux_loss"} | (
+        {"mtp_ce"} if field == "mtp" else set())
     np.testing.assert_allclose(loss.item(), float(loss_j), rtol=2e-5)
+    if field != "mtp":
+        return
     np.testing.assert_allclose(m["mtp_ce"].item(), float(m_j["mtp_ce"]),
                                rtol=2e-5)

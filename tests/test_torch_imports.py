@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of repro_torch (the
-socket transport, the gossip launcher, the MoE FFN, MLA and the
-arctic-480b and deepseek-v3-671b configs among them), chip_smoke.py,
+socket transport, the gossip launcher, the MoE FFN, MLA, the training
+launcher and its steps and every architecture config among them), chip_smoke.py,
 examples/port_quickstart.py and scripts/port_gossip_procs.py leaves jax
 and the JAX package out of sys.modules, and the kernels' sources (which
 import triton) are not imported by any module."""
@@ -20,7 +20,11 @@ for n in names:
 assert {"repro_torch.comm.socket", "repro_torch.launch",
         "repro_torch.launch.gossip", "repro_torch.models.moe",
         "repro_torch.configs.arctic_480b", "repro_torch.models.mla",
-        "repro_torch.configs.deepseek_v3_671b"} <= set(names), names
+        "repro_torch.configs.deepseek_v3_671b", "repro_torch.launch.steps",
+        "repro_torch.launch.train", "repro_torch.configs.whisper_large_v3",
+        "repro_torch.configs.llama_3_2_vision_90b",
+        "repro_torch.configs.gemma3_27b", "repro_torch.configs.qwen2_5_32b",
+        "repro_torch.configs.minitron_4b"} <= set(names), names
 for name, path in zip(("chip_smoke", "port_quickstart", "port_gossip_procs"),
                       sys.argv[1:]):
     spec = importlib.util.spec_from_file_location(name, path)
@@ -40,7 +44,7 @@ def test_port_imports_no_jax_and_no_reference_package():
          os.path.join(ROOT, "scripts", "port_gossip_procs.py")],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 73, out.stdout
+    assert int(n) >= 80, out.stdout
     assert bad == "[]", bad
 
 

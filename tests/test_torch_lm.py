@@ -111,11 +111,14 @@ def test_lm_loss_gradients_match_jax_and_remat_changes_nothing(model):
 @pytest.mark.parametrize("case", ["cross", "mla", "mtp"],
                          ids=["cross-none", "mla", "mtp"])
 def test_unported_layer_kinds_raise(case, model):
-    """Cross attention waits for a later slice and says which. MLA and
-    DeepSeek MTP, ported since, build and run in place of raising: the
-    reduced skeleton with two full-attention MLA layers, and with the MTP
-    block after its Mamba2 layers, each holding its loss and metrics to
-    the reference's from the same params."""
+    """Cross attention, MLA and DeepSeek MTP, each ported since, build
+    and run in place of raising: the reduced skeleton with two gated
+    cross-attention layers (no vision front end, so K and V come from the
+    layer's own input, every key visible; the gates set to 0.5 in both
+    packages, as at 0 the layer is multiplied away), with two
+    full-attention MLA layers, and with the MTP block after its Mamba2
+    layers, each holding its loss and metrics to the reference's from the
+    same params."""
     from repro.models.config import (LayerSpec as JLayerSpec,
                                      MLAConfig as JMLAConfig,
                                      uniform_stages as j_uniform)
@@ -124,11 +127,11 @@ def test_unported_layer_kinds_raise(case, model):
     jcfg, _, _, tokens = model
     cfg = get_reduced(NAME)
     if case == "cross":
+        spec = dict(attn="cross", ffn="none")
         cfg = dataclasses.replace(cfg, name="cross", stages=uniform_stages(
-            2, LayerSpec(attn="cross", ffn="none")))
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-            TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
-        return
+            2, LayerSpec(**spec)))
+        jcfg = dataclasses.replace(jcfg, name="cross", stages=j_uniform(
+            2, JLayerSpec(**spec)))
     mla = dict(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
                qk_rope_head_dim=8, v_head_dim=16)
     if case == "mla":
@@ -137,13 +140,16 @@ def test_unported_layer_kinds_raise(case, model):
             **mla), stages=uniform_stages(2, LayerSpec(**spec)))
         jcfg = dataclasses.replace(jcfg, name="mla", d_ff=96, mla=JMLAConfig(
             **mla), stages=j_uniform(2, JLayerSpec(**spec)))
-    else:
+    elif case == "mtp":
         cfg = dataclasses.replace(cfg, name="mtp", d_ff=96, mtp=True)
         jcfg = dataclasses.replace(jcfg, name="mtp", d_ff=96, mtp=True)
     params = TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert ("stage0/layer0/attn/w_uk" in params) == (case == "mla")
     assert ("mtp/proj" in params) == (case == "mtp")
+    assert ("stage0/layer0/cross_gate" in params) == (case == "cross")
     jp = jax.jit(lambda k: JTF.init_lm(k, jcfg))(jax.random.PRNGKey(0))
+    if case == "cross":
+        jp["stage0"]["layer0"]["cross_gate"] = jnp.full((2,), 0.5)
     flat = {k: np.asarray(v) for k, v in JIO.flatten_with_paths(jp).items()}
     assert {k: tuple(v.shape) for k, v in params.items()} == \
         {k: v.shape for k, v in flat.items()}
