@@ -108,8 +108,9 @@ the checkout (into ``build/``), then
      forward only, held against float64 and timed against its bound;
   13. drives the cross-attention path (`phase_xattn_path`) through the
      training launcher's train state and step (`launch.train`'s
-     supervised mode, AdamW, f32): (a) whisper-large-v3 uncut (32 encoder
-     and 32 decoder layers, 4 clips of 1,500 frames under 448 tokens) and
+     supervised mode, AdamW, f32): (a) whisper-large-v3 at its published
+     widths cut to 16 encoder and 16 decoder layers of 32 + 32 (4 clips of
+     1,500 frames under 448 tokens) and
      (b) llama-3.2-vision-90b at its published widths cut to its gated
      cross layer and one self-attention layer at a 32,000-word vocabulary
      (4 x 512 tokens, 1,600 patch embeddings each), a warm-up, 4 timed
@@ -118,7 +119,26 @@ the checkout (into ``build/``), then
      `phase_flash` held, the front ends live (llama-vision's cross gate
      moved from 0, then gradients reaching vision_proj and the cross
      layer's wk; other embeddings or frames change the logits);
-  14. prints one ``{"kernels": [...]}`` line and, last, the device line
+  14. drives the serve path (`phase_serve_path`, `repro_torch.serve`):
+     (a) the `serve_loop` preset exactly as it is defined, through
+     `run_serve_scenario` (4 resnet_tiny clients trained 30 steps on the
+     top-k wire, a snapshot, 24 classify and teacher requests against it
+     and a generate stream on the reduced minitron-4b engine, 2 feedback
+     steps on the served traffic): every request answered, each teacher
+     cache hit byte for byte its window's recompute, the front's params
+     bitwise the snapshot, the feedback moving every client and metering
+     wire bytes, each generated sequence equal to `solo_generate`'s, and
+     topk_wire, dist_ce and emb_dist launched at held shapes; (b)
+     minitron-4b at its published width and depth (32 layers, d_model
+     3,072, 5.76 B f32 params drawn on the card), 16 requests of 16-64
+     prompt and 8-32 new tokens on 8 slots under continuous and then
+     static admission, and (c) mamba2-370m uncut (48 layers), 8 requests
+     on 4 slots: the two admissions' tokens equal, requests equal to
+     `solo_generate`'s (a token that differs allowed only where both
+     rows' top-2 logits lie within 1e-5, a near-tie, recorded), logits
+     finite; tokens a second, the median decode tick against its byte
+     bound, prefill ms a prompt token, occupancy and the card's peak;
+  15. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -176,6 +196,9 @@ from repro_torch.launch.steps import (init_train_state,  # noqa: E402
 from repro_torch.launch.train import supervised_batch  # noqa: E402
 from repro_torch.optim import (Optimizer, OptimizerConfig,  # noqa: E402
                                make_optimizer)
+from repro_torch import serve as SERVE  # noqa: E402
+from repro_torch.core.runtime import batch_to_device  # noqa: E402
+from repro_torch.fleet import load_client_params  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 (no
 # tensor cores) flop/s, TF32 tensor-core flop/s
@@ -414,7 +437,14 @@ XATTN_BATCH, XATTN_STEPS, XATTN_SEED = 4, 4, 25
 XATTN_OPTIMIZER = dict(name="adamw", init_lr=1e-4,
                        total_steps=XATTN_STEPS + 2)
 WHISPER_ARCH = "whisper-large-v3"
-WHISPER_CFG = get_config(WHISPER_ARCH)
+_WHISPER_FULL = get_config(WHISPER_ARCH)
+# cut to 16 + 16 of its 32 + 32 layers: with the serve phase the whole
+# smoke passed the 1,050 s at which this cut was planned (1,065.8 s)
+WHISPER_CFG = dataclasses.replace(
+    _WHISPER_FULL, name=f"{WHISPER_ARCH}-16+16-layers", num_layers=16,
+    stages=uniform_stages(16, _WHISPER_FULL.stages[0].block[0]),
+    encoder=dataclasses.replace(_WHISPER_FULL.encoder,
+                                num_layers=16)).validate()
 WHISPER_FRAMES = 1500
 LLAMA_V_ARCH = "llama-3.2-vision-90b"
 _LLAMA_V_FULL = get_config(LLAMA_V_ARCH)
@@ -424,6 +454,22 @@ LLAMA_V_CFG = dataclasses.replace(
     vocab_size=32_000).validate()
 LLAMA_V_TOKENS = 512
 XATTN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+# the serve path: (a) serve_loop as the preset defines it; (b) minitron-4b
+# at its published width and depth, 16 requests on 8 slots, prompts of
+# 16-64 tokens, 8-32 new tokens, under continuous and static admission;
+# (c) mamba2-370m uncut, 8 requests on 4 slots
+SERVE_DIR = ROOT / "build" / "serve"
+# (label, config, slots, requests, prompt lengths, new tokens, cache_len,
+# requests held against solo_generate)
+SERVE_LM = [("minitron-4b", get_config("minitron-4b"), 8, 16, (16, 64),
+             (8, 32), 96, 2),
+            ("mamba2-370m", get_config("mamba2-370m"), 4, 8, (8, 24),
+             (4, 16), 40, 8)]
+SERVE_SEED = 0
+# a token that differs between two decodes of one request is a near-tie
+# when, at the first difference, both rows' top-2 logits lie within this
+# of each other (relative); a larger gap fails the path
+TOL_TIE = 1e-5
 
 
 def lm_path_data(LM, D, k: int = LM_K):
@@ -517,6 +563,9 @@ LM_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "ssd_scan_fwd",
 ZAMBA_KERNELS = LM_KERNELS + ("flash_attention_fwd", "flash_attention_bwd")
 MOE_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd",
                "flash_attention_fwd", "flash_attention_bwd")
+# the serve path's fleet is the ResNet path's kernels; its decode reaches
+# no kernel (the reference decodes through einsums)
+SERVE_KERNELS = RESNET_KERNELS
 # deepseek's MLA is torch matmuls (the reference's einsums), so its path
 # runs the wire and distillation kernels only
 DS_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd")
@@ -527,12 +576,13 @@ HETERO_RANK_KERNELS = {0: LM_KERNELS, 1: MOE_KERNELS, 2: MOE_KERNELS}
 # kernel (C·Bᵀ and the cumsums) runs in the forward and in the backward
 SHARED_KERNELS = {"ssd_scan_prep_kernel": ("ssd_scan_fwd", "ssd_scan_bwd")}
 # the shapes at which the kernel phases held topk_wire ((rows, V, k)),
-# dist_ce ((rows, V, student dtype, teacher dtype)) and flash_attention
-# ((B, T, S, H, KV, d, causal, window, dtype)) against their plain
+# dist_ce ((rows, V, student dtype, teacher dtype)), emb_dist ((rows, D))
+# and flash_attention ((B, T, S, H, KV, d, causal, window, dtype)) against
+# their plain
 # versions; each path that launches them checks (KernelShapes) that every
 # shape its run launched is one
 SHAPES_HELD: dict = {"topk_wire": set(), "dist_ce": set(),
-                     "flash_attention": set()}
+                     "flash_attention": set(), "emb_dist": set()}
 
 RECORD: dict = {}
 
@@ -668,10 +718,27 @@ def hetero_shapes() -> dict:
             "dist_ce": (spec.algorithm.params["pool_size"] * positions, V)}
 
 
+def serve_shapes() -> dict:
+    """The serve_loop preset's kernel shapes, from its spec and its
+    clients' config: one publish's top-k rows (W·H·B), columns and k;
+    dist_ce's rows (pool_size·B) and columns; emb_dist's rows (Δ·B) and
+    the clients' embedding width."""
+    spec = EXP.get_preset("serve_loop")
+    p, B, V = spec.algorithm.params, spec.train.public_batch_size, \
+        spec.data.num_labels
+    c = spec.clients[0]
+    emb = EXP.CLIENT_ARCHS.get(c.arch)(V, c.aux_heads, c.width).embed_dim
+    return {"topk": (spec.wire.horizon * (c.aux_heads + 1) * B, V,
+                     spec.wire.topk),
+            "dist_ce": (p["pool_size"] * B, V),
+            "emb_dist": (p["delta"] * B, emb)}
+
+
 def phase_topk(dev) -> dict:
     """topk_wire against its plain version (values and indices exact, lse
     within TOL_LSE), at the paths' shapes (the fleet and socket paths'
-    k=5 publishes and lm_hetero's among them), at deepseek-v3's vocabulary
+    k=5 publishes, lm_hetero's and serve_loop's among them), at
+    deepseek-v3's vocabulary
     (129,280) and at the edges (rows off 16 bytes, ties, -inf, k up to V
     and past the one-pass kernel's 256); timed at the LM path's publish
     shape, with the hybrid, deepseek and ResNet paths' beside it; then the
@@ -683,8 +750,9 @@ def phase_topk(dev) -> dict:
     fleet = [(name, torch.randn(n, NUM_LABELS, generator=g, device=dev) * 3,
               k) for name in ("gossip", "gossip_socket")
              for n, k, _ in [preset_shapes(name)]]
-    # the MoE path's lm_hetero publish
+    # the MoE path's lm_hetero publish, the serve path's serve_loop one
     n_het, v_het, k_het = hetero_shapes()["topk"]
+    n_srv, v_srv, k_srv = serve_shapes()["topk"]
     cases = [("slice", torch.randn(rows, NUM_LABELS, generator=g,
                                    device=dev) * 3, TOPK_K),
              ("lm", torch.randn(LM_TOPK_ROWS, LM_VOCAB, generator=g,
@@ -725,6 +793,8 @@ def phase_topk(dev) -> dict:
                  64, LM_VOCAB, generator=g, device=dev) * 3),
               LM_COMM["topk"]), *fleet, ("lm_hetero", torch.randn(
                   n_het, v_het, generator=g, device=dev) * 3, k_het),
+             ("serve_loop", torch.randn(n_srv, v_srv, generator=g,
+                                        device=dev) * 3, k_srv),
              # deepseek-v3's vocabulary: one LM publish's rows of 505 KB
              ("deepseek", torch.randn(DS_TOPK_ROWS, DS_VOCAB, generator=g,
                                       device=dev) * 3, LM_COMM["topk"])]
@@ -1289,7 +1359,7 @@ def _dist_ce_timing(dev, g, B, V, s_dt, iters: int) -> tuple:
 
 def phase_dist_ce(dev) -> list:
     """dist_ce forward and backward against the plain versions: f32, bf16,
-    ties, a large V, the socket path's rows, and the LM path's,
+    ties, a large V, the socket and serve paths' rows, and the LM path's,
     lm_hetero's, the V = 32,000 paths' and deepseek-v3's rows (bf16
     student logits against f32 decoded teacher rows, V = 50280, 64, 32,000
     and 129,280); timed at the LM path's shape, with the V = 32,000
@@ -1306,6 +1376,7 @@ def phase_dist_ce(dev) -> list:
              ("ties", rows, NUM_LABELS, f32, f32, 0.0),
              ("lm", LM_CE_ROWS, LM_VOCAB, bf16, f32, 3.0),
              ("lm_hetero", *hetero_shapes()["dist_ce"], bf16, f32, 3.0),
+             ("serve_loop", *serve_shapes()["dist_ce"], f32, f32, 3.0),
              # the hybrid, MoE and DeepSeek paths' rows at V = 32,000
              ("zamba2, arctic, deepseek (a)", LM_CE_ROWS, ZAMBA_VOCAB, bf16,
               f32, 3.0),
@@ -1369,7 +1440,7 @@ def phase_emb_dist(dev) -> list:
     for name, B, D in (("slice", rows, E), ("large", 256, 8192),
                        ("s==t", rows, E),
                        ("gossip_socket", preset_shapes("gossip_socket")[2],
-                        E)):
+                        E), ("serve_loop", *serve_shapes()["emb_dist"])):
         s = torch.randn(B, D, generator=g, device=dev)
         t = s.clone() if name == "s==t" else torch.randn(
             B, D, generator=g, device=dev)
@@ -1383,6 +1454,7 @@ def phase_emb_dist(dev) -> list:
               f"emb_dist bwd {name}")
         err_f, err_b = max(err_f, maxerr(o, o_ref)), max(err_b,
                                                          maxerr(gs, gs_ref))
+        SHAPES_HELD["emb_dist"].add((B, D))
         log(f"emb_dist {name} ({B}, {D}): fwd max|d|={maxerr(o, o_ref):.3g}"
             f" bwd max|d|={maxerr(gs, gs_ref):.3g}")
     B = rows
@@ -2462,7 +2534,8 @@ def flash_key(q, k, v=None, causal: bool = True, window: int = 0) -> tuple:
 
 class KernelShapes:
     """While a path trains: the shape each launch of topk_wire's,
-    dist_ce's and flash_attention's forward kernel was given, keyed as in
+    dist_ce's, flash_attention's and emb_dist's forward kernel was given,
+    keyed as in
     SHAPES_HELD (each backward takes its forward's inputs). The wrappers
     look their kernels up in their modules at each call, so replacing the
     module attribute sees every launch; the counts stay the wrappers'
@@ -2475,7 +2548,9 @@ class KernelShapes:
              (DCE, "dist_ce_fwd_kernel", "dist_ce",
               lambda s, t: (*s.shape, str(s.dtype), str(t.dtype))),
              (FA, "flash_attention_fwd_kernel", "flash_attention",
-              flash_key)]
+              flash_key),
+             (EMB, "emb_dist_fwd_kernel", "emb_dist",
+              lambda s, t: tuple(s.shape))]
 
     def __enter__(self):
         self.seen = {key: collections.Counter()
@@ -3281,8 +3356,9 @@ def _xattn_model(dev, cfg, seq_len: int, label: str) -> dict:
 
 def phase_xattn_path(dev) -> dict:
     """The cross-attention path (`launch.train`'s supervised mode): (a)
-    whisper-large-v3 uncut, (b) llama-3.2-vision-90b cut to its gated
-    cross layer and one self-attention layer at vocabulary 32,000, each
+    whisper-large-v3 cut to 16 + 16 of its 32 + 32 layers, (b)
+    llama-3.2-vision-90b cut to its gated cross layer and one
+    self-attention layer at vocabulary 32,000, each
     through `_xattn_model`. The counts are set to 0 just before (a) and
     read just after (b); flash_attention forward and backward must have
     launched."""
@@ -3308,6 +3384,329 @@ def phase_xattn_path(dev) -> dict:
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     log(f"xattn phase: {out['seconds']:.1f} s; launches {counts}")
+    return out
+
+
+def _serve_loop(dev) -> dict:
+    """(a) serve_loop exactly as the preset defines it, through
+    `run_serve_scenario`: every request answered; at least one teacher
+    cache hit, each hit byte for byte its window's recompute; the front's
+    params bitwise the snapshot the trainer wrote; the feedback steps
+    distilling, moving every client's params and metering wire bytes; each
+    generate request's tokens equal to `solo_generate`'s; topk_wire,
+    dist_ce and emb_dist launched, at shapes the kernel phases held. Runs
+    in cuDNN's deterministic mode, so a recompute repeats the forward's
+    bits."""
+    spec = EXP.get_preset("serve_loop")
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    with Deterministic(), KernelShapes() as shapes:
+        res = SERVE.run_serve_scenario(spec, str(SERVE_DIR), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        front, m = res.front, res.metrics
+        # the streams replayed from the serve seed: which window each
+        # teacher request asked for, and each generate request
+        rng = np.random.default_rng(spec.serve.seed)
+        test = EXP.materialize_data(spec.data, spec.partition,
+                                    spec.num_clients)[1]
+        stream = SERVE.front._request_stream(res.spec, test, rng)
+        gens = SERVE.front._generate_stream(
+            res.spec, front.engine.bundle.config.vocab_size, rng)
+        windows = {r.request_id: r for r in stream if r.kind == "teacher"}
+        hits = [r for r in res.responses if r.kind == "teacher"
+                and r.cache_hit]
+        for r in hits:
+            req = windows[r.request_id]
+            teachers = req.teachers or tuple(range(len(front.bundles)))
+            batch = batch_to_device(front.public.sample(req.window_id), dev)
+            again = np.stack([front._apply(front.bundles[t])(
+                front.params[t], batch).cpu().numpy()
+                for t in teachers]).mean(axis=0)
+            check(again.tobytes() == r.predictions["logits"].tobytes(),
+                  f"serve (a): request {r.request_id}'s cache hit == "
+                  f"a recompute of window {req.window_id}")
+    counts = ops.launch_counts()
+    shapes.check("serve (a)")
+    n_req = spec.serve.requests + max(spec.serve.num_slots * 2, 4)
+    check(len(res.responses) == n_req == sum(
+        m[f"served/{k}"] for k in ("classify", "teacher", "generate")),
+        f"serve (a): {len(res.responses)} of {n_req} requests answered")
+    check(len(hits) >= 1, "serve (a): a teacher cache hit")
+    snap = res.spec.train.snapshot_dir
+    trainer = res.experiment.trainer
+    for cid, b in enumerate(front.bundles):
+        like = {k: v.clone() for k, v in front.params[cid].items()}
+        loaded, step = load_client_params(snap, cid, like)
+        check(step == spec.train.steps, f"serve (a): snapshot step {step}")
+        for k, v in loaded.items():
+            check(torch.equal(v, front.params[cid][k]),
+                  f"serve (a): front client {cid} {k} == the snapshot")
+        check(any(not torch.equal(v, front.params[cid][k])
+                  for k, v in trainer.clients[cid].params.items()),
+              f"serve (a): feedback moved client {cid}'s params")
+    check(m["feedback/steps"] == spec.serve.feedback_steps
+          and m["feedback/distill_steps"] >= 1
+          and m["feedback/wire_bytes"] > 0,
+          f"serve (a): feedback distilled over the wire "
+          f"{ {k: v for k, v in m.items() if k.startswith('feedback/')} }")
+    eng = front.engine
+    by_id = {r.request_id: r.tokens for r in res.responses
+             if r.kind == "generate"}
+    for req in gens:
+        solo = SERVE.solo_generate(eng.bundle, eng.params, req.prompt,
+                                   req.max_new_tokens, eng.cache_len)
+        check(by_id[req.request_id] == solo,
+              f"serve (a): request {req.request_id} continuous "
+              f"{by_id[req.request_id]} == solo {solo}")
+    for name in SERVE_KERNELS:
+        check(counts[name] > 0, f"serve (a): kernel {name} launched "
+              f"({counts[name]})")
+    log(f"serve (a): serve_loop train {spec.train.steps} steps + snapshot "
+        f"+ {n_req} requests + {spec.serve.feedback_steps} feedback steps "
+        f"in {wall:.2f} s; cache {int(m['cache/hits'])} hits / "
+        f"{int(m['cache/misses'])} misses, each hit == its recompute; "
+        f"engine occupancy {m['engine/occupancy']:.3f}, {len(gens)} "
+        f"generate requests == solo; feedback {m['feedback/wire_bytes']:.0f}"
+        f" wire bytes, {m['feedback/distill_steps']:.0f} client-steps "
+        f"distilled; launches {counts}")
+    return {"wall_s": wall, "metrics": m, "hits": len(hits),
+            "counts": counts, "kernel_shapes": shapes.record()}
+
+
+class EngineClock:
+    """While an engine runs: the wall time of each prefill and decode call
+    (each ends in a synchronize), the prompt tokens prefilled, and each
+    generated token's top-2 logits by request (the prefill's first token,
+    then one a tick), on the host."""
+
+    def __init__(self, engine):
+        self.prefill_s, self.decode_s, self.prompt_tokens = [], [], 0
+        self.top2 = collections.defaultdict(list)
+        self.order = list(engine.queue)  # admission is first in, first out
+        self.finite = True
+        prefill, decode = engine.prefill, engine.decode
+        lanes = engine.lanes  # not the engine: no cycle through it
+
+        def timed_prefill(params, prompt, caches):
+            a = time.perf_counter()
+            caches, logits = prefill(params, prompt, caches)
+            top = logits[-1][0, -1].topk(2).values.cpu()
+            self.prefill_s.append(time.perf_counter() - a)
+            self.prompt_tokens += prompt.shape[1]
+            rid = self.order[len(self.prefill_s) - 1].request_id
+            self.top2[rid].append(top.tolist())
+            return caches, logits
+
+        def timed_decode(params, tokens, caches):
+            a = time.perf_counter()
+            logits, caches = decode(params, tokens, caches)
+            top = logits[:, -1].topk(2).values.cpu()
+            self.decode_s.append(time.perf_counter() - a)
+            self.finite &= bool(torch.isfinite(top).all())
+            for slot, lane in enumerate(lanes):
+                if lane is not None:
+                    self.top2[lane.request.request_id].append(
+                        top[slot].tolist())
+            return logits, caches
+
+        engine.prefill, engine.decode = timed_prefill, timed_decode
+
+
+@torch.no_grad()
+def _graph_against_eager(bundle, params, slots, cache_len, dev) -> dict:
+    """The engine's CUDA-graph step (`GraphStep`) against the eager
+    ``decode_step`` on the same input, as a kernel against its plain
+    version: caches warmed by 4 eager steps, then row b moved on to
+    position 4 + 3b; the logits and every cache leaf within TOL_F32 of
+    the largest magnitude (the same kernels run, so 0 is expected)."""
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    V = bundle.config.vocab_size
+
+    def tokens():
+        return torch.randint(0, V, (slots, 1), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    caches = bundle.init_cache(slots, cache_len, torch.float32, device=dev)
+    for _ in range(4):
+        _, caches = bundle.decode_step(params, tokens(), caches)
+    shift = 3 * torch.arange(slots, dtype=torch.int32, device=dev)
+    caches = {k: v + shift if k.endswith("index") else v
+              for k, v in caches.items()}
+    tok = tokens()
+    want, want_c = bundle.decode_step(params, tok, caches)
+    graph = SERVE.engine.GraphStep(bundle, params, caches)
+    got, got_c = graph(params, tok, graph.caches)
+    torch.cuda.synchronize()
+    errs = {"logits": maxerr(got, want) / float(want.abs().max())}
+    for k, v in want_c.items():
+        errs[k] = maxerr(got_c[k], v) / max(float(v.abs().max()), 1e-30)
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= TOL_F32, f"serve: the graph step's {worst} "
+          f"{errs[worst]:.3g} of the eager step's largest magnitude")
+    return {"logits": errs["logits"], "worst": worst,
+            "worst_err": errs[worst]}
+
+
+def _gap(top2) -> float:
+    """A row's top-2 logit gap, relative to its largest logit."""
+    return (top2[0] - top2[1]) / max(abs(top2[0]), 1e-30)
+
+
+@torch.no_grad()
+def _solo_top2(bundle, params, prompt, tokens, cache_len) -> list:
+    """The top-2 logits of a B = 1 decode of ``prompt`` followed by
+    ``tokens``, at its last step."""
+    dev = next(iter(params.values())).device
+    seq = torch.from_numpy(np.concatenate([prompt, tokens]).astype(
+        np.int32)[None]).to(dev)
+    caches = bundle.init_cache(1, cache_len, torch.float32, device=dev)
+    caches, logits = SERVE.Prefill(bundle)(params, seq, caches)
+    return logits[-1][0, -1].topk(2).values.cpu().tolist()
+
+
+def _same_tokens(label: str, rid: int, a: list, b: list, top2_a: list,
+                 top2_b, ties: list) -> None:
+    """``a`` == ``b``, or else, at the first token that differs, both
+    rows' top-2 gaps within TOL_TIE (a near-tie, recorded in ``ties``);
+    ``top2_b`` gives the second row's top-2 there (a list, or a function
+    of the position)."""
+    if a == b:
+        return
+    j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    tb = top2_b(j) if callable(top2_b) else top2_b[j]
+    gaps = (_gap(top2_a[j]), _gap(tb))
+    log(f"{label}: request {rid} differs at token {j} ({a[j]} vs {b[j]}); "
+        f"top-2 {top2_a[j]} and {tb}, relative gaps {gaps[0]:.3g} and "
+        f"{gaps[1]:.3g}")
+    check(max(gaps) <= TOL_TIE, f"{label}: request {rid} token {j} flip is "
+          f"not a near-tie (gaps {gaps})")
+    ties.append({"request": rid, "token": j, "top2": [top2_a[j], tb],
+                 "gaps": list(gaps)})
+
+
+def _serve_model(dev, label, cfg, slots, n_req, prompt_range, gen_range,
+                 cache_len, n_solo) -> dict:
+    """(b), (c): ``n_req`` mixed-length requests through the engine at the
+    config's full width and depth (params drawn on the card), under
+    continuous and then static admission: the tokens of the two runs
+    equal, the first ``n_solo`` requests' equal `solo_generate`'s (a
+    differing token allowed only as a near-tie), the logits finite; the
+    tokens a second, the median decode tick against its bound (the bytes
+    a tick reads: the weights it multiplies, the embedding rows and the
+    caches once each), the prefill's ms a prompt token, the occupancy of
+    both runs and the card's peak."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_bundle(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(SERVE_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    aux = params["aux_heads"].numel() if "aux_heads" in params else 0
+    rng = np.random.default_rng(SERVE_SEED)
+    reqs = [SERVE.ServeRequest(
+        request_id=i, kind="generate",
+        prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(
+            prompt_range[0], prompt_range[1] + 1)), dtype=np.int32),
+        max_new_tokens=int(rng.integers(gen_range[0], gen_range[1] + 1)))
+        for i in range(n_req)]
+    runs = {}
+    for admission in ("continuous", "static"):
+        eng = SERVE.ContinuousBatchingEngine(
+            bundle, params, num_slots=slots, cache_len=cache_len,
+            admission=admission, device=dev)
+        for r in reqs:
+            eng.submit(r)
+        clock = EngineClock(eng)
+        a = time.perf_counter()
+        out = {r.request_id: r.tokens for r in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - a
+        n_tok = sum(len(t) for t in out.values())
+        runs[admission] = {
+            "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+            "tick_ms_median": statistics.median(clock.decode_s) * 1e3,
+            "tick_ms": [round(x * 1e3, 3) for x in clock.decode_s],
+            "prefill_ms_per_token": sum(clock.prefill_s) * 1e3
+            / clock.prompt_tokens,
+            "occupancy": eng.occupancy(), "decode_ticks": eng.decode_ticks,
+            "out": out, "top2": clock.top2, "finite": clock.finite}
+        check(len(out) == n_req, f"serve {label}: {admission} answered "
+              f"{len(out)} of {n_req}")
+        check(clock.finite, f"serve {label}: {admission} logits finite")
+    cont, stat = runs["continuous"], runs["static"]
+    ties: list = []
+    for r in reqs:
+        _same_tokens(f"serve {label} static vs continuous", r.request_id,
+                     cont["out"][r.request_id], stat["out"][r.request_id],
+                     cont["top2"][r.request_id], stat["top2"][r.request_id],
+                     ties)
+    for r in reqs[:n_solo]:
+        got = cont["out"][r.request_id]
+        solo = SERVE.solo_generate(bundle, params, r.prompt,
+                                   r.max_new_tokens, cache_len)
+        _same_tokens(f"serve {label} continuous vs solo", r.request_id, got,
+                     solo, cont["top2"][r.request_id],
+                     lambda j, r=r, got=got: _solo_top2(
+                         bundle, params, r.prompt, np.asarray(got[:j]),
+                         cache_len), ties)
+    graph_err = _graph_against_eager(bundle, params, slots, cache_len, dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # a tick's bytes: every weight it multiplies (the aux heads are not
+    # read), one embedding row a slot, the caches read once and written
+    # once
+    caches = bundle.init_cache(slots, cache_len, torch.float32, device=dev)
+    cache_bytes = sum(v.numel() * v.element_size() for v in caches.values())
+    del caches
+    w_bytes = sum(v.numel() * v.element_size() for k, v in params.items()
+                  if k not in ("embed", "aux_heads"))
+    if cfg.tie_embeddings:
+        w_bytes += params["embed"].numel() * 4
+    tick_bytes = w_bytes + slots * cfg.d_model * 4 + 2 * cache_bytes
+    bound_ms = tick_bytes / PEAK_BYTES * 1e3
+    log(f"serve {label}: {cfg.name} {n_params / 1e9:.3f} B params "
+        f"({n_params * 4 / 1e9:.2f} GB f32, aux heads {aux / 1e9:.3f} B, not "
+        f"read by decode) drawn in {init_s:.2f} s; {n_req} requests on "
+        f"{slots} slots, cache_len {cache_len}")
+    for name, r in runs.items():
+        log(f"serve {label}: {name}: {r['tokens']} tokens in "
+            f"{r['wall_s']:.2f} s ({r['tokens_per_s']:.1f} tokens/s), "
+            f"{r['decode_ticks']} ticks, median tick {r['tick_ms_median']:.3f}"
+            f" ms (bound {bound_ms:.3f} ms: {tick_bytes / 1e9:.3f} GB), "
+            f"prefill {r['prefill_ms_per_token']:.3f} ms a prompt token, "
+            f"occupancy {r['occupancy']:.3f}")
+    log(f"serve {label}: static == continuous for {n_req} requests, "
+        f"{n_solo} == solo_generate; near-ties {ties}; the graph step "
+        f"against the eager one {graph_err}; card peak {peak:.1f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    for r in runs.values():
+        del r["out"], r["top2"]
+    return {"config": cfg.name, "params": n_params, "aux_params": aux,
+            "init_s": init_s, "tick_bytes": tick_bytes,
+            "tick_bound_ms": bound_ms, "runs": runs, "near_ties": ties,
+            "graph_vs_eager": graph_err, "max_memory_gib": peak}
+
+
+def phase_serve_path(dev) -> dict:
+    """The serve path (`repro_torch.serve`): (a) serve_loop through
+    `run_serve_scenario`, then decode at published widths through the
+    engine, (b) minitron-4b and (c) mamba2-370m, both uncut (`_serve_model`).
+    Every kernel's launch count is set to 0 just before (a) and read just
+    after (c); topk_wire, dist_ce and emb_dist must have launched."""
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    out = {"serve_loop": _serve_loop(dev)}
+    for label, cfg, *rest in SERVE_LM:
+        out[label] = _serve_model(dev, label, cfg, *rest)
+    out["counts"] = counts = ops.launch_counts()
+    for name in SERVE_KERNELS:
+        check(counts[name] > 0, f"serve path: kernel {name} launched "
+              f"({counts[name]})")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"serve phase: {out['seconds']:.1f} s; launches {counts}")
     return out
 
 
@@ -3361,9 +3760,12 @@ def main() -> int:
     deepseek_path = phase_deepseek_path(dev)
     torch.cuda.empty_cache()
     xattn_path = phase_xattn_path(dev)
+    torch.cuda.empty_cache()
+    serve_path = phase_serve_path(dev)
     paths = {"resnet": resnet, "exp": exp_path["mhd"], "fleet": fleet_path,
              "socket": socket_path, "lm": lm_path, "zamba2": zamba_path,
-             "moe": moe_path, "deepseek": deepseek_path, "xattn": xattn_path}
+             "moe": moe_path, "deepseek": deepseek_path, "xattn": xattn_path,
+             "serve": serve_path}
     for k in kernels:
         k["launches_by_path"] = {p: r["counts"][k["name"]]
                                  for p, r in paths.items()}
@@ -3372,6 +3774,7 @@ def main() -> int:
                   fleet_path=fleet_path, socket_path=socket_path,
                   lm_path=lm_path, zamba2_path=zamba_path, moe_path=moe_path,
                   deepseek_path=deepseek_path, xattn_path=xattn_path,
+                  serve_path=serve_path,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

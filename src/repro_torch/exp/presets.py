@@ -192,12 +192,12 @@ def _churn_ring() -> ExperimentSpec:
 
 @PRESETS.register("serve_loop")
 def _serve_loop() -> ExperimentSpec:
-    """The full serve→distill loop (repro.serve): train a 4-client MHD
-    fleet on the prediction wire, snapshot it, serve a mixed
+    """The full serve→distill loop (`repro_torch.serve`): train a
+    4-client MHD fleet on the prediction wire, snapshot it, serve a mixed
     classify/teacher/generate stream against the snapshot, then distill
     two more steps from the served traffic. Consumed by
-    ``launch/serve.py --preset serve_loop`` and `benchmarks/serve.py`
-    (plain ``run_experiment.py`` runs only the training phase)."""
+    ``launch/serve.py --preset serve_loop`` (``Experiment.run()`` runs
+    only the training phase)."""
     s_p = 5
     return ExperimentSpec(
         name="serve_loop",

@@ -347,18 +347,16 @@ class TrainSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ServeSpec:
-    """The inference path (the reference's `repro.serve`; serving is not
-    ported yet, ROADMAP Queue 1 item 14 — the block validates and
-    round-trips as in the reference): serve the trained fleet from
-    its snapshot, optionally feeding served traffic back as the public
-    distillation stream.
+    """The inference path (`repro_torch.serve`): serve the trained fleet
+    from its snapshot, optionally feeding served traffic back as the
+    public distillation stream.
 
     ``requests=0`` disables serving (the default — training specs are
     unchanged). The serve block is consumed by
-    `repro.serve.run_serve_scenario` (via ``launch/serve.py --preset`` or
-    `benchmarks/serve.py`), *after* training; `Experiment.run()` itself
-    never serves. ``engine_arch`` names a reduced zoo LM config
-    (`repro.configs.get_reduced`) for the continuous-batching decode
+    `repro_torch.serve.run_serve_scenario` (via ``launch/serve.py
+    --preset``), *after* training; `Experiment.run()` itself never
+    serves. ``engine_arch`` names a reduced zoo LM config
+    (`repro_torch.configs.get_reduced`) for the continuous-batching decode
     engine; ``None`` serves the classify/teacher paths only.
     ``feedback_steps`` distills that many extra steps from the served
     `TrafficLog` (needs a prediction exchange — the feedback rides the

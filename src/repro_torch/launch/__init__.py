@@ -2,14 +2,16 @@
 
   gossip.py   one OS process per client over TCP (`launch_gossip`), each
               on the card unless the caller passes ``device="cpu"``.
+  serve.py    the serving launcher: ``python -m repro_torch.launch.serve``
+              (a decode demo, or ``--preset serve_loop``; ``--device cpu``
+              for the CPU).
   steps.py    the train step and the train state (`make_train_step`,
-              `init_train_state`).
+              `init_train_state`), the prefill and serve steps.
   train.py    the training launcher: ``python -m repro_torch.launch.train
               --mode supervised|mhd`` (``--device cpu`` for the CPU).
 
-The reference's mesh, sharding, dry-run and serve launchers, its prefill
-and serve steps, ``train_state_shapes`` and ``mhd_train_step`` are ROADMAP
-Queue 1 items 14 and 15.
+The reference's mesh, sharding and dry-run launchers,
+``train_state_shapes`` and ``mhd_train_step`` are ROADMAP Queue 1 item 15.
 """
 from __future__ import annotations
 

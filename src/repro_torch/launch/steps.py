@@ -1,8 +1,12 @@
-"""Step functions of the training launcher (port of the training half of
+"""Step functions of the training and serving launchers (port of
 ``repro/launch/steps.py``).
 
- * ``train_step`` — loss + autograd + the optimizer's update (SGD-momentum
-                    default, the paper's optimizer; AdamW selectable).
+ * ``train_step``   — loss + autograd + the optimizer's update
+                      (SGD-momentum default, the paper's optimizer; AdamW
+                      selectable).
+ * ``prefill_step`` — forward over the full prompt; returns the last
+                      position's logits.
+ * ``serve_step``   — one-token decode against a KV/state cache.
 
 A train state is ``{"params", "opt", "step"}`` as the reference's, with
 ``step`` a Python int. ``train_step(state, batch)`` returns ``(new_state,
@@ -13,9 +17,8 @@ the old moments out of their dicts as it makes the new one, so a step
 holds four copies of the params (params, grads, two AdamW moments) and
 one leaf's transient, not two of everything.
 
-The reference's ``prefill_step`` and ``serve_step`` come with serving
-(ROADMAP Queue 1 item 14); ``train_state_shapes`` and
-``mhd_train_step`` with the dry-run (item 15).
+``train_state_shapes`` and ``mhd_train_step`` come with the dry-run
+(ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -47,6 +50,24 @@ def make_train_step(bundle: ModelBundle, optimizer: Optimizer) -> Callable:
         return new_state, out
 
     return train_step
+
+
+def make_prefill_step(bundle: ModelBundle) -> Callable:
+    def prefill_step(params, batch):
+        # the main head only: the reference's jit drops the unread rest
+        out = bundle.apply(params, batch, mtp=False)
+        return out["logits"][:, -1, :]  # next-token logits only
+
+    return prefill_step
+
+
+def make_serve_step(bundle: ModelBundle) -> Callable:
+    def serve_step(params, batch):
+        logits, caches = bundle.decode_step(params, batch["token"],
+                                            batch["caches"])
+        return logits[:, -1, :], caches
+
+    return serve_step
 
 
 def init_train_state(bundle: ModelBundle, optimizer: Optimizer,

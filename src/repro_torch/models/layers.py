@@ -15,7 +15,14 @@ size (``attention_scores`` / ``_blockwise_attention``), a memory lever of
 the same value that the kernel replaces. Cross attention takes K and V
 from ``kv_src`` (B, S, ·) and calls the kernel non-causal with S ≠ T.
 ``logit_softcap`` raises NotImplementedError naming the ROADMAP item that
-ports it; decode comes with serving.
+ports it.
+
+Decode (``init_kv_cache``, ``attention_decode``, ``causal_conv1d_step``)
+runs one token a row against a cache whose ``index`` holds one position
+per row, so the rows of one call may sit at different positions: each row
+takes its own RoPE position, its own ring slot ``index mod S`` and its own
+validity mask. Its scores are the reference's dense ``attention_scores``
+(an einsum there too, no Pallas kernel), torch matmuls here.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -246,3 +254,84 @@ def causal_conv1d_apply(params: Params, x: Tensor) -> Tensor:
     for i in range(1, width):
         out = out + pad[:, i:i + T, :] * w[i]
     return out + params["b"]
+
+
+# ---------------------------------------------------------------------------
+# decode (one token a row against a cache; a position per row)
+# ---------------------------------------------------------------------------
+
+def attention_scores(q: Tensor, k: Tensor, v: Tensor,
+                     mask: Optional[Tensor]) -> Tensor:
+    """The reference's dense GQA attention. q (B, T, H, hd), k and v (B, S,
+    KV, hd); ``mask`` broadcastable to (B, KV, G, T, S), True where a key
+    counts, or None. Scores in f32, masked at −1e30 (not −inf, as the
+    reference), the output in v's dtype."""
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    dt = torch.promote_types(q.dtype, k.dtype)
+    q5 = q.reshape(B, T, KV, H // KV, hd).to(dt)
+    scores = torch.einsum("btkgh,bskh->bkgts", q5, k.to(dt)).float()
+    scores = scores / math.sqrt(hd)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype), v)
+    return out.reshape(B, T, H, hd).to(v.dtype)
+
+
+def init_kv_cache(batch: int, length: int, num_kv_heads: int,
+                  head_dim: int, dtype=torch.bfloat16,
+                  device=None) -> Params:
+    """k and v (batch, length, KV, hd) zeros, and ``index`` (batch,) int32:
+    the position each row's next token takes."""
+    dev = resolve_device(device)
+    shape = (batch, length, num_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "index": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+
+def attention_decode(params: Params, dims: AttnDims, x: Tensor,
+                     cache: Params, *, window: int = 0,
+                     rope_theta: Optional[float] = 10_000.0,
+                     logit_softcap: Optional[float] = None):
+    """One token a row, x (B, 1, D), against a ring (sliding-window
+    layers: the cache is ``window`` long) or linear (the cache is the
+    longest sequence) KV cache. Row b writes its k and v to slot
+    ``index[b] mod S`` and attends to the slots whose absolute position
+    lies in [0, index[b]] (and within ``window`` of it). Returns (y (B, 1,
+    D), the new cache); the old one is left as it was."""
+    if logit_softcap is not None:
+        raise NotImplementedError(f"attention logit_softcap is not ported "
+                                  f"yet: {_SOFTCAP}")
+    B = x.shape[0]
+    S = cache["k"].shape[1]
+    idx = cache["index"]
+    positions = idx[:, None]
+    q, k_new, v_new = _project_qkv(params, dims, x, x, positions, positions,
+                                   rope_theta)
+    rows = torch.arange(B, device=x.device)
+    slot = torch.remainder(idx, S).long()
+    k = cache["k"].index_put((rows, slot), k_new[:, 0].to(cache["k"].dtype))
+    v = cache["v"].index_put((rows, slot), v_new[:, 0].to(cache["v"].dtype))
+    # the absolute position each slot holds (ring semantics), per row
+    pos = idx[:, None].long()
+    abs_pos = pos - torch.remainder(
+        pos - torch.arange(S, device=x.device), S)
+    valid = (abs_pos >= 0) & (abs_pos <= pos)
+    if window:
+        valid &= abs_pos > pos - window
+    out = attention_scores(q, k, v, valid[:, None, None, None, :])
+    out = out.reshape(B, 1, dims.num_heads * dims.head_dim)
+    y = (out.to(params["wo"].dtype) @ params["wo"]).to(x.dtype)
+    return y, {"k": k, "v": v, "index": idx + 1}
+
+
+def causal_conv1d_step(params: Params, x_t: Tensor, conv_state: Tensor):
+    """One decode step of the depthwise causal conv. x_t (B, C),
+    conv_state (B, width − 1, C): the last inputs. Returns (out (B, C),
+    the new state)."""
+    dt = torch.promote_types(conv_state.dtype, x_t.dtype)
+    window = torch.cat([conv_state.to(dt), x_t[:, None, :].to(dt)], dim=1)
+    out = torch.einsum("bwc,wc->bc", window, params["w"]) + params["b"]
+    return out, window[:, 1:, :]

@@ -1,6 +1,5 @@
 """Multi-head Latent Attention (DeepSeek-V2/V3, arXiv:2412.19437), in
-PyTorch (port of the training half of ``repro/models/mla.py``, the same
-names).
+PyTorch (port of ``repro/models/mla.py``, the same names).
 
 Queries and keys/values are low-rank-compressed: a query latent of
 ``q_lora_rank`` (RMSNorm'd, then up-projected to every head's nope and
@@ -15,10 +14,16 @@ each block of ``BLOCK_Q`` queries under ``torch.utils.checkpoint`` as
 ``jax.checkpoint`` wraps the reference's scan body: the same numbers with
 one block's scores alive at a time.
 
+The absorbed one-token decode (``init_mla_cache``/``mla_decode``) caches
+only the latent ``c_kv`` and ``k_rope`` of each position: W_uk is folded
+into the query (q_lat = q_nope·W_uk), the scores run against the latent
+cache, and W_uv is applied after the reduction, so no per-head K or V is
+formed. Each row of a call writes its own position ``index[b]`` (clamped
+to the cache's last slot, as the reference's ``dynamic_update_slice``
+clamps) and attends to the positions up to it.
+
 The reference computes these scores with einsums, not with a Pallas
-kernel, so they stay ``torch`` matmuls here (cuBLAS on the card). The
-absorbed one-token decode (``init_mla_cache``/``mla_decode``) comes with
-serving, ROADMAP Queue 1 item 14.
+kernel, so they stay ``torch`` matmuls here (cuBLAS on the card).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Dict, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import resolve_device
 from repro_torch.models.config import MLAConfig
 from repro_torch.models.layers import apply_rope, dense_init, norm_apply
 
@@ -140,3 +146,53 @@ def mla_apply(params: Params, x: Tensor, cfg: MLAConfig, num_heads: int, *,
         out = _attend(q_nope, q_rope, k_nope, k_rope, v, scale, 0)
     out = out.to(x.dtype).reshape(B, T, num_heads * dv)
     return (out @ params["wo"]).to(x.dtype)
+
+
+def init_mla_cache(batch: int, length: int, cfg: MLAConfig,
+                   dtype=torch.bfloat16, device=None) -> Params:
+    """``c_kv`` (batch, length, kv_lora) and ``k_rope`` (batch, length,
+    dr) zeros, ``index`` (batch,) int32."""
+    dev = resolve_device(device)
+    return {"c_kv": torch.zeros(batch, length, cfg.kv_lora_rank,
+                                dtype=dtype, device=dev),
+            "k_rope": torch.zeros(batch, length, cfg.qk_rope_head_dim,
+                                  dtype=dtype, device=dev),
+            "index": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+
+def mla_decode(params: Params, x: Tensor, cache: Params, cfg: MLAConfig,
+               num_heads: int, *, rope_theta: float = 10_000.0):
+    """Absorbed one-token decode, x (B, 1, D). Returns (y (B, 1, D), the
+    new cache)."""
+    B = x.shape[0]
+    S = cache["c_kv"].shape[1]
+    idx = cache["index"]
+    q_nope, q_rope, c_kv_new, k_rope_new = _compress(
+        params, cfg, x, idx[:, None], rope_theta)
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rows = torch.arange(B, device=x.device)
+    at = idx.long().clamp(max=S - 1)
+    c_kv = cache["c_kv"].index_put(
+        (rows, at), c_kv_new[:, 0].to(cache["c_kv"].dtype))
+    k_rope = cache["k_rope"].index_put(
+        (rows, at), k_rope_new[:, 0].to(cache["k_rope"].dtype))
+
+    # W_uk absorbed into the query: q_lat (B, 1, H, R)
+    q_lat = torch.einsum("bthd,rhd->bthr", q_nope,
+                         params["w_uk"]).to(x.dtype)
+    dt = torch.promote_types(x.dtype, c_kv.dtype)
+    scale = 1.0 / math.sqrt(dn + dr)
+    scores = (torch.einsum("bthr,bsr->bhts", q_lat.to(dt),
+                           c_kv.to(dt)).float()
+              + torch.einsum("bthd,bsd->bhts", q_rope.to(dt),
+                             k_rope.to(dt)).float()) * scale
+    valid = torch.arange(S, device=x.device)[None, :] <= idx[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    # attend in the latent space, then decompress with W_uv
+    o_lat = torch.einsum("bhts,bsr->bthr", probs, c_kv.float())
+    out = torch.einsum("bthr,rhd->bthd", o_lat.to(x.dtype),
+                       params["w_uv"]).to(x.dtype)
+    out = out.reshape(B, 1, num_heads * dv)
+    y = (out @ params["wo"]).to(x.dtype)
+    return y, {"c_kv": c_kv, "k_rope": k_rope, "index": idx + 1}

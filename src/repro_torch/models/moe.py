@@ -17,6 +17,11 @@ in PyTorch (port of ``repro/models/moe.py``, the same names).
   * aux load-balance loss (Switch-style): E · Σ_e f_e · P_e, f from the
     top-1 choice.
 
+``moe_apply_lanes`` routes and caps each row of a (B, T, D) input on its
+own, as the reference's decode does under ``vmap`` over the engine's
+slots: a row's capacity counts its own T tokens, and its pairs fill slots
+of its own, so no row can push another's pair out.
+
 The reference's expert-parallel all-to-all form (``moe_a2a.py``) falls
 back to this scatter form without a ``model`` mesh axis, and so does the
 port's ``moe_impl="a2a"``: one card holds every expert.
@@ -162,3 +167,49 @@ def moe_apply(params: Params, x: Tensor, cfg: MoEConfig, act: str = "silu",
     if shared:
         y = y + mlp_apply(shared, xf, act)
     return y.reshape(orig_shape), aux
+
+
+def moe_apply_lanes(params: Params, x: Tensor, cfg: MoEConfig,
+                    act: str = "silu", scoring: str = "softmax"
+                    ) -> Tuple[Tensor, Tensor]:
+    """`moe_apply` of each row of x (B, T, D) as a call of its own, in one
+    pass: C = capacity(T), each row's pairs counted in its own token-major
+    order and written to its own C slots of every expert (row b's are
+    b·C … b·C + C − 1). Returns (output (B, T, D), each row's aux loss
+    (B,))."""
+    B, T, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    C = capacity(T, cfg)
+    xf = x.reshape(-1, D)
+
+    logits = xf.float() @ params["router"].float()
+    weights, ids, probs = router_topk(logits, K, scoring)
+    experts = torch.arange(E, device=x.device)
+    top1 = (ids[:, :1] == experts).float().reshape(B, T, E)
+    aux = E * (top1.mean(1) * probs.reshape(B, T, E).mean(1)).sum(-1)
+    aux = aux * cfg.router_aux_weight
+
+    # each pair's position among its row's earlier pairs to its expert
+    row_ids = ids.reshape(B, T * K)
+    earlier = torch.ones(T * K, T * K, dtype=torch.bool,
+                         device=x.device).tril(-1)
+    row_pos = ((row_ids[:, :, None] == row_ids[:, None, :]) & earlier
+               ).sum(-1)  # (B, T·K)
+    keep = (row_pos < C).reshape(-1)
+    slot = (row_pos + torch.arange(B, device=x.device)[:, None] * C
+            ).reshape(-1)
+    flat_ids = ids.reshape(-1).long()
+    # every pair is written, a dropped one to a spare slot past the rows'
+    # (no count of the kept pairs on the host, so the call can be
+    # captured in a CUDA graph)
+    rows = xf.repeat_interleave(K, dim=0)
+    buf = xf.new_zeros(E, B * C + 1, D).index_put(
+        (flat_ids, torch.where(keep, slot, B * C)), rows)[:, :B * C]
+    out_buf = expert_ffn(params, buf)
+    y = combine(out_buf, flat_ids, slot, keep, weights, K)
+
+    shared = {k[len("shared/"):]: v for k, v in params.items()
+              if k.startswith("shared/")}
+    if shared:
+        y = y + mlp_apply(shared, xf, act)
+    return y.reshape(B, T, D), aux

@@ -43,6 +43,20 @@ Public API (pure functions over a flat path-keyed param dict):
                                          "aux_loss"} (+ "mtp_hidden")
   encode_audio(params, cfg, frames)  -> the encoder's output (B, T_enc, D)
   lm_loss(params, cfg, batch)        -> (loss, metrics)
+  init_lm_cache(cfg, batch, cache_len, dtype=bfloat16, device=None)
+                                     -> caches
+  prefill_cross_caches(params, cfg, caches, vision_embeds=None,
+                       audio_frames=None) -> caches
+  decode_step(params, cfg, token, caches) -> (logits (B, 1, V), caches)
+
+The caches are a flat path-keyed dict with the reference's tree: a stage's
+leaves stacked over its repeats (``stage0/layer0/attn/k`` is (R, B, S, KV,
+hd)), and an ``index`` beside each self-attention, MLA and Mamba2 cache
+and at the top. Where the reference's index is a scalar for the whole
+batch, the port's holds one position per row ((R, B) in a stage, (B,) at
+the top), so one ``decode_step`` advances rows that sit at different
+positions: the engine's slots. Decode computes the main head's logits
+only, as the reference's ``jit`` keeps only what is read.
 
 The reference's ``apply_lm`` always computes the MTP branch and its
 ``jit`` drops it where nothing reads it (the MHD path); the port runs
@@ -52,8 +66,7 @@ leaves get zero gradients there as in the reference.
 ``moe_impl="a2a"`` runs the scatter form, as the reference does without a
 ``model`` mesh axis; the expert-parallel form is item 15.
 ``attn_logit_softcap`` raises NotImplementedError naming the ROADMAP item
-that ports it; decode (with the cross caches) comes with serving (item
-14).
+that ports it.
 """
 from __future__ import annotations
 
@@ -450,3 +463,203 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]):
         loss = loss + 0.3 * mtp_ce
         metrics["mtp_ce"] = mtp_ce
     return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# decode (serve path)
+# ---------------------------------------------------------------------------
+
+def _layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                       cache_len: int, dtype, device) -> Params:
+    """One layer's cache, flat (``attn/k``, ``attn/index``, ...)."""
+    caches: Params = {}
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if spec.attn in ("full", "swa"):
+        # enc-dec (whisper): the self-attention cache is decoder-length;
+        # cache_len is the encoder's frame count (the cross cache below)
+        self_len = cfg.audio.decoder_len if cfg.audio is not None \
+            else cache_len
+        if cfg.mla is not None:
+            c = MLA.init_mla_cache(batch, self_len, cfg.mla, dtype, device)
+        else:
+            length = min(cfg.window_size, self_len) if spec.attn == "swa" \
+                else self_len
+            c = L.init_kv_cache(batch, length, KV, hd, dtype, device)
+        caches.update(_with_prefix("attn", c))
+    elif spec.attn == "mamba2":
+        caches.update(_with_prefix("attn", SSM.init_mamba2_cache(
+            batch, cfg.d_model, cfg.mamba, dtype, device)))
+    elif spec.attn == "cross":
+        shape = (batch, cfg.vision.num_patches, KV, hd)
+        caches["attn/k"] = torch.zeros(shape, dtype=dtype, device=device)
+        caches["attn/v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if spec.shared_attn:
+        caches.update(_with_prefix("shared_attn", L.init_kv_cache(
+            batch, cache_len, KV, hd, dtype, device)))
+    if spec.cross_attn:  # the encoder's length, for whisper's decode
+        shape = (batch, cache_len, KV, hd)
+        caches["xattn/k"] = torch.zeros(shape, dtype=dtype, device=device)
+        caches["xattn/v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return caches
+
+
+def init_lm_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                  dtype=torch.bfloat16, device=None) -> Params:
+    """Zero caches for ``batch`` rows, each stage's leaves stacked over its
+    repeats, on ``device`` (None → the card)."""
+    device = resolve_device(device)
+    caches: Params = {}
+    for si, stage in enumerate(cfg.stages):
+        for li, spec in enumerate(stage.block):
+            for k, v in _layer_cache_shape(cfg, spec, batch, cache_len,
+                                           dtype, device).items():
+                caches[f"stage{si}/layer{li}/{k}"] = v.new_zeros(
+                    (stage.repeats,) + tuple(v.shape))
+    caches["index"] = torch.zeros(batch, dtype=torch.int32, device=device)
+    return caches
+
+
+def _cross_decode(attn_params: Params, cfg: ModelConfig, x: Tensor,
+                  cache: Params) -> Tensor:
+    """One token a row against a filled cross cache (every key counts): q
+    from ``wq`` alone, as the reference's (no bias, norm or RoPE)."""
+    dims = _attn_dims(cfg)
+    B = x.shape[0]
+    q = (x @ attn_params["wq"]).to(x.dtype)
+    q = q.reshape(B, 1, dims.num_heads, dims.head_dim)
+    out = L.attention_scores(q, cache["k"].to(x.dtype),
+                             cache["v"].to(x.dtype), None)
+    out = out.reshape(B, 1, dims.num_heads * dims.head_dim)
+    return (out @ attn_params["wo"]).to(x.dtype)
+
+
+def _layer_decode(lp: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
+                  cache: Params, shared: Params) -> Tuple[Tensor, Params]:
+    """One layer's decode step (the order of `_layer_forward`). The MoE
+    FFN routes and caps each row on its own (`moe_apply_lanes`), as the
+    reference's engine gives each lane its own call. Returns (x, the
+    layer's new cache)."""
+    rope = cfg.rope_theta if cfg.pos_embed == "rope" else None
+    new_cache = dict(cache)
+    if spec.attn in ("full", "swa"):
+        h = L.norm_apply(_sub(lp, "attn_norm"), x, cfg.norm)
+        if cfg.mla is not None:
+            a, c = MLA.mla_decode(_sub(lp, "attn"), h, _sub(cache, "attn"),
+                                  cfg.mla, cfg.num_heads,
+                                  rope_theta=cfg.rope_theta)
+        else:
+            a, c = L.attention_decode(
+                _sub(lp, "attn"), _attn_dims(cfg), h, _sub(cache, "attn"),
+                window=cfg.window_size if spec.attn == "swa" else 0,
+                rope_theta=rope, logit_softcap=cfg.attn_logit_softcap)
+        new_cache.update(_with_prefix("attn", c))
+        x = x + a
+    elif spec.attn == "cross":
+        h = L.norm_apply(_sub(lp, "attn_norm"), x, cfg.norm)
+        a = _cross_decode(_sub(lp, "attn"), cfg, h, _sub(cache, "attn"))
+        x = x + torch.tanh(lp["cross_gate"]).to(x.dtype) * a
+    elif spec.attn == "mamba2":
+        h = L.norm_apply(_sub(lp, "attn_norm"), x, cfg.norm)
+        a, c = SSM.mamba2_decode(_sub(lp, "attn"), h, _sub(cache, "attn"),
+                                 cfg.mamba)
+        new_cache.update(_with_prefix("attn", c))
+        x = x + a
+    if spec.shared_attn:
+        h = L.norm_apply(_sub(shared, "shared_attn_norm"), x, cfg.norm)
+        a, c = L.attention_decode(_sub(shared, "shared_attn"),
+                                  _attn_dims(cfg), h,
+                                  _sub(cache, "shared_attn"),
+                                  rope_theta=rope)
+        new_cache.update(_with_prefix("shared_attn", c))
+        x = x + a
+    if spec.cross_attn:
+        h = L.norm_apply(_sub(lp, "xattn_norm"), x, cfg.norm)
+        x = x + _cross_decode(_sub(lp, "xattn"), cfg, h,
+                              _sub(cache, "xattn"))
+    if spec.ffn == "dense":
+        h = L.norm_apply(_sub(lp, "ffn_norm"), x, cfg.norm)
+        x = x + L.mlp_apply(_sub(lp, "ffn"), h, cfg.act)
+    elif spec.ffn in ("moe", "moe_dense_parallel"):
+        h = L.norm_apply(_sub(lp, "ffn_norm"), x, cfg.norm)
+        y, _ = MOE.moe_apply_lanes(_sub(lp, "ffn"), h, cfg.moe, cfg.act,
+                                   scoring=cfg.moe_scoring)
+        if spec.ffn == "moe_dense_parallel":
+            y = y + L.mlp_apply(_sub(lp, "ffn_dense"), h, cfg.act)
+        x = x + y
+    return x, new_cache
+
+
+def prefill_cross_caches(params: Params, cfg: ModelConfig, caches: Params,
+                         *, vision_embeds: Optional[Tensor] = None,
+                         audio_frames: Optional[Tensor] = None) -> Params:
+    """Fill the cross-attention K/V caches from the modality source: the
+    projected vision tokens for llama-vision's cross layers, the encoder's
+    output for whisper's decoder sublayers. Runs once before decode;
+    returns new caches (the old ones are left as they were)."""
+    cross_src = None
+    if vision_embeds is not None:
+        cross_src = (vision_embeds @ params["vision_proj"]).to(
+            vision_embeds.dtype)
+    enc_out = None
+    if audio_frames is not None:
+        enc_out = encode_audio(params, cfg, audio_frames)
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def kv_for(prefix: str, src: Tensor) -> Tuple[Tensor, Tensor]:
+        # stacked weights (R, D_src, KV·hd) over src (B, S, D_src)
+        k = torch.einsum("bsd,rdh->rbsh", src, params[f"{prefix}/wk"])
+        v = torch.einsum("bsd,rdh->rbsh", src, params[f"{prefix}/wv"])
+        R, B, S, _ = k.shape
+        return k.reshape(R, B, S, KV, hd), v.reshape(R, B, S, KV, hd)
+
+    caches = dict(caches)
+    for si, stage in enumerate(cfg.stages):
+        for li, spec in enumerate(stage.block):
+            layer = f"stage{si}/layer{li}"
+            fills = []
+            if spec.attn == "cross" and cross_src is not None:
+                fills.append(("attn", cross_src))
+            if spec.cross_attn and enc_out is not None:
+                fills.append(("xattn", enc_out))
+            for name, src in fills:
+                k, v = kv_for(f"{layer}/{name}", src)
+                for key, val in (("k", k), ("v", v)):
+                    tgt = caches[f"{layer}/{name}/{key}"]
+                    caches[f"{layer}/{name}/{key}"] = val.to(tgt.dtype)
+    return caches
+
+
+def decode_step(params: Params, cfg: ModelConfig, token: Tensor,
+                caches: Params) -> Tuple[Tensor, Params]:
+    """One token a row: token (B, 1) int. Row b sits at position
+    ``caches["index"][b]``. Returns (logits (B, 1, V) f32, the new
+    caches); the old ones are left as they were."""
+    x = _embed_tokens(params, cfg, token)
+    if cfg.pos_embed == "learned":
+        pos = (caches["index"] % cfg.max_seq_len).long()
+        x = x + params["pos_embed"][pos][:, None].to(x.dtype)
+    else:  # the reference adds position 0's sinusoid at every step
+        x = _add_positional(params, cfg, x, offset=0)
+    shared = {k: v for k, v in params.items()
+              if k.startswith(("shared_attn/", "shared_attn_norm/"))}
+    new: Params = {"index": caches["index"] + 1}
+    for si, stage in enumerate(cfg.stages):
+        stacked_p = {k: v.unbind(0)
+                     for k, v in _sub(params, f"stage{si}").items()}
+        stacked_c = {k: v.unbind(0)
+                     for k, v in _sub(caches, f"stage{si}").items()}
+        units = []
+        for r in range(stage.repeats):
+            unit_p = {k: v[r] for k, v in stacked_p.items()}
+            unit_c = {k: v[r] for k, v in stacked_c.items()}
+            unit_new: Params = {}
+            for li, spec in enumerate(stage.block):
+                x, c = _layer_decode(_sub(unit_p, f"layer{li}"), cfg, spec,
+                                     x, _sub(unit_c, f"layer{li}"), shared)
+                unit_new.update(_with_prefix(f"layer{li}", c))
+            units.append(unit_new)
+        for k in units[0]:
+            new[f"stage{si}/{k}"] = torch.stack([u[k] for u in units])
+    hidden = L.norm_apply(_sub(params, "final_norm"), x, cfg.norm)
+    head_w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return (hidden @ head_w).float(), new

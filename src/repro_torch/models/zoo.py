@@ -1,10 +1,10 @@
-"""Model zoo: the uniform bundle interface the trainer sees (port of
-``repro/models/zoo.py``), over the ResNets and the LM skeleton. Decode
-entry points (``init_cache``, ``decode_step``) come with serving."""
+"""Model zoo: the uniform bundle interface the trainer and the server see
+(port of ``repro/models/zoo.py``), over the ResNets and the LM skeleton.
+An LM bundle also decodes: ``init_cache`` and ``decode_step``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -30,6 +30,10 @@ class ModelBundle:
     # branch (`lm_mhd_outputs`)
     apply: Callable[..., Dict[str, Any]]
     loss: Callable[..., Any]  # (params, batch) -> (loss, metrics)
+    # (batch, cache_len, cache_dtype=bfloat16, device=None) -> caches
+    init_cache: Optional[Callable[..., Any]] = None
+    # (params, token (B, 1), caches) -> (logits (B, 1, V), caches)
+    decode_step: Optional[Callable[..., Any]] = None
 
     @property
     def is_lm(self) -> bool:
@@ -74,5 +78,13 @@ def _lm_bundle(cfg: ModelConfig, dtype) -> ModelBundle:
     def loss(params, batch):
         return TF.lm_loss(params, cfg, batch)
 
+    def init_cache(batch, cache_len, cache_dtype=torch.bfloat16,
+                   device=None):
+        return TF.init_lm_cache(cfg, batch, cache_len, cache_dtype, device)
+
+    def decode_step(params, token, caches):
+        return TF.decode_step(params, cfg, token, caches)
+
     return ModelBundle(name=cfg.name, config=cfg, init=init, apply=apply,
-                       loss=loss)
+                       loss=loss, init_cache=init_cache,
+                       decode_step=decode_step)

@@ -360,23 +360,27 @@ def _cross():
     assert torch.isfinite(loss) and set(metrics) == {"ce", "aux_loss"}
 
 
-# what the port does not run yet: each raises naming its ROADMAP item;
-# a feature ported since (item None) builds and runs in place of raising
+# what the port does not run yet: each raises naming its ROADMAP item
 DEFERRED = {
     "roofline": (_roofline, "item 15"),
-    "mla": (_mla, None),
-    "cross_attention": (_cross, None),
+}
+# features deferred once and ported since: each builds and runs
+PORTED_SINCE = {
+    "mla": _mla,
+    "cross_attention": _cross,
 }
 
 
 @pytest.mark.parametrize("case", sorted(DEFERRED))
 def test_deferred_features_raise_naming_their_item(case):
     act, item = DEFERRED[case]
-    if item is None:
-        act()
-        return
     with pytest.raises(NotImplementedError, match=item):
         act()
+
+
+@pytest.mark.parametrize("case", sorted(PORTED_SINCE))
+def test_features_ported_since_run(case):
+    PORTED_SINCE[case]()
 
 
 def test_gossip_socket_runs_and_closes_its_listeners():

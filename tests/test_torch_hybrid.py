@@ -128,21 +128,23 @@ def test_params_npz_round_trip(model, tmp_path):
         assert np.array_equal(np.asarray(x), np.asarray(y))
 
 
-@pytest.mark.parametrize("field,value", [("attn_logit_softcap", 50.0),
-                                         ("mtp", True),
-                                         ("pos_embed", "learned")])
+@pytest.mark.parametrize("field,value", [("attn_logit_softcap", 50.0)])
 def test_unported_config_options_raise(field, value):
-    """softcap raises naming its ROADMAP item. DeepSeek MTP and learned
-    positions, ported since, build and run on reduced gemma3-12b in place
-    of raising (the MTP block's one full-attention layer on the
+    """softcap raises naming its ROADMAP item."""
+    cfg = dataclasses.replace(get_reduced("gemma3-12b"), **{field: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("mtp", True),
+                                         ("pos_embed", "learned")])
+def test_config_options_ported_since_match_jax(field, value):
+    """DeepSeek MTP and learned positions, ported since, build and run on
+    reduced gemma3-12b (the MTP block's one full-attention layer on the
     flash_attention path, the tied head; a (max_seq_len, d_model)
     ``pos_embed`` added to the embeddings): lm_loss and its metrics
     against the reference's from the same params."""
     cfg = dataclasses.replace(get_reduced("gemma3-12b"), **{field: value})
-    if field == "attn_logit_softcap":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
-        return
     jcfg = dataclasses.replace(jax_reduced("gemma3-12b"), **{field: value})
     params = TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert ("pos_embed" in params) == (field == "pos_embed")

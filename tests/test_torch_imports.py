@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of repro_torch (the
-socket transport, the gossip launcher, the MoE FFN, MLA, the training
-launcher and its steps and every architecture config among them), chip_smoke.py,
-examples/port_quickstart.py and scripts/port_gossip_procs.py leaves jax
+socket transport, the gossip launcher, the MoE FFN, MLA, the training and
+serving launchers and their steps, the serving package and every
+architecture config among them), chip_smoke.py, examples/port_quickstart.py,
+examples/port_serve_decode.py and scripts/port_gossip_procs.py leaves jax
 and the JAX package out of sys.modules, and the kernels' sources (which
 import triton) are not imported by any module."""
 import os
@@ -24,9 +25,13 @@ assert {"repro_torch.comm.socket", "repro_torch.launch",
         "repro_torch.launch.train", "repro_torch.configs.whisper_large_v3",
         "repro_torch.configs.llama_3_2_vision_90b",
         "repro_torch.configs.gemma3_27b", "repro_torch.configs.qwen2_5_32b",
-        "repro_torch.configs.minitron_4b"} <= set(names), names
-for name, path in zip(("chip_smoke", "port_quickstart", "port_gossip_procs"),
-                      sys.argv[1:]):
+        "repro_torch.configs.minitron_4b", "repro_torch.launch.serve",
+        "repro_torch.serve", "repro_torch.serve.engine",
+        "repro_torch.serve.feedback", "repro_torch.serve.front",
+        "repro_torch.serve.request", "repro_torch.serve.router",
+        "repro_torch.serve.teacher_cache"} <= set(names), names
+for name, path in zip(("chip_smoke", "port_quickstart", "port_gossip_procs",
+                       "port_serve_decode"), sys.argv[1:]):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
@@ -41,10 +46,11 @@ def test_port_imports_no_jax_and_no_reference_package():
     out = subprocess.run(
         [sys.executable, "-c", PROBE, os.path.join(ROOT, "chip_smoke.py"),
          os.path.join(ROOT, "examples", "port_quickstart.py"),
-         os.path.join(ROOT, "scripts", "port_gossip_procs.py")],
+         os.path.join(ROOT, "scripts", "port_gossip_procs.py"),
+         os.path.join(ROOT, "examples", "port_serve_decode.py")],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 80, out.stdout
+    assert int(n) >= 88, out.stdout
     assert bad == "[]", bad
 
 

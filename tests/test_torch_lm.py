@@ -110,9 +110,9 @@ def test_lm_loss_gradients_match_jax_and_remat_changes_nothing(model):
 
 @pytest.mark.parametrize("case", ["cross", "mla", "mtp"],
                          ids=["cross-none", "mla", "mtp"])
-def test_unported_layer_kinds_raise(case, model):
+def test_layer_kinds_ported_since_match_jax(case, model):
     """Cross attention, MLA and DeepSeek MTP, each ported since, build
-    and run in place of raising: the reduced skeleton with two gated
+    and run: the reduced skeleton with two gated
     cross-attention layers (no vision front end, so K and V come from the
     layer's own input, every key visible; the gates set to 0.5 in both
     packages, as at 0 the layer is multiplied away), with two
