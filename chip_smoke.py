@@ -138,7 +138,20 @@ the checkout (into ``build/``), then
      rows' top-2 logits lie within 1e-5, a near-tie, recorded), logits
      finite; tokens a second, the median decode tick against its byte
      bound, prefill ms a prompt token, occupancy and the card's peak;
-  15. prints one ``{"kernels": [...]}`` line and, last, the device line
+  15. puts each path's step against the H100's roofline
+     (`roofline_row`): its FLOPs by type and bytes counted on the meta
+     device at the path's own configuration (`repro_torch.roofline`; each
+     kernel an entry of its own cost), the compute and memory terms, the
+     bound beside the measured median step, model_flops / counted FLOPs,
+     and the counted peak beside max_memory_allocated. The MHD paths
+     (ResNet, LM, hybrid, MoE, DeepSeek) through collect_obs(trainer,
+     tracer=..., with_roofline=True) after their profiled round; the two
+     supervised steps of (13) and the decode ticks of (14). One whisper
+     step is also counted on the card, real tensors and the kernels
+     launching, and must equal its meta count; minitron-4b's counted tick
+     bytes must lie in TICK_BYTES_BAND of the hand reckoning. The rows go
+     to the record's ``roofline``;
+  16. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -197,14 +210,15 @@ from repro_torch.launch.train import supervised_batch  # noqa: E402
 from repro_torch.optim import (Optimizer, OptimizerConfig,  # noqa: E402
                                make_optimizer)
 from repro_torch import serve as SERVE  # noqa: E402
-from repro_torch.core.runtime import batch_to_device  # noqa: E402
+from repro_torch.core.runtime import batch_to_device, meta_like  # noqa: E402
 from repro_torch.fleet import load_client_params  # noqa: E402
+from repro_torch.roofline import op_cost  # noqa: E402
+from repro_torch.roofline.analysis import H100, model_flops  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 (no
-# tensor cores) flop/s, TF32 tensor-core flop/s
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-PEAK_TF32 = 495e12
+# H100 SXM peaks (NVIDIA data sheet, dense; `roofline.analysis.H100`):
+# HBM3 bytes/s, fp32 (no tensor cores) flop/s, TF32 tensor-core flop/s
+HW = H100
+PEAK_BYTES, PEAK_F32, PEAK_TF32 = HW.hbm_bw, HW.peak_flops, HW.peak_tf32
 # what mma.sync m16n8k8 reaches of TF32 on the H100 SXM at 700 W: 308.7-317.3
 # TFLOP/s in scripts/flash_bwd_ablation.py's loop of independent products
 MMA_SYNC_TF32 = 310e12
@@ -312,6 +326,8 @@ LM_COMM = dict(topk=8, val_dtype="float16", emb_encoding="none",
                horizon=LM_S_P)
 LM_PARTITION = dict(labels_per_client=2, skew=100.0, gamma_pub=0.2, seed=0)
 LM_TOPK_ROWS = LM_S_P * LM_H * LM_MAX_POS  # W·H·B' of one LM publish
+# an LM client's tokens a step, private and public, for model_flops
+LM_TOKENS = (LM_RUN["batch_size"] + LM_RUN["public_batch_size"]) * LM_SEQ_LEN
 LM_CE_ROWS = 2 * LM_MAX_POS  # n_cand·B' of one aux level
 # which client steps distill on the LM path (row = client, column = step).
 # Every client distills in round 0 from its seeded pool; later a pool of
@@ -613,10 +629,19 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def bound(nbytes: float, flops: float, peak: float = PEAK_F32):
+def bound(nbytes: float, flops: float) -> tuple:
     """The least time of the work, ms: its bytes over the card's memory
-    rate or its operations over the peak rate of their type, the larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+    rate or its f32 operations over the f32 peak, the larger."""
+    return kernel_bound(({"f32": flops}, nbytes))
+
+
+def kernel_bound(cost) -> tuple:
+    """`bound` of a kernel's own cost, (FLOPs by type, bytes) from its
+    module's ``cost`` functions (the roofline's counts of a step book the
+    same): the operations' term is Σ flops_type / peak_type."""
+    flops, nbytes = cost
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = HW.compute_s({f"flops_{k}": v for k, v in flops.items()}) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -668,7 +693,7 @@ def phase_build() -> None:
 
 def _topk_timing(x: torch.Tensor, k: int, iters: int) -> dict:
     B, V = x.shape
-    b_ms, b_by = bound(B * V * 4 + B * k * 8 + B * 4, 3 * B * V)
+    b_ms, b_by = kernel_bound(TOPK.cost(B, V, k))
     return {"shape": [B, V, k],
             "ms": time_ms(lambda: TOPK.topk_wire_kernel(x, k), iters=iters),
             "plain_ms": time_ms(lambda: TOPK.topk_wire_plain(x, k),
@@ -1010,39 +1035,20 @@ def _ssd_timing(dev, g, shape) -> tuple:
     Bt, T, H, P, N = shape
     x, dt, A, B, C, D = _ssd_inputs(dev, g, Bt, T, H, P, N, "model")
     L = SSD.kernel_chunk()
-    nc = -(-T // L)
     _, _, states = SSD.ssd_scan_fwd_kernel(x, dt, A, B, C, D,
                                            save_states=True)
     dy = torch.randn_like(x)
-    # bytes: every input read once, every output written once; operations:
-    # the products the function needs at the kernel's chunk length L, per
-    # (row b, chunk): B and C are shared by the heads, so C·Bᵀ (tri·N
-    # multiply-adds) is needed once, not once per head; per head the
-    # masked product with x (tri·P), C·h and the state update (L·N·P
-    # each). Backward: C·Bᵀ again, and dC = dCB·B and dB = dCBᵀ·C once on
-    # the head-summed dCB (its tri·H additions); per head dx and dCB from
-    # the masked product (2·tri·P) and the four state products
-    # (4·L·N·P). What the backward kernel does beyond that (dB and dC per
-    # head) belongs to its design, not to the function. Both directions
-    # compute by 3xTF32, three TF32 products for each f32 one, so each
-    # bound is those at 495 TFLOP/s or its bytes, the larger (the
-    # forward's with and without the chunk states the training call
-    # saves); the f32 FMA figure stands beside it.
-    io_in = 4 * (2 * Bt * T * N + Bt * T * H * P + Bt * T * H + 2 * H)
-    state_b = 4 * Bt * H * P * N
-    tri = L * (L + 1) / 2
-    rows, heads = Bt * nc, Bt * nc * H
-    fl_fwd = 2 * rows * tri * N + 2 * heads * (tri * P + 2 * L * N * P)
-    fwd_bytes = io_in + 4 * Bt * T * H * P + state_b
-    fb, fby = bound(fwd_bytes, 3 * fl_fwd, PEAK_TF32)
-    fb_states, _ = bound(fwd_bytes + nc * state_b, 3 * fl_fwd, PEAK_TF32)
-    fl_bwd = (2 * rows * 3 * tri * N + rows * tri * H
-              + 2 * heads * (2 * tri * P + 4 * L * N * P))
-    # backward: dy and the chunk states (the wrapper's inputs) read; dx,
-    # ddt, dB, dC, dA and dD written
-    bb, bby = bound(io_in + 4 * Bt * T * H * P + nc * state_b
-                    + 4 * (Bt * T * H * P + Bt * T * H + 2 * Bt * T * N
-                           + 2 * H), 3 * fl_bwd, PEAK_TF32)
+    # the function's bounds from the kernels' own costs (`ssd_scan.cost_fwd`,
+    # `cost_bwd`): every input read once, every output written once, and
+    # the products the function needs at the kernel's chunk length, by
+    # 3xTF32 (the forward's with and without the chunk states the training
+    # call saves); the f32 FMA figure stands beside it
+    check(L == SSD.CHUNK, f"ssd_scan chunk {L} == SSD.CHUNK {SSD.CHUNK}")
+    fwd_c, bwd_c = SSD.cost_fwd(*shape), SSD.cost_bwd(*shape)
+    fl_fwd, fl_bwd = fwd_c[0]["tf32x3"], bwd_c[0]["tf32x3"]
+    fb, fby = kernel_bound(fwd_c)
+    fb_states, _ = kernel_bound(SSD.cost_fwd(*shape, save_states=True))
+    bb, bby = kernel_bound(bwd_c)
     fwd = {"shape": [Bt, T, H, P, N], "gflop": fl_fwd / 1e9,
            "tf32x3_bound_ms": 3 * fl_fwd / PEAK_TF32 * 1e3,
            "f32_bound_ms": fl_fwd / PEAK_F32 * 1e3,
@@ -1076,27 +1082,17 @@ def _ssd_timing(dev, g, shape) -> tuple:
     return fwd, bwd
 
 
-def attn_pairs(T: int, S: int, causal: bool, window: int) -> int:
-    """The (query, key) pairs inside the mask: the work of one (b, h)."""
-    t = np.arange(T)
-    hi = np.minimum(t + 1, S) if causal else np.full(T, S)
-    lo = np.maximum(t - window + 1, 0) if window else np.zeros(T, np.int64)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 def _flash_bounds(B, T, S, H, KV, d, causal, window, elem):
-    """(forward, backward) bounds: bytes with every input read once and
-    every output written once, over 3.35 TB/s; operations over 495 TFLOP/s
-    of TF32, the type both kernels compute in: three TF32 products (3xTF32)
-    for each f32 one, counting the pairs inside the mask only — 2 d
-    multiply-adds a pair forward (q·k, p·v), 5 backward (s again, dP, dV,
-    dS·K, dSᵀ·Q). Also the f32 operations of each."""
-    pairs = attn_pairs(T, S, causal, window) * B * H
-    qo, kv, rows = B * T * H * d * elem, B * S * KV * d * elem, B * H * T * 4
-    fl_f, fl_b = 4 * pairs * d, 10 * pairs * d
-    fwd = bound(2 * qo + 2 * kv + rows, 3 * fl_f, PEAK_TF32)
-    bwd = bound(3 * qo + 2 * kv + rows + qo + 2 * kv, 3 * fl_b, PEAK_TF32)
-    return fwd, bwd, fl_f, fl_b
+    """(forward, backward) bounds from the kernels' own costs
+    (`flash_attention.cost_fwd`, `cost_bwd`): bytes with every input read
+    once and every output written once, over 3.35 TB/s; operations over
+    495 TFLOP/s of TF32, the type both kernels compute in (3xTF32),
+    counting the pairs inside the mask only. Also the f32 operations of
+    each."""
+    args = (B, T, S, H, KV, d, causal, window, elem)
+    fwd, bwd = FA.cost_fwd(*args), FA.cost_bwd(*args)
+    return (kernel_bound(fwd), kernel_bound(bwd), fwd[0]["tf32x3"],
+            bwd[0]["tf32x3"])
 
 
 def fwd_tile_pairs(T: int, S: int, causal: bool, window: int, d: int) -> int:
@@ -1339,8 +1335,8 @@ def _dist_ce_timing(dev, g, B, V, s_dt, iters: int) -> tuple:
     gce = torch.randn(B, generator=g, device=dev)
     stats = DCE.dist_ce_fwd_kernel(s, t)[3]
     sb = s.element_size()
-    fb, fby = bound(B * V * (sb + 4) + 7 * B * 4, 8 * B * V)
-    bb, bby = bound(B * V * (2 * sb + 4) + 5 * B * 4, 6 * B * V)
+    fb, fby = kernel_bound(DCE.cost_fwd(B, V, sb))
+    bb, bby = kernel_bound(DCE.cost_bwd(B, V, sb))
     fwd = {"shape": [B, V], "student_dtype": str(s_dt),
            "ms": time_ms(lambda: DCE.dist_ce_fwd_kernel(s, t), iters=iters),
            "plain_ms": time_ms(lambda: DCE.dist_ce_fwd_plain(s, t),
@@ -1461,8 +1457,8 @@ def phase_emb_dist(dev) -> list:
     s = torch.randn(B, E, generator=g, device=dev)
     t = torch.randn(B, E, generator=g, device=dev)
     gd = torch.randn(B, generator=g, device=dev)
-    fb, fby = bound(2 * B * E * 4 + B * 4, 8 * B * E)
-    bb, bby = bound(3 * B * E * 4 + B * 4, 14 * B * E)
+    fb, fby = kernel_bound(EMB.cost_fwd(B, E))
+    bb, bby = kernel_bound(EMB.cost_bwd(B, E))
     fwd = {**EMB.INFO_FWD, "shape": [B, E], "max_abs_err": err_f,
            "ms": time_ms(lambda: EMB.emb_dist_fwd_kernel(s, t)),
            "plain_ms": time_ms(lambda: EMB.emb_dist_plain(s, t)),
@@ -1635,6 +1631,93 @@ def phase_resnet_path(dev) -> tuple:
             "final_loss": [history[-1][f"c{i}/loss"] for i in range(K)]}
 
 
+# ---------------------------------------------------------------------------
+# the roofline of each path's step
+# ---------------------------------------------------------------------------
+
+# each profiled round's tracer (phase_profile), whose runtime/distill
+# spans give collect_obs the achieved rate of each distill update
+PROFILE_SPANS: dict = {}
+# each path's step against the H100's roofline, in the order measured
+ROOFLINE: dict = {}
+# minitron-4b's counted tick bytes over the hand reckoning of its tick (the
+# weights it multiplies, one embedding row a slot, the caches read once and
+# written once): the eager decode also copies every cache three times a
+# tick (index_put's new cache, the units' stack, a clone), each a read and
+# a write. The band is written in PERF.md before the call.
+TICK_BYTES_BAND = (1.00, 1.15)
+
+
+def roofline_row(label: str, cost: dict, counted_peak: float,
+                 step_ms: float, max_memory_gib: float,
+                 model_fl=None, extra=None) -> dict:
+    """A path's step against the card: its counted FLOPs by type and
+    bytes, the compute term (Σ flops_type / peak_type) and the memory term
+    (bytes / 3.35 TB/s), the bound (the larger), the measured median step
+    and the share bound / measured, model_flops / counted flops, and the
+    counted peak (arguments + the step's own peak) beside
+    torch.cuda.max_memory_allocated."""
+    compute_ms = HW.compute_s(cost) * 1e3
+    memory_ms = cost["bytes"] / HW.hbm_bw * 1e3
+    bound_ms = max(compute_ms, memory_ms)
+    row = {"flops": cost["flops"], "bytes": cost["bytes"],
+           **{k: cost[k] for k in cost if k.startswith("flops_")},
+           "compute_ms": compute_ms, "memory_ms": memory_ms,
+           "dominant": "compute" if compute_ms >= memory_ms else "memory",
+           "bound_ms": bound_ms, "measured_ms": step_ms,
+           "share": bound_ms / step_ms,
+           "model_flops": model_fl,
+           "model_over_counted": model_fl / cost["flops"] if model_fl
+           else None,
+           "counted_peak_gib": counted_peak / 2**30,
+           "max_memory_gib": max_memory_gib, **(extra or {})}
+    log(f"roofline {label}: {cost['flops'] / 1e12:.4f} TFLOP (f32 "
+        f"{cost.get('flops_f32', 0) / 1e12:.4f}, 3xTF32 "
+        f"{cost.get('flops_tf32x3', 0) / 1e12:.4f}, bf16 "
+        f"{cost.get('flops_bf16', 0) / 1e12:.4f}), {cost['bytes'] / 1e9:.3f}"
+        f" GB; compute {compute_ms:.3f} ms, memory {memory_ms:.3f} ms "
+        f"({row['dominant']}); bound {bound_ms:.3f} ms against a measured "
+        f"{step_ms:.3f} ms: {100 * row['share']:.1f} % of the roofline; "
+        f"model/counted "
+        + (f"{row['model_over_counted']:.3f}" if model_fl else "n/a")
+        + f"; counted peak {row['counted_peak_gib']:.2f} GiB, "
+        f"max_memory_allocated {max_memory_gib:.2f} GiB")
+    ROOFLINE[label] = row
+    return row
+
+
+def mhd_roofline(label: str, trainer, cfg, step_s: list,
+                 max_memory_gib: float, tokens=None) -> dict:
+    """An MHD path's fleet step against the roofline, through the user's
+    entry point: ``collect_obs(trainer, tracer=<the profiled round's>,
+    with_roofline=True)`` counts one client's distill update on meta copies
+    of its arguments (every client of a path runs one bundle). A fleet step
+    is every local client's update; its counted peak, each client's state
+    and one update's arguments and own peak. The achieved rate of the
+    ``runtime/distill`` spans is a floor: the sync loop reads a step's
+    metrics after its publish round, where the span ends. ``tokens``: an
+    LM client's tokens a step (private + public), for model_flops."""
+    from repro_torch.obs import collect_obs
+
+    t0 = time.perf_counter()
+    rows = collect_obs(trainer, tracer=PROFILE_SPANS.pop(label),
+                       with_roofline=True).roofline
+    check(len(rows) == 1, f"roofline {label}: one bundle, got {list(rows)}")
+    (name, r), = rows.items()
+    count_s = time.perf_counter() - t0
+    K = len(trainer.local)
+    cost = {k: K * v for k, v in r.items()
+            if k == "bytes" or k.startswith("flops")}
+    n = sum(v.numel() for v in trainer.clients[0].params.values())
+    model_fl = K * model_flops(cfg, n, tokens, "train") if tokens else None
+    peak = K * r["state_bytes"] + r["argument_bytes"] - r["state_bytes"] \
+        + r["peak_bytes"]
+    return roofline_row(label, cost, peak, statistics.median(step_s[1:])
+                        * 1e3, max_memory_gib, model_fl, {
+                            "clients": K, "bundle": name, "update": r,
+                            "count_s": count_s})
+
+
 def phase_profile(trainer, first: int, steps: int, name: str,
                   by_shape: bool = False) -> dict:
     """One more publish round (``steps`` steps from ``first``) of a path
@@ -1662,6 +1745,7 @@ def phase_profile(trainer, first: int, steps: int, name: str,
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     tracer.disable()
+    PROFILE_SPANS[name] = spans
     host: dict = {}
     for ev in spans.events():
         if ev["ph"] == "X":
@@ -3008,6 +3092,8 @@ def phase_moe_path(dev) -> dict:
     out["arctic"] = arctic
     RECORD["profile_moe"] = phase_profile(trainer, LM_STEPS, LM_S_P, "moe",
                                           by_shape=True)
+    mhd_roofline("moe", trainer, MOE_CFG, arctic["step_s"],
+                 arctic["max_memory_gib"], LM_TOKENS)
     del trainer
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3133,6 +3219,8 @@ def phase_deepseek_path(dev) -> dict:
           "deepseek (a): no MTP leaves")
     RECORD["profile_deepseek"] = phase_profile(trainer, LM_STEPS, LM_S_P,
                                                "deepseek", by_shape=True)
+    mhd_roofline("deepseek", trainer, DS_CFG, out["step_s"],
+                 out["max_memory_gib"], LM_TOKENS)
     del trainer
     out["fleet_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
@@ -3237,7 +3325,8 @@ def _step_profile(step_fn, state, batch, name: str, vocab: int) -> tuple:
                    "launches": sum(e.count for e in kernels)}
 
 
-def _xattn_model(dev, cfg, seq_len: int, label: str) -> dict:
+def _xattn_model(dev, cfg, seq_len: int, label: str,
+                 cuda_count: bool = False) -> dict:
     """One model through the launcher's train state and step on the card:
     its params drawn there, one warm-up step, XATTN_STEPS timed steps and
     a profiled one, each a fresh batch of `supervised_batch`'s draws
@@ -3253,7 +3342,11 @@ def _xattn_model(dev, cfg, seq_len: int, label: str) -> dict:
     other embeddings (or frames) change the logits. The peak is reckoned
     before the run: four f32 copies of the params (params, grads, AdamW's
     two moments) and the update's transient of four copies of the largest
-    leaf; activations come on top."""
+    leaf; activations come on top. Then the step against the roofline
+    (`roofline_row`): the launcher's step counted on meta at this
+    configuration and batch; with ``cuda_count``, one more step counted on
+    the card, real tensors and the kernels launching, which must give the
+    meta count's FLOPs, bytes and kernel entries exactly."""
     sizes = _leaf_bytes(cfg)
     n_bytes = sum(sizes)
     reckoned = (4 * n_bytes + 4 * sizes[0]) / 2**30
@@ -3342,6 +3435,30 @@ def _xattn_model(dev, cfg, seq_len: int, label: str) -> dict:
                   f"xattn {label}: cross_gate moved after step {t} "
                   f"{row['gates']}")
     med = statistics.median(r["s"] for r in steps[1:])
+    plain = make_train_step(bundle, make_optimizer(OptimizerConfig(
+        **XATTN_OPTIMIZER)))
+    batch = supervised_batch(rng, cfg, XATTN_BATCH, seq_len, dev)
+    meta_args = meta_like((state, batch))
+    a = time.perf_counter()
+    _, counted = op_cost.count(plain, *meta_args)
+    roof = roofline_row(
+        label, counted.to_dict(), counted.peak_bytes
+        + op_cost.tree_bytes(meta_args), med * 1e3, peak,
+        model_flops(cfg, n_bytes // 4, XATTN_BATCH * seq_len, "train"),
+        {"count_s": time.perf_counter() - a, "kernels": counted.kernels})
+    if cuda_count:
+        with op_cost.OpCounter(args=(state, batch)) as on_card:
+            state, _ = plain(state, batch)
+        torch.cuda.synchronize()
+        roof["cuda_count"] = on_card.to_dict()
+        same = on_card.to_dict() == counted.to_dict() and \
+            on_card.kernels == counted.kernels
+        log(f"roofline {label}: one step counted on the card "
+            f"{on_card.to_dict()}, on meta {counted.to_dict()}: "
+            + ("equal" if same else "DIFFERENT"))
+        check(same, f"roofline {label}: the step counted on the card "
+              f"{on_card.to_dict()} {on_card.kernels} == counted on meta "
+              f"{counted.to_dict()} {counted.kernels}")
     log(f"xattn {label}: init {init_s:.2f} s; step median {med:.3f} s "
         f"(warm-up {steps[0]['s']:.3f} s); card peak {peak:.1f} GiB "
         f"(reckoned {reckoned:.1f} before activations); other {key} move "
@@ -3373,7 +3490,7 @@ def phase_xattn_path(dev) -> dict:
         f"{XATTN_OPTIMIZER['init_lr']}, f32")
     ops.reset_launch_counts()
     out = {"whisper": _xattn_model(dev, WHISPER_CFG, WHISPER_FRAMES,
-                                   "whisper")}
+                                   "whisper", cuda_count=True)}
     torch.cuda.empty_cache()
     out["llama_vision"] = _xattn_model(dev, LLAMA_V_CFG, LLAMA_V_TOKENS,
                                        "llama-vision")
@@ -3666,6 +3783,26 @@ def _serve_model(dev, label, cfg, slots, n_req, prompt_range, gen_range,
         w_bytes += params["embed"].numel() * 4
     tick_bytes = w_bytes + slots * cfg.d_model * 4 + 2 * cache_bytes
     bound_ms = tick_bytes / PEAK_BYTES * 1e3
+    # the tick against the roofline: decode_step counted on meta at these
+    # slots and caches (the graph replays the same kernels)
+    meta_args = (meta_like(params), torch.empty(
+        (slots, 1), dtype=torch.int32, device="meta"), bundle.init_cache(
+        slots, cache_len, torch.float32, device="meta"))
+    a = time.perf_counter()
+    _, counted = op_cost.count(bundle.decode_step, *meta_args)
+    roof = roofline_row(
+        f"serve {label}", counted.to_dict(), counted.peak_bytes
+        + op_cost.tree_bytes(meta_args),
+        runs["continuous"]["tick_ms_median"], peak,
+        model_flops(cfg, n_params - aux, slots, "decode"),
+        {"count_s": time.perf_counter() - a, "hand_tick_bytes": tick_bytes,
+         "counted_over_hand": counted.bytes / tick_bytes})
+    if label == "minitron-4b":
+        lo, hi = TICK_BYTES_BAND
+        check(lo <= roof["counted_over_hand"] <= hi,
+              f"serve {label}: the counted tick bytes {counted.bytes:.6g} "
+              f"are {roof['counted_over_hand']:.4f} of the hand reckoning "
+              f"{tick_bytes:.6g}, outside [{lo}, {hi}]")
     log(f"serve {label}: {cfg.name} {n_params / 1e9:.3f} B params "
         f"({n_params * 4 / 1e9:.2f} GB f32, aux heads {aux / 1e9:.3f} B, not "
         f"read by decode) drawn in {init_s:.2f} s; {n_req} requests on "
@@ -3727,8 +3864,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # each path: every count set to 0 just before it, read just after
     ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     trainer, resnet = phase_resnet_path(dev)
     RECORD["profile_resnet"] = phase_profile(trainer, STEPS, S_P, "resnet")
+    mhd_roofline("resnet", trainer, CFG, resnet["step_s"],
+                 torch.cuda.max_memory_allocated() / 2**30)
     del trainer
     torch.cuda.empty_cache()
     exp_path = phase_exp_path(dev, statistics.median(resnet["step_s"][1:]))
@@ -3740,6 +3880,8 @@ def main() -> int:
     ops.reset_launch_counts()
     trainer, lm_path = phase_lm_path(dev, LM_CFG, "lm", LM_KERNELS)
     RECORD["profile_lm"] = phase_profile(trainer, LM_STEPS, LM_S_P, "lm")
+    mhd_roofline("lm", trainer, LM_CFG, lm_path["step_s"],
+                 lm_path["max_memory_gib"], LM_TOKENS)
     del trainer
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3753,6 +3895,8 @@ def main() -> int:
                                         ZAMBA_KERNELS)
     RECORD["profile_zamba2"] = phase_profile(trainer, LM_STEPS, LM_S_P,
                                              "zamba2")
+    mhd_roofline("zamba2", trainer, ZAMBA_CFG, zamba_path["step_s"],
+                 zamba_path["max_memory_gib"], LM_TOKENS)
     del trainer
     torch.cuda.empty_cache()
     moe_path = phase_moe_path(dev)
@@ -3770,6 +3914,7 @@ def main() -> int:
         k["launches_by_path"] = {p: r["counts"][k["name"]]
                                  for p, r in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+    RECORD["roofline"] = ROOFLINE
     RECORD.update(kernels=kernels, resnet_path=resnet, exp_path=exp_path,
                   fleet_path=fleet_path, socket_path=socket_path,
                   lm_path=lm_path, zamba2_path=zamba_path, moe_path=moe_path,

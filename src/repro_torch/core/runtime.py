@@ -47,6 +47,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.pool import CheckpointPool, PoolEntry
@@ -82,6 +83,32 @@ def client_loss(bundle: ModelBundle, params, private_batch, public_batch,
     if out_priv.get("aux_loss") is not None:
         loss = loss + out_priv["aux_loss"]
     return loss, metrics
+
+
+def distill_update(bundle: ModelBundle, optimizer: Optimizer,
+                   mhd_cfg: MHDConfig, params, opt_state, private_batch,
+                   public_batch, teachers, step: int,
+                   rng: Optional[torch.Generator] = None):
+    """One distillation update of one client: Eq. (1), its gradients and
+    the optimizer's update. Returns (params, opt_state, metrics); consumes
+    ``opt_state`` (the optimizer takes each moment out as it makes the new
+    one). The trainer's `_distill_update`, and what
+    `obs.metrics.distill_step_cost` counts on meta copies."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss, metrics = client_loss(bundle, leaves, private_batch, public_batch,
+                                teachers, mhd_cfg, rng)
+    grads = dict(zip(leaves, torch.autograd.grad(
+        loss, list(leaves.values()), allow_unused=True,
+        materialize_grads=True)))
+    new_params, new_opt = optimizer.update(grads, opt_state, params, step)
+    metrics["loss"] = loss
+    return new_params, new_opt, metrics
+
+
+def meta_like(tree):
+    """The shapes and dtypes of a tree of tensors, on the meta device."""
+    return tree_map(lambda x: torch.empty_like(x, device="meta")
+                    if isinstance(x, Tensor) else x, tree)
 
 
 def batch_to_device(batch: Dict[str, np.ndarray],
@@ -185,6 +212,9 @@ class DecentralizedTrainer:
                 "clients; the legacy params exchange reads every client's "
                 "raw params and needs the legacy scheme")
         self.device = resolve_device(device)
+        # each bundle's distill-update arguments on meta, from its first
+        # distillation step (the reference's _distill_arg_shapes)
+        self._distill_arg_shapes: Dict[str, Tuple] = {}
         if not callable(graph):
             validate_adjacency(graph)
         self.graph_fn = as_graph_fn(graph)
@@ -290,15 +320,16 @@ class DecentralizedTrainer:
     def _distill_update(self, c: ClientState, private_batch, public_batch,
                         teachers, step: int,
                         rng: Optional[torch.Generator]) -> Dict[str, Tensor]:
-        params = {k: v.detach().requires_grad_() for k, v in c.params.items()}
-        loss, metrics = client_loss(c.bundle, params, private_batch,
-                                    public_batch, teachers, self.mhd_cfg, rng)
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()), allow_unused=True,
-            materialize_grads=True)))
-        c.params, c.opt_state = self.optimizer.update(
-            grads, c.opt_state, c.params, step)
-        metrics["loss"] = loss
+        if c.bundle.name not in self._distill_arg_shapes:
+            # the update's arguments on meta, the first time this bundle
+            # distils: enough to count the update again
+            # (obs.metrics.distill_step_cost) without holding any data
+            self._distill_arg_shapes[c.bundle.name] = meta_like(
+                (c.params, c.opt_state, private_batch, public_batch,
+                 teachers)) + (step, rng is not None)
+        c.params, c.opt_state, metrics = distill_update(
+            c.bundle, self.optimizer, self.mhd_cfg, c.params, c.opt_state,
+            private_batch, public_batch, teachers, step, rng)
         return metrics
 
     def _supervised_update(self, c: ClientState, private_batch,

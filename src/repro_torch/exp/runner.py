@@ -13,9 +13,10 @@ out-of-band on `ExperimentResult`.
 
 Runs on the GPU unless ``device="cpu"`` is passed: the device is resolved
 when the `Experiment` is made, and every trainer, batch and evaluation
-lives there. The ``obs/roofline/...`` rows of a traced run are not
-ported (ROADMAP Queue 1 item 15): a traced result has every other
-``obs/`` metric of the reference's.
+lives there. A traced run carries the reference's ``obs/`` metrics, the
+``obs/roofline/<bundle>/...`` rows among them (`obs.metrics.
+distill_step_cost`: each distill update counted on meta, priced on the
+H100).
 """
 from __future__ import annotations
 
@@ -330,7 +331,7 @@ class Experiment:
             obs = collect_obs(
                 trainer=getattr(algo, "trainer", None),
                 scheduler=getattr(algo, "scheduler", None),
-                tracer=tracer)
+                tracer=tracer, with_roofline=True)
             metrics.update(obs.to_metrics())
         return ExperimentResult(
             spec=spec, metrics=metrics, history=history,

@@ -12,7 +12,9 @@ the bound on the H100. Per row of (B, V) student and teacher logits:
 constant of the distillation loss): ∂ce/∂s = softmax(s) − softmax(t). The
 TPU kernel has no backward, so the port writes one as a second kernel, and
 `dist_ce_bwd_plain` is its formula in plain ops. A CUDA tensor launches the
-kernels (or raises); a CPU tensor takes the plain versions.
+kernels (or raises); a CPU tensor takes the plain versions; a meta tensor
+gets empty outputs. Under a cost counter the forward and the backward are
+one entry each, of `cost_fwd` and `cost_bwd`.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.build import LaunchCounter, triton_module
+from repro_torch.roofline import op_cost
 
 Tensor = torch.Tensor
 
@@ -32,6 +35,23 @@ INFO_FWD = {"name": "dist_ce_fwd", "route": "triton", "source": _SOURCE,
             "replaces": _REPLACES}
 INFO_BWD = {"name": "dist_ce_bwd", "route": "triton", "source": _SOURCE,
             "replaces": _REPLACES}
+
+
+def cost_fwd(B: int, V: int, s_bytes: int, t_bytes: int = 4):
+    """(FLOPs by type, bytes) of the forward on (B, V) rows of ``s_bytes``
+    and ``t_bytes`` an element: both read once, ce, the two confidences
+    and the (B, 4) stats written in f32; eight f32 operations an element
+    pair (two maxima, two exps, two sums, the product and its sum)."""
+    return {"f32": 8.0 * B * V}, float(B * V * (s_bytes + t_bytes)
+                                       + 7 * B * 4)
+
+
+def cost_bwd(B: int, V: int, s_bytes: int, t_bytes: int = 4):
+    """The backward: s, t and the stats and upstream gradient read, the
+    gradient (B, V) written in s's dtype; six f32 operations an element
+    pair (two exps, two scalings, the difference and its scale)."""
+    return {"f32": 6.0 * B * V}, float(B * V * (2 * s_bytes + t_bytes)
+                                       + 5 * B * 4)
 
 
 def _acc(x: Tensor) -> Tensor:
@@ -65,7 +85,9 @@ def dist_ce_bwd_plain(s: Tensor, t: Tensor, stats: Tensor, g: Tensor
     return gs.to(s.dtype)
 
 
-def _check(s: Tensor, t: Tensor) -> None:
+def _check(s: Tensor, t: Tensor, device: str = "cuda") -> None:
+    """The kernel's contract (a meta call checks what the card would
+    refuse)."""
     if s.dim() != 2 or s.shape != t.shape:
         raise ValueError(f"dist_ce takes two (B, V) tensors of one shape, "
                          f"got {tuple(s.shape)} and {tuple(t.shape)}")
@@ -73,8 +95,9 @@ def _check(s: Tensor, t: Tensor) -> None:
             t.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise ValueError(f"dist_ce kernel takes f32/bf16/f16, got "
                          f"{s.dtype}, {t.dtype}")
-    if not (s.is_cuda and t.is_cuda):
-        raise ValueError("dist_ce kernel takes CUDA tensors")
+    if not s.device.type == t.device.type == device:
+        where = "CUDA" if device == "cuda" else device
+        raise ValueError(f"dist_ce kernel takes {where} tensors")
 
 
 def _blocks(V: int, cap: int) -> Tuple[int, int]:
@@ -123,12 +146,20 @@ class DistCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, s, t):
-        if s.is_cuda:
-            ce, t_conf, s_conf, stats = dist_ce_fwd_kernel(s, t)
-        elif s.device.type == "cpu" and t.device.type == "cpu":
-            ce, t_conf, s_conf, stats = dist_ce_fwd_plain(s, t)
-        else:
-            raise ValueError(f"dist_ce: no kernel for {s.device}")
+        with op_cost.kernel(INFO_FWD["name"], cost_fwd(
+                *s.shape, s.element_size(), t.element_size())):
+            if s.is_cuda:
+                ce, t_conf, s_conf, stats = dist_ce_fwd_kernel(s, t)
+            elif s.device.type == "meta" and t.device.type == "meta":
+                _check(s, t, "meta")
+                ce, t_conf, s_conf = (s.new_empty(s.shape[0],
+                                                  dtype=torch.float32)
+                                      for _ in range(3))
+                stats = s.new_empty((s.shape[0], 4), dtype=torch.float32)
+            elif s.device.type == "cpu" and t.device.type == "cpu":
+                ce, t_conf, s_conf, stats = dist_ce_fwd_plain(s, t)
+            else:
+                raise ValueError(f"dist_ce: no kernel for {s.device}")
         ctx.save_for_backward(s, t, stats)
         ctx.mark_non_differentiable(t_conf, s_conf)
         return ce, t_conf, s_conf
@@ -138,9 +169,14 @@ class DistCE(torch.autograd.Function):
         s, t, stats = ctx.saved_tensors
         if g_ce is None or not ctx.needs_input_grad[0]:
             return None, None
-        if s.is_cuda:
-            return dist_ce_bwd_kernel(s, t, stats, g_ce), None
-        return dist_ce_bwd_plain(s, t, stats, g_ce), None
+        with op_cost.kernel(INFO_BWD["name"], cost_bwd(
+                *s.shape, s.element_size(), t.element_size())):
+            if s.is_cuda:
+                return dist_ce_bwd_kernel(s, t, stats, g_ce), None
+            if s.device.type == "meta":
+                return s.new_empty(s.shape), None
+            # contiguous, as the kernel's: what follows sees one layout
+            return dist_ce_bwd_plain(s, t, stats, g_ce).contiguous(), None
 
 
 def dist_ce(student_logits: Tensor, teacher_logits: Tensor

@@ -9,13 +9,16 @@ the backward's formula and the bound on the H100. Per row of (B, E):
 
 Note ``F.normalize`` divides by max(‖x‖, ε), not ‖x‖+ε, so it is not
 used. Differentiable in ``s`` only. A CUDA tensor launches the kernels (or
-raises); a CPU tensor takes the plain versions.
+raises); a CPU tensor takes the plain versions; a meta tensor gets empty
+outputs. Under a cost counter the forward and the backward are one entry
+each, of `cost_fwd` and `cost_bwd`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import LaunchCounter, triton_module
+from repro_torch.roofline import op_cost
 
 Tensor = torch.Tensor
 
@@ -29,6 +32,21 @@ INFO_FWD = {"name": "emb_dist_fwd", "route": "triton", "source": _SOURCE,
             "replaces": _REPLACES}
 INFO_BWD = {"name": "emb_dist_bwd", "route": "triton", "source": _SOURCE,
             "replaces": _REPLACES}
+
+
+def cost_fwd(B: int, E: int, s_bytes: int = 4, t_bytes: int = 4):
+    """(FLOPs by type, bytes) of the forward on (B, E) rows: both read
+    once, the (B,) distances written in f32; eight f32 operations an
+    element pair (two squares and sums for the norms, two scalings, the
+    difference, its square and sum)."""
+    return {"f32": 8.0 * B * E}, float(B * E * (s_bytes + t_bytes) + B * 4)
+
+
+def cost_bwd(B: int, E: int, s_bytes: int = 4, t_bytes: int = 4):
+    """The backward: s, t and the upstream gradient read, the gradient
+    written in s's dtype; fourteen f32 operations an element pair."""
+    return {"f32": 14.0 * B * E}, float(B * E * (2 * s_bytes + t_bytes)
+                                        + B * 4)
 
 
 def _acc(x: Tensor) -> Tensor:
@@ -55,7 +73,9 @@ def emb_dist_bwd_plain(s: Tensor, t: Tensor, g: Tensor,
     return (g[:, None] * (r / (n + eps) - s32 * coef)).to(s.dtype)
 
 
-def _check(s: Tensor, t: Tensor) -> None:
+def _check(s: Tensor, t: Tensor, device: str = "cuda") -> None:
+    """The kernel's contract (a meta call checks what the card would
+    refuse)."""
     if s.dim() != 2 or s.shape != t.shape:
         raise ValueError(f"emb_dist takes two (B, E) tensors of one shape, "
                          f"got {tuple(s.shape)} and {tuple(t.shape)}")
@@ -66,8 +86,9 @@ def _check(s: Tensor, t: Tensor) -> None:
             t.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise ValueError(f"emb_dist kernel takes f32/bf16/f16, got "
                          f"{s.dtype}, {t.dtype}")
-    if not (s.is_cuda and t.is_cuda):
-        raise ValueError("emb_dist kernel takes CUDA tensors")
+    if not s.device.type == t.device.type == device:
+        where = "CUDA" if device == "cuda" else device
+        raise ValueError(f"emb_dist kernel takes {where} tensors")
 
 
 def _block(E: int):
@@ -113,12 +134,17 @@ class EmbDist(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, s, t):
-        if s.is_cuda:
-            out = emb_dist_fwd_kernel(s, t)
-        elif s.device.type == "cpu" and t.device.type == "cpu":
-            out = emb_dist_plain(s, t)
-        else:
-            raise ValueError(f"emb_dist: no kernel for {s.device}")
+        with op_cost.kernel(INFO_FWD["name"], cost_fwd(
+                *s.shape, s.element_size(), t.element_size())):
+            if s.is_cuda:
+                out = emb_dist_fwd_kernel(s, t)
+            elif s.device.type == "meta":
+                _check(s, t, "meta")
+                out = s.new_empty(s.shape[0], dtype=torch.float32)
+            elif s.device.type == "cpu" and t.device.type == "cpu":
+                out = emb_dist_plain(s, t)
+            else:
+                raise ValueError(f"emb_dist: no kernel for {s.device}")
         ctx.save_for_backward(s, t)
         return out
 
@@ -127,9 +153,14 @@ class EmbDist(torch.autograd.Function):
         s, t = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
             return None, None
-        if s.is_cuda:
-            return emb_dist_bwd_kernel(s, t, g), None
-        return emb_dist_bwd_plain(s, t, g), None
+        with op_cost.kernel(INFO_BWD["name"], cost_bwd(
+                *s.shape, s.element_size(), t.element_size())):
+            if s.is_cuda:
+                return emb_dist_bwd_kernel(s, t, g), None
+            if s.device.type == "meta":
+                return s.new_empty(s.shape), None
+            # contiguous, as the kernel's: what follows sees one layout
+            return emb_dist_bwd_plain(s, t, g).contiguous(), None
 
 
 def emb_dist(student_emb: Tensor, teacher_emb: Tensor) -> Tensor:

@@ -14,9 +14,11 @@ in f32 sums, with the output in q's dtype. ``flash_attention(q, k, v,
 causal=, window=)`` is differentiable in q, k and v. A CUDA tensor
 launches the kernels (the forward, which also saves each row's
 logsumexp, and the backward when autograd needs it), or raises; a CPU
-tensor takes `flash_attention_plain`, differentiated by autograd. The TPU
-kernel has no backward; the port writes one (FA2: D = rowsum(dO∘O),
-P = exp(s − lse), dS = P∘(dP − D)).
+tensor takes `flash_attention_plain`, differentiated by autograd; a meta
+tensor gets empty outputs and gradients. Under a cost counter the forward
+and the backward are one entry each, of `cost_fwd` and `cost_bwd`
+(`kernels/counted.py`). The TPU kernel has no backward; the port writes
+one (FA2: D = rowsum(dO∘O), P = exp(s − lse), dS = P∘(dP − D)).
 """
 from __future__ import annotations
 
@@ -25,9 +27,12 @@ import functools
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.kernels import counted
 from repro_torch.kernels.build import LaunchCounter, cuda_library
+from repro_torch.roofline import op_cost
 
 Tensor = torch.Tensor
 
@@ -42,6 +47,43 @@ INFO_BWD = {"name": "flash_attention_bwd", "route": "cuda",
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_D = 256  # the kernels' largest head dim (flash_attention_max_d())
+
+
+# ---------------------------------------------------------------------------
+# the kernels' cost
+# ---------------------------------------------------------------------------
+
+def attn_pairs(T: int, S: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs inside the mask: the work of one (b, h)."""
+    t = np.arange(T)
+    hi = np.minimum(t + 1, S) if causal else np.full(T, S)
+    lo = np.maximum(t - window + 1, 0) if window else np.zeros(T, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def cost_fwd(B, T, S, H, KV, d, causal, window, elem):
+    """(FLOPs by type, bytes) of the forward: q, k, v read once, o and the
+    (B, H, T) f32 lse written; 2 d multiply-adds a pair inside the mask
+    (q·k, p·v), on 3×TF32 (three TF32 products for each f32 one)."""
+    pairs = attn_pairs(T, S, causal, window) * B * H
+    qo, kv, rows = B * T * H * d * elem, B * S * KV * d * elem, B * H * T * 4
+    return {"tf32x3": 4.0 * pairs * d}, float(2 * qo + 2 * kv + rows)
+
+
+def cost_bwd(B, T, S, H, KV, d, causal, window, elem):
+    """The backward: q, o, dO, k, v and the lse read, dq, dk and dv
+    written; 5 d multiply-adds a pair (s again, dP, dV, dS·K, dSᵀ·Q)."""
+    pairs = attn_pairs(T, S, causal, window) * B * H
+    qo, kv, rows = B * T * H * d * elem, B * S * KV * d * elem, B * H * T * 4
+    return {"tf32x3": 10.0 * pairs * d}, float(3 * qo + 2 * kv + rows
+                                               + qo + 2 * kv)
+
+
+def _costs(q: Tensor, k: Tensor, causal: bool, window: int):
+    args = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+            causal, window, q.element_size())
+    return cost_fwd(*args), cost_bwd(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -113,9 +155,13 @@ def flash_attention_fwd_tile(d: int) -> Tuple[int, int]:
     return rows.value, keys.value
 
 
-def _check(q: Tensor, k: Tensor, v: Tensor) -> Tuple[int, ...]:
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention kernel takes CUDA tensors")
+def _check(q: Tensor, k: Tensor, v: Tensor, device: str = "cuda"
+           ) -> Tuple[int, ...]:
+    """The kernels' contract (a meta call checks what the card would
+    refuse)."""
+    if not q.device.type == k.device.type == v.device.type == device:
+        where = "CUDA" if device == "cuda" else device
+        raise ValueError(f"flash_attention kernel takes {where} tensors")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel takes float32 or bfloat16 "
                          f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
@@ -129,9 +175,10 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> Tuple[int, ...]:
     if k.shape[0] != B or k.shape[3] != d or KV == 0 or H % KV:
         raise ValueError(f"flash_attention shapes: q {tuple(q.shape)}, "
                          f"k/v {tuple(k.shape)}")
-    if d > _lib().flash_attention_max_d():
-        raise ValueError(f"flash_attention kernel takes d <= "
-                         f"{_lib().flash_attention_max_d()}, got {d}")
+    max_d = _lib().flash_attention_max_d() if device == "cuda" else MAX_D
+    if d > max_d:
+        raise ValueError(f"flash_attention kernel takes d <= {max_d}, "
+                         f"got {d}")
     return B, T, S, H, KV, d
 
 
@@ -194,8 +241,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        o, lse = flash_attention_fwd_kernel(q, k, v, causal=causal,
-                                            window=window)
+        with op_cost.kernel(INFO_FWD["name"], _costs(q, k, causal,
+                                                      window)[0]):
+            o, lse = flash_attention_fwd_kernel(q, k, v, causal=causal,
+                                                window=window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
@@ -203,8 +252,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_kernel(
-            q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window)
+        with op_cost.kernel(INFO_BWD["name"], _costs(q, k, ctx.causal,
+                                                      ctx.window)[1]):
+            dq, dk, dv = flash_attention_bwd_kernel(
+                q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None
 
 
@@ -213,6 +264,23 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     """q (B, T, H, d), k, v (B, S, KV, d) → (B, T, H, d) in q's dtype."""
     if q.is_cuda:
         return FlashAttention.apply(q, k, v, bool(causal), int(window))
+    if counted.counting_route(q):
+        if q.device.type == "meta":
+            _check(q, k, v, "meta")
+            call = counted.Call(
+                (INFO_FWD["name"], INFO_BWD["name"]),
+                _costs(q, k, causal, window),
+                lambda q, k, v: (torch.empty_like(q),), counted.empty_grads)
+        else:
+            def plain(q, k, v):
+                return flash_attention_plain(q, k, v, causal=causal,
+                                             window=window)
+
+            call = counted.Call((INFO_FWD["name"], INFO_BWD["name"]),
+                                _costs(q, k, causal, window),
+                                lambda *x: (plain(*x),),
+                                counted.plain_grads(plain))
+        return counted.run(call, q, k, v)[0]
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     return flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -2,7 +2,12 @@
 
 Dispatch is by the device of the tensor given, with no option and no
 fallback: a CUDA tensor launches the kernel, or raises if the kernel
-cannot build or launch; a CPU tensor takes the plain PyTorch version.
+cannot build or launch; a CPU tensor takes the plain PyTorch version; a
+meta tensor (the dry run, the roofline's counts) gets outputs of the
+kernel's shapes and dtypes, checked against the kernel's contract, and
+nothing is computed. Under a cost counter (`roofline.op_cost`) every call,
+on any device, is one entry of its kernel module's ``cost`` for each of
+its forward and backward (`kernels/counted.py` on meta and on the CPU).
 
   dist_ce          Triton (csrc/dist_ce_triton.py), forward + backward
   emb_dist         Triton (csrc/emb_dist_triton.py), forward + backward

@@ -13,7 +13,10 @@ the heads → (y (Bt, T, H, P), final state (Bt, H, P, N) f32).
 
 ``ssd_scan(x, dt, A, B, C, D, chunk)``: a CUDA tensor launches the kernels
 (the forward, and the backward when autograd needs it), a CPU tensor takes
-`ssd_scan_plain`. The TPU kernel has no backward (the reference trains by
+`ssd_scan_plain`, a meta tensor gets empty outputs and gradients. Under a
+cost counter the forward and the backward are one entry each, of
+`cost_fwd` and `cost_bwd` (`kernels/counted.py`). The TPU kernel has no
+backward (the reference trains by
 differentiating the jnp ``ssd_chunked``); the port's forward kernel saves
 the state entering each of its chunks, and a second kernel runs the chunks
 in reverse from them.
@@ -26,7 +29,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import counted
 from repro_torch.kernels.build import LaunchCounter, cuda_library
+from repro_torch.roofline import op_cost
 
 Tensor = torch.Tensor
 
@@ -38,6 +43,58 @@ INFO_FWD = {"name": "ssd_scan_fwd", "route": "cuda", "source": _SOURCE,
             "replaces": _REPLACES}
 INFO_BWD = {"name": "ssd_scan_bwd", "route": "cuda", "source": _SOURCE,
             "replaces": _REPLACES}
+
+
+# the kernels' chunk length and largest P and N (ssd_scan_chunk(),
+# ssd_scan_max_p(), ssd_scan_max_n())
+CHUNK, MAX_P, MAX_N = 64, 64, 128
+
+
+# ---------------------------------------------------------------------------
+# the kernels' cost
+# ---------------------------------------------------------------------------
+
+def _io(Bt, T, H, P, N):
+    """Bytes of the inputs (x, dt, A, B, C, D) and of one state, f32."""
+    return (4 * (2 * Bt * T * N + Bt * T * H * P + Bt * T * H + 2 * H),
+            4 * Bt * H * P * N)
+
+
+def cost_fwd(Bt, T, H, P, N, save_states: bool = False):
+    """(FLOPs by type, bytes) of the forward: every input read once, y and
+    the final state written (and the state entering each chunk when the
+    training call saves them). Operations: the products the function needs
+    at the kernel's chunk length L, per (row b, chunk): B and C are shared
+    by the heads, so C·Bᵀ (tri·N multiply-adds) once, not once per head;
+    per head the masked product with x (tri·P), C·h and the state update
+    (L·N·P each); on 3×TF32."""
+    L, nc = CHUNK, -(-T // CHUNK)
+    io_in, state_b = _io(Bt, T, H, P, N)
+    tri = L * (L + 1) / 2
+    rows, heads = Bt * nc, Bt * nc * H
+    flops = 2 * rows * tri * N + 2 * heads * (tri * P + 2 * L * N * P)
+    nbytes = io_in + 4 * Bt * T * H * P + state_b
+    if save_states:
+        nbytes += nc * state_b
+    return {"tf32x3": float(flops)}, float(nbytes)
+
+
+def cost_bwd(Bt, T, H, P, N):
+    """The backward: the inputs, dy and the chunk states read; dx, ddt, dB,
+    dC, dA and dD written. Operations: C·Bᵀ again, and dC = dCB·B and
+    dB = dCBᵀ·C once on the head-summed dCB (its tri·H additions); per head
+    dx and dCB from the masked product (2·tri·P) and the four state
+    products (4·L·N·P). What the kernel does beyond that (dB and dC per
+    head) belongs to its design, not to the function."""
+    L, nc = CHUNK, -(-T // CHUNK)
+    io_in, state_b = _io(Bt, T, H, P, N)
+    tri = L * (L + 1) / 2
+    rows, heads = Bt * nc, Bt * nc * H
+    flops = (2 * rows * 3 * tri * N + rows * tri * H
+             + 2 * heads * (2 * tri * P + 4 * L * N * P))
+    nbytes = (io_in + 4 * Bt * T * H * P + nc * state_b
+              + 4 * (Bt * T * H * P + Bt * T * H + 2 * Bt * T * N + 2 * H))
+    return {"tf32x3": float(flops)}, float(nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -170,10 +227,14 @@ def kernel_chunk() -> int:
     return int(_lib().ssd_scan_chunk())
 
 
-def _check(x, dt, A, B, C, D) -> Tuple[int, int, int, int, int]:
+def _check(x, dt, A, B, C, D, device: str = "cuda"
+           ) -> Tuple[int, int, int, int, int]:
+    """The kernels' contract (a meta call checks what the card would
+    refuse)."""
     ts = (x, dt, A, B, C, D)
-    if not all(t.is_cuda for t in ts):
-        raise ValueError("ssd_scan kernel takes CUDA tensors")
+    if not all(t.device.type == device for t in ts):
+        where = "CUDA" if device == "cuda" else device
+        raise ValueError(f"ssd_scan kernel takes {where} tensors")
     if any(t.dtype != torch.float32 for t in ts):
         raise ValueError(f"ssd_scan kernel takes float32, got "
                          f"{[t.dtype for t in ts]}")
@@ -187,11 +248,13 @@ def _check(x, dt, A, B, C, D) -> Tuple[int, int, int, int, int]:
             f"ssd_scan shapes: x {tuple(x.shape)} dt {tuple(dt.shape)} "
             f"A {tuple(A.shape)} B {tuple(B.shape)} C {tuple(C.shape)} "
             f"D {tuple(D.shape)}")
-    lib = _lib()
-    if P > lib.ssd_scan_max_p() or N > lib.ssd_scan_max_n():
-        raise ValueError(f"ssd_scan kernel takes P <= "
-                         f"{lib.ssd_scan_max_p()} and N <= "
-                         f"{lib.ssd_scan_max_n()}, got P={P}, N={N}")
+    if device == "cuda":
+        max_p, max_n = _lib().ssd_scan_max_p(), _lib().ssd_scan_max_n()
+    else:
+        max_p, max_n = MAX_P, MAX_N
+    if P > max_p or N > max_n:
+        raise ValueError(f"ssd_scan kernel takes P <= {max_p} and N <= "
+                         f"{max_n}, got P={P}, N={N}")
     return Bt, T, H, P, N
 
 
@@ -269,8 +332,10 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D):
-        y, fin, states = ssd_scan_fwd_kernel(x, dt, A, B, C, D,
-                                             save_states=True)
+        with op_cost.kernel(INFO_FWD["name"], cost_fwd(
+                *x.shape, B.shape[-1], save_states=True)):
+            y, fin, states = ssd_scan_fwd_kernel(x, dt, A, B, C, D,
+                                                 save_states=True)
         ctx.save_for_backward(x, dt, A, B, C, D, states)
         ctx.set_materialize_grads(False)
         return y, fin
@@ -278,21 +343,43 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dfin):
         x, dt, A, B, C, D, states = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros_like(x)
-        return ssd_scan_bwd_kernel(x, dt, A, B, C, D, states, dy, dfin)
+        with op_cost.kernel(INFO_BWD["name"], cost_bwd(*x.shape,
+                                                        B.shape[-1])):
+            if dy is None:
+                dy = torch.zeros_like(x)
+            return ssd_scan_bwd_kernel(x, dt, A, B, C, D, states, dy, dfin)
 
 
 def ssd_scan(x, dt, A, B, C, D, chunk_size: int) -> Tuple[Tensor, Tensor]:
     """(y (Bt, T, H, P), final state (Bt, H, P, N)). ``chunk_size`` is the
     model's: it picks the plain version's path on the CPU; the kernel uses
     its own chunk length, which changes only the rounding."""
+    ts = (x, dt, A, B, C, D)
+    train = torch.is_grad_enabled() and any(t.requires_grad for t in ts)
     if x.is_cuda:
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x, dt, A, B, C, D)):
-            return SSDScan.apply(x, dt, A, B, C, D)
-        y, fin, _ = ssd_scan_fwd_kernel(x, dt, A, B, C, D)
+        if train:
+            return SSDScan.apply(*ts)
+        with op_cost.kernel(INFO_FWD["name"], cost_fwd(*x.shape,
+                                                        B.shape[-1])):
+            y, fin, _ = ssd_scan_fwd_kernel(*ts)
         return y, fin
+    if counted.counting_route(x):
+        Bt, T, H, P, N = (*x.shape, B.shape[-1])
+        costs = (cost_fwd(Bt, T, H, P, N, save_states=train),
+                 cost_bwd(Bt, T, H, P, N))
+        names = (INFO_FWD["name"], INFO_BWD["name"])
+        if x.device.type == "meta":
+            _check(*ts, device="meta")
+            call = counted.Call(names, costs, lambda x, *_: (
+                torch.empty_like(x), x.new_empty((Bt, H, P, N))),
+                counted.empty_grads)
+        else:
+            def plain(*ts):
+                return ssd_scan_plain(*ts, chunk_size)
+
+            call = counted.Call(names, costs, plain,
+                                counted.plain_grads(plain))
+        return counted.run(call, *ts)
     if x.device.type != "cpu":
         raise ValueError(f"ssd_scan: no kernel for {x.device}")
     return ssd_scan_plain(x, dt, A, B, C, D, chunk_size)

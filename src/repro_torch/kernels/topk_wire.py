@@ -7,7 +7,8 @@ ctypes); see its header for the design and its bound on the H100.
 
 ``topk_wire(logits, k)`` maps (B, V) to (vals (B, k) f32, idx (B, k) i32,
 lse (B,) f32): a CUDA tensor launches the kernel (or raises), a CPU tensor
-takes `topk_wire_plain`. A tie goes to the lowest column, as in the
+takes `topk_wire_plain`, a meta tensor gets empty outputs; under a cost
+counter each call is one entry of `cost`. A tie goes to the lowest column, as in the
 reference's kernel and ``lax.top_k``; ``torch.topk`` does not promise that,
 so the plain version sorts stably instead.
 """
@@ -19,6 +20,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.build import LaunchCounter, cuda_library
+from repro_torch.roofline import op_cost
 
 Tensor = torch.Tensor
 
@@ -26,6 +28,13 @@ COUNTER = LaunchCounter("topk_wire")
 INFO = {"name": "topk_wire", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/topk_wire.cu",
         "replaces": "src/repro/kernels/topk_wire.py:60"}
+
+
+def cost(B: int, V: int, k: int):
+    """(FLOPs by type, bytes) of one call on (B, V) rows: the rows read
+    once as f32, vals and idx (B, k) and lse (B,) written; three f32
+    operations an element (the max, the exp and the sum of the lse)."""
+    return {"f32": 3.0 * B * V}, float(B * V * 4 + B * k * 8 + B * 4)
 
 
 def topk_wire_plain(logits: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
@@ -73,8 +82,18 @@ def topk_wire_kernel(logits: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
 
 
 def topk_wire(logits: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
-    if logits.is_cuda:
-        return topk_wire_kernel(logits, k)
-    if logits.device.type != "cpu":
-        raise ValueError(f"topk_wire: no kernel for {logits.device}")
-    return topk_wire_plain(logits, k)
+    B, V = logits.shape
+    with op_cost.kernel(INFO["name"], cost(B, V, k)):
+        if logits.is_cuda:
+            return topk_wire_kernel(logits, k)
+        if logits.device.type == "meta":
+            if not 1 <= k <= V:
+                raise ValueError(f"topk_wire needs 1 <= k <= V, got k={k}, "
+                                 f"V={V}")
+
+            def out(*shape, dtype=torch.float32):
+                return torch.empty(shape, dtype=dtype, device="meta")
+            return out(B, k), out(B, k, dtype=torch.int32), out(B)
+        if logits.device.type != "cpu":
+            raise ValueError(f"topk_wire: no kernel for {logits.device}")
+        return topk_wire_plain(logits, k)

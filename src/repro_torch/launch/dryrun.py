@@ -1,0 +1,196 @@
+"""The dry run on one card: count every (architecture × input shape) step
+without a card (port of ``repro/launch/dryrun.py``).
+
+The reference lowers and compiles each step for a 256- or 512-chip TPU
+mesh, faked as host devices, and prices the HLO. The port counts the same
+step on the ``meta`` device (`roofline.op_cost`): the train state and the
+inputs are meta tensors, so nothing is allocated and the step never runs;
+the counter sees every operation the card would launch, each hand kernel
+as one entry of its own cost. It needs no card and sets no environment.
+The mesh is one card (``"1"``); the reference's multi-pod meshes, its
+``--both-meshes`` and its MHD step are the multi-device slice (ROADMAP
+Queue 1 item 15b) and raise.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-12b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out artifacts/dryrun_torch]
+
+Per run: the step counted in the reference's dtype choices (a bf16 bundle;
+``sgd_momentum`` with bf16 state for ``train``), its FLOPs by type, bytes,
+peak memory and collective bytes, written as a JSON record with the
+reference's keys; ``--all`` prints the roofline table on the H100 at the
+end.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.common.pytree import tree_size
+from repro_torch.configs import arch_ids, get_config
+from repro_torch.configs.shapes import INPUT_SHAPES, input_specs, supports_shape
+from repro_torch.launch.steps import (
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+    train_state_shapes,
+)
+from repro_torch.models.layers import MetaDraw
+from repro_torch.models.zoo import build_bundle
+from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
+from repro_torch.roofline.analysis import (
+    format_table,
+    roofline_from_artifacts,
+)
+from repro_torch.roofline.op_cost import OpCounter, tree_bytes
+
+MESH, CHIPS = "1", 1
+_ITEM_15B = ("the multi-device dry run (multi-pod meshes, the MHD pod-"
+             "exchange step) is ROADMAP Queue 1 item 15b")
+
+
+def _memory_dict(args_bytes: int, out_bytes: int, peak: int
+                 ) -> Dict[str, float]:
+    """The reference's ``memory_analysis`` keys: the step's arguments,
+    outputs, and the peak of the storages it made (its outputs among
+    them)."""
+    return {"argument_size_in_bytes": float(args_bytes),
+            "output_size_in_bytes": float(out_bytes),
+            "temp_size_in_bytes": float(peak),
+            "alias_size_in_bytes": 0.0,
+            "generated_code_size_in_bytes": 0.0}
+
+
+def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
+               overrides: Optional[Dict[str, Any]] = None,
+               verbose: bool = True) -> Dict[str, Any]:
+    """Count one (arch, shape) step on one card and return the record."""
+    if multi_pod:
+        raise NotImplementedError(_ITEM_15B)
+    cfg = get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    shape = INPUT_SHAPES[shape_name]
+    skip = supports_shape(arch, cfg, shape)
+    record: Dict[str, Any] = {
+        "arch": arch, "shape": shape_name, "mesh": MESH, "chips": CHIPS,
+        "mode": shape.mode, "tokens": shape.global_batch * (
+            1 if shape.mode == "decode" else shape.seq_len),
+    }
+    if skip:
+        record["status"] = "skip"
+        record["skip_reason"] = skip
+        if verbose:
+            print(f"[SKIP] {arch} × {shape_name} × {MESH}: {skip}")
+        return record
+
+    bundle = build_bundle(cfg, dtype=torch.bfloat16)
+    t0 = time.time()
+    specs = input_specs(cfg, shape_name)
+    if shape.mode == "train":
+        opt = make_optimizer(OptimizerConfig(
+            name="sgd_momentum", init_lr=0.1, total_steps=60_000,
+            state_dtype="bfloat16"))
+        state = train_state_shapes(bundle, opt)
+        params = state["params"]
+        step, args = make_train_step(bundle, opt), (state, specs)
+    else:
+        params = bundle.init(MetaDraw().manual_seed(0))
+        if shape.mode == "prefill":
+            step, args = make_prefill_step(bundle), (params, specs)
+        else:
+            step, args = make_serve_step(bundle), (params, specs)
+    lower_s = time.time() - t0
+    args_bytes = tree_bytes(args)
+    t1 = time.time()
+    with OpCounter(args=args) as counter:
+        out = step(*args)
+    count_s = time.time() - t1
+    cost = counter.to_dict()
+    record.update({
+        "status": "ok",
+        # building the meta state and inputs, and the counted run: the
+        # port's counterparts of lowering and compiling
+        "lower_s": round(lower_s, 2),
+        "compile_s": round(count_s, 2),
+        "num_params": int(tree_size(params)),
+        "memory": _memory_dict(args_bytes, tree_bytes(out),
+                               counter.peak_bytes),
+        "collective_bytes_raw": {**counter.coll,
+                                 "total": cost["collective_total"]},
+        "hlo_cost": cost,
+        "kernels": counter.kernels,
+        "ops": counter.ops,
+    })
+    if verbose:
+        print(f"[OK] {arch} × {shape_name} × {MESH} "
+              f"(count {count_s:.1f}s, params "
+              f"{record['num_params'] / 1e9:.2f}B)")
+        print(f"  memory: {record['memory']}")
+        print(f"  counted/device: flops={cost['flops']:.3e} "
+              f"(f32 {cost['flops_f32']:.3e}, 3xTF32 "
+              f"{cost['flops_tf32x3']:.3e}, bf16 {cost['flops_bf16']:.3e}) "
+              f"bytes={cost['bytes']:.3e} "
+              f"coll={cost['collective_total']:.3e}")
+    return record
+
+
+def report(rec: Dict[str, Any]):
+    """The record's `RooflineReport` on the default card (the H100)."""
+    cfg = get_config(rec["arch"])
+    cost = {**rec["hlo_cost"], "bytes accessed": rec["hlo_cost"]["bytes"]}
+    return roofline_from_artifacts(
+        rec["arch"], rec["shape"], rec["mesh"], rec["chips"], cost,
+        rec["collective_bytes_raw"], rec["memory"], cfg, rec["num_params"],
+        rec["tokens"], rec["mode"])
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", default=None)
+    p.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
+    p.add_argument("--all", action="store_true",
+                   help="run every (arch, shape)")
+    p.add_argument("--multi-pod", action="store_true")
+    p.add_argument("--both-meshes", action="store_true")
+    p.add_argument("--out", default="artifacts/dryrun_torch")
+    p.add_argument("--step", default="auto", choices=["auto", "mhd"],
+                   help="'mhd' counts the 2-client pod-exchange step")
+    p.add_argument("--exchange", default="full", choices=["full", "topk"])
+    args = p.parse_args(argv)
+    if args.step == "mhd" or args.multi_pod or args.both_meshes:
+        raise NotImplementedError(_ITEM_15B)
+
+    os.makedirs(args.out, exist_ok=True)
+    archs = arch_ids() if (args.all or not args.arch) else [args.arch]
+    shapes = list(INPUT_SHAPES) if (args.all or not args.shape) \
+        else [args.shape]
+    failures, reports = 0, []
+    for arch in archs:
+        for shape_name in shapes:
+            tag = f"{arch}__{shape_name}__{MESH}".replace("/", "_")
+            try:
+                rec = dryrun_one(arch, shape_name)
+            except Exception as e:  # a dry-run failure is a bug in the port
+                failures += 1
+                rec = {"arch": arch, "shape": shape_name, "mesh": MESH,
+                       "status": "fail", "error": f"{type(e).__name__}: {e}"}
+                print(f"[FAIL] {arch} × {shape_name} × {MESH}: "
+                      f"{rec['error']}")
+            if rec["status"] == "ok":
+                reports.append(report(rec))
+            with open(os.path.join(args.out, tag + ".json"), "w") as f:
+                json.dump(rec, f, indent=2)
+    if reports:
+        print(format_table(reports))
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

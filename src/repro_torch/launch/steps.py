@@ -17,8 +17,11 @@ the old moments out of their dicts as it makes the new one, so a step
 holds four copies of the params (params, grads, two AdamW moments) and
 one leaf's transient, not two of everything.
 
-``train_state_shapes`` and ``mhd_train_step`` come with the dry-run
-(ROADMAP Queue 1 item 15).
+``train_state_shapes`` gives a train state on the ``meta`` device: the
+shapes and dtypes of params, optimizer state and step, with nothing
+allocated (the reference's ``eval_shape``), for the dry run.
+``mhd_train_step`` comes with the multi-device slice (ROADMAP Queue 1
+item 15b).
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from typing import Any, Callable, Dict, Optional, Union
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import transformer as TF
+from repro_torch.models.layers import MetaDraw
 from repro_torch.models.zoo import ModelBundle
 from repro_torch.optim.optimizers import Optimizer
 
@@ -54,9 +59,10 @@ def make_train_step(bundle: ModelBundle, optimizer: Optimizer) -> Callable:
 
 def make_prefill_step(bundle: ModelBundle) -> Callable:
     def prefill_step(params, batch):
-        # the main head only: the reference's jit drops the unread rest
-        out = bundle.apply(params, batch, mtp=False)
-        return out["logits"][:, -1, :]  # next-token logits only
+        # the last position's main-head logits only: the reference's jit
+        # drops the unread rest, so no (B, T, V) logits are formed
+        out = bundle.apply(params, batch, mtp=False, logits=False)
+        return TF.head_logits(params, bundle.config, out["hidden"][:, -1, :])
 
     return prefill_step
 
@@ -68,6 +74,14 @@ def make_serve_step(bundle: ModelBundle) -> Callable:
         return logits[:, -1, :], caches
 
     return serve_step
+
+
+def train_state_shapes(bundle: ModelBundle, optimizer: Optimizer
+                       ) -> Dict[str, Any]:
+    """The train state on the meta device (no allocation): params drawn by
+    a `MetaDraw`, the optimizer's state of them, step 0."""
+    params = bundle.init(MetaDraw().manual_seed(0))
+    return {"params": params, "opt": optimizer.init(params), "step": 0}
 
 
 def init_train_state(bundle: ModelBundle, optimizer: Optimizer,

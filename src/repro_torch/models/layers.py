@@ -44,6 +44,18 @@ Params = Dict[str, Tensor]
 # initializers (torch.Generator draws; the parity tests load JAX params)
 # ---------------------------------------------------------------------------
 
+class MetaDraw(torch.Generator):
+    """A CPU generator whose draws land on the ``meta`` device: an init run
+    with it (every initializer draws on ``gen.device``) gives its params'
+    shapes and dtypes and allocates nothing. ``torch.Generator(device=
+    "meta")`` does not exist; ``torch.randn(..., generator=<a CPU
+    generator>, device="meta")`` does."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype=torch.float32, scale: float = 1.0) -> Tensor:
     std = scale / math.sqrt(in_dim)

@@ -88,11 +88,18 @@ def router_topk(logits: Tensor, top_k: int, scoring: str = "softmax"
     return weights, ids, probs
 
 
+def _one_hot(ids: Tensor, n: int) -> Tensor:
+    """(…, n) int64 one-hot of ``ids``, the same operations on every device
+    (``F.one_hot`` checks its ids' range on the host on the CPU only)."""
+    return (ids.long()[..., None] == torch.arange(n, device=ids.device)
+            ).long()
+
+
 def load_balance_loss(probs: Tensor, ids: Tensor, num_experts: int
                       ) -> Tensor:
     """Switch-Transformer aux loss: E · Σ_e f_e P_e (top-1 dispatch
     fraction)."""
-    f = F.one_hot(ids[..., 0].long(), num_experts).float().mean(0)
+    f = _one_hot(ids[..., 0], num_experts).float().mean(0)
     p = probs.mean(0)
     return num_experts * (f * p).sum()
 
@@ -107,7 +114,7 @@ def slot_positions(flat_ids: Tensor, num_experts: int, cap: int
                    ) -> Tuple[Tensor, Tensor]:
     """Each pair's position within its expert, the running count in
     token-major (n, k) order, and whether it fits (position < ``cap``)."""
-    onehot = F.one_hot(flat_ids.long(), num_experts)  # (N·k, E)
+    onehot = _one_hot(flat_ids, num_experts)  # (N·k, E)
     pos = onehot.cumsum(0) - 1
     flat_pos = pos.gather(1, flat_ids.long()[:, None])[:, 0]
     return flat_pos, flat_pos < cap
@@ -116,12 +123,14 @@ def slot_positions(flat_ids: Tensor, num_experts: int, cap: int
 def dispatch(xf: Tensor, flat_ids: Tensor, flat_pos: Tensor, keep: Tensor,
              num_experts: int, cap: int, top_k: int) -> Tensor:
     """The (E, C, D) slot buffer: each kept pair's token row in its slot
-    (one writer a slot), zeros elsewhere."""
+    (one writer a slot), zeros elsewhere. Every pair is written, a dropped
+    one to a spare row past the E·C slots, so no count of the kept pairs
+    reaches the host."""
     rows = xf.repeat_interleave(top_k, dim=0)  # (N·k, D), token-major
-    kept = keep.nonzero()[:, 0]
-    buf = xf.new_zeros(num_experts, cap, xf.shape[-1])
-    return buf.index_put((flat_ids[kept].long(), flat_pos[kept]),
-                         rows[kept])
+    n = num_experts * cap
+    slot = torch.where(keep, flat_ids.long() * cap + flat_pos, n)
+    buf = xf.new_zeros(n + 1, xf.shape[-1]).index_put((slot,), rows)
+    return buf[:n].view(num_experts, cap, xf.shape[-1])
 
 
 def expert_ffn(params: Params, buf: Tensor) -> Tensor:

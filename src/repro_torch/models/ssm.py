@@ -91,8 +91,11 @@ def mamba2_apply(params: Params, x: Tensor, cfg: MambaConfig) -> Tensor:
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
 
-    y, _ = ops.ssd_scan(xc, dt, A, Bmat, Cmat, params["D"], cfg.chunk_size)
-    y = y.reshape(B_, T, d_in)
+    # the scan in f32 whatever the model's dtype (the kernel takes f32, as
+    # the reference's ssd_chunked computes)
+    y, _ = ops.ssd_scan(xc.float(), dt, A, Bmat.float(), Cmat.float(),
+                        params["D"], cfg.chunk_size)
+    y = y.reshape(B_, T, d_in).to(x.dtype)
     # gated RMSNorm: norm(y * silu(z))
     y = norm_apply({"scale": params["norm/scale"]},
                    y * F.silu(z.float()).to(y.dtype))

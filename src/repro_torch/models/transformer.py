@@ -38,7 +38,7 @@ as in the reference: each use adds its part to their one gradient.
 
 Public API (pure functions over a flat path-keyed param dict):
   init_lm(gen, cfg, device=None)     -> params (on the card by default)
-  apply_lm(params, cfg, batch, mtp=True)
+  apply_lm(params, cfg, batch, mtp=True, logits=True)
                                      -> {"logits", "hidden", "aux_heads",
                                          "aux_loss"} (+ "mtp_hidden")
   encode_audio(params, cfg, frames)  -> the encoder's output (B, T_enc, D)
@@ -377,11 +377,20 @@ def encode_audio(params: Params, cfg: ModelConfig, frames: Tensor) -> Tensor:
     return L.norm_apply(_sub(enc, "final_norm"), x, cfg.norm)
 
 
+def _head_w(params: Params, cfg: ModelConfig) -> Tensor:
+    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+
+
+def head_logits(params: Params, cfg: ModelConfig, hidden: Tensor
+                ) -> Tensor:
+    """The main head's logits (f32) from final hidden states."""
+    return (hidden @ _head_w(params, cfg)).float()
+
+
 def _heads(params: Params, cfg: ModelConfig, hidden: Tensor
            ) -> Tuple[Tensor, Any]:
     """Main + aux logits (f32) from final hidden states."""
-    head_w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = (hidden @ head_w).float()
+    logits = head_logits(params, cfg, hidden)
     aux_logits = None
     if cfg.num_aux_heads:
         aux_logits = torch.einsum("...d,mdv->m...v", hidden,
@@ -403,12 +412,15 @@ def _mtp_hidden(params: Params, cfg: ModelConfig, tokens: Tensor,
 
 
 def apply_lm(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
-             mtp: bool = True) -> Dict[str, Any]:
+             mtp: bool = True, logits: bool = True) -> Dict[str, Any]:
     """Full-sequence forward. batch: {"tokens": (B, T)} plus, as the
     config asks, "vision_embeds" (B, P, embed_dim) or "audio_frames"
     (B, T_enc, frame_dim). Returns hidden (B, T, D), logits (B, T, V),
     aux_heads (m, B, T, V) or None, aux_loss, and, when ``cfg.mtp`` and
-    ``mtp`` are set, mtp_hidden (B, T, D)."""
+    ``mtp`` are set, mtp_hidden (B, T, D). ``logits=False`` leaves out
+    both heads' (…, T, V) logits (no ``logits`` or ``aux_heads`` key):
+    the chunked loss forms them a chunk at a time, where the reference's
+    ``jit`` drops the unread full ones."""
     _check_supported(cfg)
     x = _embed_tokens(params, cfg, batch["tokens"])
     x = _add_positional(params, cfg, x)
@@ -422,9 +434,9 @@ def apply_lm(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
     x, aux_loss = _run_stages(params, cfg, x, cross_src=cross_src,
                               enc_out=enc_out)
     hidden = L.norm_apply(_sub(params, "final_norm"), x, cfg.norm)
-    logits, aux_logits = _heads(params, cfg, hidden)
-    out = {"hidden": hidden, "logits": logits, "aux_heads": aux_logits,
-           "aux_loss": aux_loss}
+    out = {"hidden": hidden, "aux_loss": aux_loss}
+    if logits:
+        out["logits"], out["aux_heads"] = _heads(params, cfg, hidden)
     if cfg.mtp and mtp:
         out["mtp_hidden"] = _mtp_hidden(params, cfg, batch["tokens"], hidden)
     return out
@@ -445,20 +457,47 @@ def softmax_xent(logits: Tensor, labels: Tensor, valid=None) -> Tensor:
     return nll.mean()
 
 
+def _chunk_nll(h: Tensor, head_w: Tensor, labels: Tensor) -> Tensor:
+    logits = (h @ head_w).float()
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - ll).sum()
+
+
+def _chunked_xent(hidden: Tensor, head_w: Tensor, labels: Tensor,
+                  chunk: int) -> Tensor:
+    """Mean CE without the (B, T, V) logits at once (the reference's
+    ``_chunked_xent``): time-axis chunks of ``chunk`` positions, each
+    chunk's logits under ``torch.utils.checkpoint`` (formed again in the
+    backward, as the reference's ``jax.checkpoint`` of its scan body). The
+    reference pads T to a multiple of ``chunk`` and masks the padding; the
+    last chunk here is shorter instead, the same value."""
+    B, T, _ = hidden.shape
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for t0 in range(0, T, chunk):
+        total = total + torch.utils.checkpoint.checkpoint(
+            _chunk_nll, hidden[:, t0:t0 + chunk], head_w,
+            labels[:, t0:t0 + chunk], use_reentrant=False,
+            preserve_rng_state=False)
+    return total / (B * T)
+
+
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]):
     """Next-token loss (tokens shifted internally), plus 0.3 of the MTP
-    head's CE on token t+2 when ``cfg.mtp``; returns (loss, metrics). The
-    reference's ``loss_impl="chunked"`` is a memory lever of the same
-    value; the port computes the dense form."""
-    out = apply_lm(params, cfg, batch)
+    head's CE on token t+2 when ``cfg.mtp``; returns (loss, metrics). With
+    ``loss_impl="chunked"`` the CE is `_chunked_xent` over the hidden
+    states, and the full logits are never formed."""
+    chunked = cfg.loss_impl == "chunked"
+    out = apply_lm(params, cfg, batch, logits=not chunked)
     tokens = batch["tokens"]
-    ce = softmax_xent(out["logits"][:, :-1].float(), tokens[:, 1:])
+    if chunked:
+        ce = _chunked_xent(out["hidden"][:, :-1], _head_w(params, cfg),
+                           tokens[:, 1:], cfg.loss_chunk)
+    else:
+        ce = softmax_xent(out["logits"][:, :-1].float(), tokens[:, 1:])
     loss = ce + out["aux_loss"]
     metrics = {"ce": ce, "aux_loss": out["aux_loss"]}
     if cfg.mtp:
-        head_w = params["embed"].t() if cfg.tie_embeddings \
-            else params["lm_head"]
-        mtp_logits = (out["mtp_hidden"][:, :-2] @ head_w).float()
+        mtp_logits = head_logits(params, cfg, out["mtp_hidden"][:, :-2])
         mtp_ce = softmax_xent(mtp_logits, tokens[:, 2:])
         loss = loss + 0.3 * mtp_ce
         metrics["mtp_ce"] = mtp_ce
@@ -661,5 +700,4 @@ def decode_step(params: Params, cfg: ModelConfig, token: Tensor,
         for k in units[0]:
             new[f"stage{si}/{k}"] = torch.stack([u[k] for u in units])
     hidden = L.norm_apply(_sub(params, "final_norm"), x, cfg.norm)
-    head_w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return (hidden @ head_w).float(), new
+    return head_logits(params, cfg, hidden), new

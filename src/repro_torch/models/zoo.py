@@ -19,7 +19,8 @@ class ModelBundle:
     config: Any  # ModelConfig | ResNetConfig
     # torch.Generator -> flat param dict on the CPU (an LM's on the
     # generator's device: a CUDA generator draws it on the card); the
-    # trainer moves it to its device. (The JAX init draws from jax.random,
+    # trainer moves it to its device. A `layers.MetaDraw` gives it on the
+    # meta device (`launch.steps.train_state_shapes`). (The JAX init draws from jax.random,
     # which torch cannot replay: parity tests hand in bundles whose init
     # returns the reference's params through
     # `checkpoint.io.params_from_jax`.)
@@ -27,7 +28,8 @@ class ModelBundle:
     # (params, batch) -> outputs; an LM's batch carries "vision_embeds" or
     # "audio_frames" beside "tokens" where its config has a front end, and
     # its apply also takes mtp=False, which leaves out DeepSeek's MTP
-    # branch (`lm_mhd_outputs`)
+    # branch (`lm_mhd_outputs`), and logits=False, which leaves out the
+    # heads' logits (`lm_loss`'s chunked CE, the prefill step)
     apply: Callable[..., Dict[str, Any]]
     loss: Callable[..., Any]  # (params, batch) -> (loss, metrics)
     # (batch, cache_len, cache_dtype=bfloat16, device=None) -> caches
@@ -51,7 +53,10 @@ def build_bundle(cfg: Union[ModelConfig, RN.ResNetConfig],
 
 def _resnet_bundle(cfg: RN.ResNetConfig, dtype) -> ModelBundle:
     def init(gen: torch.Generator):
-        return RN.init_resnet(gen, cfg, dtype=dtype, device="cpu")
+        # drawn on the CPU; a `layers.MetaDraw` asks for the params on meta
+        return RN.init_resnet(gen, cfg, dtype=dtype,
+                              device="meta" if gen.device.type == "meta"
+                              else "cpu")
 
     def apply(params, batch):
         return RN.apply_resnet(params, cfg, batch["images"])
@@ -72,8 +77,8 @@ def _lm_bundle(cfg: ModelConfig, dtype) -> ModelBundle:
     def init(gen: torch.Generator):
         return TF.init_lm(gen, cfg, dtype=dtype, device=gen.device)
 
-    def apply(params, batch, mtp: bool = True):
-        return TF.apply_lm(params, cfg, batch, mtp=mtp)
+    def apply(params, batch, mtp: bool = True, logits: bool = True):
+        return TF.apply_lm(params, cfg, batch, mtp=mtp, logits=logits)
 
     def loss(params, batch):
         return TF.lm_loss(params, cfg, batch)

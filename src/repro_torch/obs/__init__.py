@@ -1,5 +1,4 @@
-"""repro_torch.obs — tracing and metrics (port of ``repro.obs``, without
-the roofline half of ``metrics.py``, which is ROADMAP Queue 1 item 15):
+"""repro_torch.obs — tracing and metrics (port of ``repro.obs``):
 
   tracer.py   the span/counter/instant tracer; the runtime, the
               scheduler, the bus and the wire call it. Disabled, and
@@ -7,10 +6,10 @@ the roofline half of ``metrics.py``, which is ROADMAP Queue 1 item 15):
   export.py   Chrome trace-event JSON (Perfetto, chrome://tracing) and
               the cross-process merge.
   metrics.py  one typed snapshot folding the `CommMeter` books, the
-              scheduler's freshness report and the tracer's phase
-              attribution, exported by `Experiment.run()` under the
-              ``obs/`` metric namespace when ``TrainSpec.trace_dir`` is
-              set.
+              scheduler's freshness report, the tracer's phase
+              attribution and each distill update's roofline, exported
+              by `Experiment.run()` under the ``obs/`` metric namespace
+              when ``TrainSpec.trace_dir`` is set.
 """
 from __future__ import annotations
 

@@ -1,20 +1,19 @@
-"""Unified observability snapshot: comm books + freshness + trace (port of
-``repro/obs/metrics.py`` without its roofline half).
+"""Unified observability snapshot: comm books + freshness + trace +
+roofline (port of ``repro/obs/metrics.py``).
 
-`collect_obs` folds three telemetry sources into one typed `ObsSnapshot`:
+`collect_obs` folds four telemetry sources into one typed `ObsSnapshot`:
 
   * the `CommMeter` books (offered / delivered / tombstoned bytes, gate
     counters) — what the fleet *sent*;
   * the scheduler's freshness report (per-client mailbox vs its own
     clock) — what the fleet *sees*;
   * the tracer's phase attribution (self-time per span name, idle as the
-    remainder) — where the wall-clock *went*.
-
-The reference's fourth source, the roofline of the distill update
-(``distill_step_cost``), lowers XLA HLO; its port is ROADMAP Queue 1 item
-15, and ``collect_obs(with_roofline=True)`` raises until then. The
-snapshot keeps its (empty) ``roofline`` section, so the metric names are
-the reference's.
+    remainder) — where the wall-clock *went*;
+  * with ``with_roofline=True``, each bundle's distill update priced on
+    the card (`distill_step_cost`: counted on meta copies of its
+    arguments, `roofline.op_cost`) and its achieved rate from the traced
+    ``runtime/distill`` spans (`_achieved_flops`) — how far each update is
+    from what the card could do.
 
 ``ObsSnapshot.to_metrics()`` flattens everything under the ``obs/``
 namespace, which `Experiment.run()` merges into the result metrics when
@@ -34,6 +33,10 @@ from __future__ import annotations
 import dataclasses
 from collections import defaultdict
 from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.roofline.analysis import H100, HardwareSpec
 
 # span name -> report phase; names not listed fall back to their first
 # path segment ("sched/tick" -> "sched"). The report's headline phases:
@@ -204,6 +207,74 @@ def flow_coverage(chrome_events: List[Dict[str, Any]]) -> Dict[str, float]:
             "flow_pairs": float(len(starts & ends))}
 
 
+# -- roofline of the distill step --------------------------------------------
+
+
+def distill_step_cost(trainer, hw: HardwareSpec = H100
+                      ) -> Dict[str, Dict[str, float]]:
+    """The counted cost of each architecture's distill update
+    (`core.runtime.distill_update`: Eq. (1), its gradients and the
+    optimizer's update) on the card.
+
+    The runtime records the update's arguments on the meta device the
+    first time each bundle takes a distillation step
+    (``trainer._distill_arg_shapes``); counting the update again on fresh
+    meta copies (`roofline.op_cost`) gives its FLOPs by type, bytes,
+    peak memory and argument bytes, and leaves the trainer untouched. Attainable FLOP/s is
+    the roofline ``min(typed peak, bw · intensity)`` on ``hw``. Returns {}
+    for trainers that never distilled (or baselines without the
+    record)."""
+    from repro_torch.core.runtime import distill_update, meta_like
+    from repro_torch.roofline.op_cost import OpCounter, tree_bytes
+
+    shapes = getattr(trainer, "_distill_arg_shapes", None) or {}
+    bundles = {c.bundle.name: c.bundle for c in getattr(trainer, "clients",
+                                                        ())}
+    out: Dict[str, Dict[str, float]] = {}
+    for name, (*args, step, has_rng) in shapes.items():
+        args = meta_like(tuple(args))
+        # the confidence draws on meta take a CPU generator
+        rng = torch.Generator().manual_seed(0) if has_rng else None
+        with OpCounter(args=args) as counter:
+            distill_update(bundles[name], trainer.optimizer,
+                           trainer.mhd_cfg, *args, step, rng)
+        cost = counter.to_dict()
+        flops, nbytes = cost["flops"], cost["bytes"]
+        out[name] = dict(cost)
+        out[name]["intensity"] = flops / nbytes if nbytes else 0.0
+        out[name]["attainable_flops_per_s"] = hw.attainable_flops_per_s(
+            cost)
+        # the update's memory: what it made and held at its peak, and what
+        # it was given (the client's params and optimizer state among it)
+        out[name]["peak_bytes"] = float(counter.peak_bytes)
+        out[name]["argument_bytes"] = float(tree_bytes(args))
+        out[name]["state_bytes"] = float(tree_bytes(args[:2]))
+    return out
+
+
+def _achieved_flops(roofline: Dict[str, Dict[str, float]],
+                    tracer) -> None:
+    """Annotate each bundle's roofline row with the achieved FLOP/s from
+    its traced ``runtime/distill`` span durations (in place)."""
+    if tracer is None:
+        return
+    durs: Dict[str, List[float]] = defaultdict(list)
+    for ev in tracer.events():
+        if ev["ph"] == "X" and ev["name"] == "runtime/distill":
+            b = ev.get("args", {}).get("bundle")
+            if b is not None:
+                durs[b].append(ev["dur"])
+    for name, row in roofline.items():
+        if durs.get(name):
+            mean_s = sum(durs[name]) / len(durs[name])
+            row["distill_span_mean_s"] = mean_s
+            row["achieved_flops_per_s"] = (
+                row["flops"] / mean_s if mean_s > 0 else 0.0)
+            att = row.get("attainable_flops_per_s", 0.0)
+            row["roofline_fraction"] = (
+                row["achieved_flops_per_s"] / att if att else 0.0)
+
+
 # -- the snapshot ------------------------------------------------------------
 
 
@@ -242,15 +313,12 @@ class ObsSnapshot:
 
 
 def collect_obs(trainer=None, scheduler=None, tracer=None,
+                hw: HardwareSpec = H100,
                 with_roofline: bool = False) -> ObsSnapshot:
     """Assemble the snapshot from whatever sources exist; every argument
     is optional and a missing source contributes an empty section.
-    ``with_roofline`` (the reference's HLO roofline of each distill
-    update) is not ported and raises."""
-    if with_roofline:
-        raise NotImplementedError(
-            "the distill step's roofline is not ported yet: ROADMAP Queue "
-            "1 item 15 (obs/metrics.distill_step_cost lowers XLA HLO)")
+    ``with_roofline`` gates the count of each distill update (one more
+    run of it on meta — cheap but not free, so opt-in)."""
     comm: Dict[str, float] = {}
     gates: Dict[int, Dict[str, float]] = {}
     meter = getattr(trainer, "meter", None)
@@ -271,6 +339,11 @@ def collect_obs(trainer=None, scheduler=None, tracer=None,
         phases = phase_attribution(
             to_chrome_events(tracer.events(), pid=tracer.rank))
 
+    roofline: Dict[str, Dict[str, float]] = {}
+    if with_roofline and trainer is not None:
+        roofline = distill_step_cost(trainer, hw=hw)
+        _achieved_flops(roofline, tracer)
+
     return ObsSnapshot(comm=comm, gates=gates, freshness=freshness,
                        tracer_stats=tracer_stats, phases=phases,
-                       roofline={})
+                       roofline=roofline)

@@ -1,0 +1,163 @@
+"""The port's dry run (`repro_torch.launch.dryrun`, `configs/shapes.py`,
+`launch/steps.train_state_shapes`) against the JAX package's, on the CPU.
+
+  * `supports_shape`'s skip reasons and `input_specs`' shapes and dtypes
+    for every arch × shape, against the reference's ``ShapeDtypeStruct``s
+    (a decode cache's ``index`` holds a position a row in the port);
+  * the meta train state's parameter count against ``tree_size`` of the
+    reference's ``eval_shape`` of its init, for every arch;
+  * `dryrun_one` over the reference's grid at full width: ``ok`` with a
+    finite count, or the reference's skip reason. It needs no card and
+    allocates nothing (the meta device). The reference's
+    ``repro.launch.dryrun`` is not imported: it sets ``XLA_FLAGS`` when
+    imported.
+"""
+import dataclasses
+import json
+
+import jax
+import numpy as np
+import pytest
+
+import test_torch_threads
+from repro.common.pytree import flatten_with_paths, tree_size
+from repro.configs import arch_ids as jax_arch_ids
+from repro.configs import get_config as jax_config
+from repro.configs import shapes as JS
+from repro.models.zoo import build_bundle as jax_bundle
+from repro_torch.configs import arch_ids, get_config
+from repro_torch.configs import shapes as TS
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch.steps import train_state_shapes
+from repro_torch.models import build_bundle
+from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
+
+test_torch_threads.share_cores()
+
+GRID = [(a, s) for a in arch_ids() for s in TS.INPUT_SHAPES]
+# uncut on one CPU (PERF.md's dry-run table) every shape of these took
+# under 3.5 s; the others are cut in depth to one repeat of each stage
+# (every layer kind of the block, at full width), else the file passes
+# 60 s on one worker (deepseek-v3's prefill alone took 33.6 s)
+UNCUT = {"mamba2-370m", "minitron-4b"}
+
+
+def depth_cut(arch: str):
+    """``dryrun_one``'s overrides: one repeat of each stage (and one
+    encoder layer), every width as published."""
+    if arch in UNCUT:
+        return None
+    cfg = get_config(arch)
+    stages = tuple(dataclasses.replace(st, repeats=1) for st in cfg.stages)
+    cut = {"stages": stages,
+           "num_layers": sum(len(st.block) for st in stages)}
+    if cfg.encoder is not None:
+        cut["encoder"] = dataclasses.replace(cfg.encoder, num_layers=1)
+    return cut
+
+
+def test_the_grid_is_the_reference_grid():
+    assert arch_ids() == jax_arch_ids()
+    assert {k: tuple(vars(v).values()) for k, v in TS.INPUT_SHAPES.items()
+            } == {k: tuple(vars(v).values())
+                  for k, v in JS.INPUT_SHAPES.items()}
+    assert TS.LONG_CONTEXT_ARCHS == JS.LONG_CONTEXT_ARCHS
+
+
+@pytest.mark.parametrize("arch", arch_ids())
+def test_supports_shape_gives_the_reference_reasons(arch):
+    for name, shape in TS.INPUT_SHAPES.items():
+        assert TS.supports_shape(arch, get_config(arch), shape) == \
+            JS.supports_shape(arch, jax_config(arch), JS.INPUT_SHAPES[name])
+
+
+def _dtype(x) -> str:
+    return str(x.dtype).replace("torch.", "")
+
+
+@pytest.mark.parametrize("arch", arch_ids())
+def test_input_specs_match_the_reference(arch):
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    for name, shape in TS.INPUT_SHAPES.items():
+        if TS.supports_shape(arch, cfg, shape):
+            continue
+        got = TS.input_specs(cfg, name)
+        ref = JS.input_specs(jcfg, name)
+        caches = got.pop("caches", None)
+        ref_caches = ref.pop("caches", None)
+        assert {k: (tuple(v.shape), _dtype(v), v.device.type)
+                for k, v in got.items()} == \
+            {k: (tuple(v.shape), _dtype(v), "meta") for k, v in ref.items()}
+        if caches is None:
+            continue
+        ref_flat = flatten_with_paths(ref_caches)
+        assert set(caches) == set(ref_flat), (arch, name)
+        B = shape.global_batch
+        for k, v in caches.items():
+            r = ref_flat[k]
+            if k.endswith("index"):
+                # a position a row: (B,) at the top, (R, B) in a stage
+                assert tuple(v.shape) == tuple(r.shape) + (B,), k
+            else:
+                assert (tuple(v.shape), _dtype(v)) == \
+                    (tuple(r.shape), str(r.dtype)), k
+
+
+@pytest.mark.parametrize("arch", arch_ids())
+def test_meta_train_state_counts_the_reference_params(arch):
+    import torch
+
+    opt = make_optimizer(OptimizerConfig(name="sgd_momentum", init_lr=0.1,
+                                         total_steps=60_000,
+                                         state_dtype="bfloat16"))
+    state = train_state_shapes(build_bundle(get_config(arch),
+                                            dtype=torch.bfloat16), opt)
+    ref = jax.eval_shape(jax_bundle(jax_config(arch)).init,
+                         jax.random.PRNGKey(0))
+    assert sum(v.numel() for v in state["params"].values()) == \
+        tree_size(ref)
+    assert {v.device.type for v in state["params"].values()} == {"meta"}
+    assert {v.dtype for v in state["opt"]["momentum"].values()} == \
+        {torch.bfloat16}
+    assert state["step"] == 0
+
+
+@pytest.mark.parametrize("arch,shape", GRID,
+                         ids=[f"{a}-{s}" for a, s in GRID])
+def test_dryrun_one_counts_or_skips_as_the_reference(arch, shape):
+    rec = DR.dryrun_one(arch, shape, overrides=depth_cut(arch),
+                        verbose=False)
+    assert (rec["mesh"], rec["chips"]) == ("1", 1)
+    skip = JS.supports_shape(arch, jax_config(arch), JS.INPUT_SHAPES[shape])
+    if skip:
+        assert rec == {**rec, "status": "skip", "skip_reason": skip}
+        return
+    assert rec["status"] == "ok", rec
+    cost = rec["hlo_cost"]
+    assert cost["flops"] > 0 and cost["bytes"] > 0
+    assert cost["flops"] == pytest.approx(
+        cost["flops_f32"] + cost["flops_tf32x3"] + cost["flops_bf16"])
+    assert cost["collective_total"] == 0  # one card
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] > 0 and \
+        mem["temp_size_in_bytes"] > 0
+    # the train state's params in bf16 are among the arguments
+    if rec["mode"] == "train":
+        assert mem["argument_size_in_bytes"] >= 2 * 2 * rec["num_params"]
+    rep = DR.report(rec)  # priced at the published config's 6·N·D
+    assert rep.dominant in ("compute", "memory")
+    assert np.isfinite(rep.compute_s) and rep.compute_s > 0
+    json.dumps(rec)
+
+
+def test_main_writes_a_record_and_refuses_the_multi_device_modes(tmp_path):
+    assert DR.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
+                    "--out", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "mamba2-370m__decode_32k__1.json")
+                     .read_text())
+    assert rec["status"] == "ok" and rec["mode"] == "decode"
+    for argv in (["--multi-pod"], ["--both-meshes"], ["--step", "mhd"]):
+        with pytest.raises(NotImplementedError, match="item 15b"):
+            DR.main(argv + ["--out", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        DR.dryrun_one("mamba2-370m", "train_4k", multi_pod=True)

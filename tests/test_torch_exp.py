@@ -310,9 +310,32 @@ def _run_cpu(spec):
 
 
 def _roofline():
+    """The distill update's roofline, ported since: after a short CPU run,
+    each bundle's update counted on meta copies of its arguments."""
     from repro_torch.obs import collect_obs
 
-    return collect_obs(with_roofline=True)
+    res = _run_cpu(tiny_spec(PX, "mhd", {"pool_size": 1,
+                                         "pool_update_every": 2},
+                             PX.ExperimentSpec.uniform_fleet(2, aux_heads=1),
+                             steps=2))
+    rows = collect_obs(trainer=res.algorithm.trainer,
+                       with_roofline=True).roofline
+    assert rows
+    for row in rows.values():
+        assert row["flops"] > 0 and row["bytes"] > 0
+        assert row["attainable_flops_per_s"] > 0
+
+
+def _dryrun_mhd():
+    from repro_torch.launch.dryrun import main
+
+    main(["--step", "mhd"])
+
+
+def _dryrun_multi_pod():
+    from repro_torch.launch.dryrun import main
+
+    main(["--multi-pod", "--arch", "mamba2-370m", "--shape", "train_4k"])
 
 
 def _mla():
@@ -362,12 +385,14 @@ def _cross():
 
 # what the port does not run yet: each raises naming its ROADMAP item
 DEFERRED = {
-    "roofline": (_roofline, "item 15"),
+    "dryrun_mhd": (_dryrun_mhd, "item 15b"),
+    "--multi-pod": (_dryrun_multi_pod, "item 15b"),
 }
 # features deferred once and ported since: each builds and runs
 PORTED_SINCE = {
     "mla": _mla,
     "cross_attention": _cross,
+    "roofline": _roofline,
 }
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of repro_torch (the
 socket transport, the gossip launcher, the MoE FFN, MLA, the training and
-serving launchers and their steps, the serving package and every
-architecture config among them), chip_smoke.py, examples/port_quickstart.py,
+serving launchers and their steps, the serving package, every
+architecture config, the roofline's counter and the dry run among them), chip_smoke.py, examples/port_quickstart.py,
 examples/port_serve_decode.py and scripts/port_gossip_procs.py leaves jax
 and the JAX package out of sys.modules, and the kernels' sources (which
 import triton) are not imported by any module."""
@@ -29,7 +29,10 @@ assert {"repro_torch.comm.socket", "repro_torch.launch",
         "repro_torch.serve", "repro_torch.serve.engine",
         "repro_torch.serve.feedback", "repro_torch.serve.front",
         "repro_torch.serve.request", "repro_torch.serve.router",
-        "repro_torch.serve.teacher_cache"} <= set(names), names
+        "repro_torch.serve.teacher_cache", "repro_torch.roofline",
+        "repro_torch.roofline.analysis", "repro_torch.roofline.op_cost",
+        "repro_torch.configs.shapes", "repro_torch.launch.dryrun",
+        "repro_torch.kernels.counted"} <= set(names), names
 for name, path in zip(("chip_smoke", "port_quickstart", "port_gossip_procs",
                        "port_serve_decode"), sys.argv[1:]):
     spec = importlib.util.spec_from_file_location(name, path)
@@ -50,7 +53,7 @@ def test_port_imports_no_jax_and_no_reference_package():
          os.path.join(ROOT, "examples", "port_serve_decode.py")],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 88, out.stdout
+    assert int(n) >= 94, out.stdout
     assert bad == "[]", bad
 
 

@@ -108,6 +108,75 @@ def test_lm_loss_gradients_match_jax_and_remat_changes_nothing(model):
                                    atol=1e-7)
 
 
+@pytest.mark.parametrize("B,T,V,chunk", [(3, 17, 11, 5), (2, 16, 33, 8),
+                                         (1, 7, 9, 16)])
+def test_chunked_xent_matches_jax_and_dense(B, T, V, chunk):
+    """tests/test_perf_paths.py::test_chunked_xent_matches_dense on both
+    packages: one numpy draw, the port's chunked CE within 1e-6 of the
+    reference's and of the port's dense CE (T % chunk != 0 too)."""
+    rng = np.random.default_rng(0)
+    h = rng.standard_normal((B, T, 8)).astype(np.float32)
+    w = rng.standard_normal((8, V)).astype(np.float32)
+    lab = rng.integers(0, V, (B, T)).astype(np.int32)
+    ref = float(JTF._chunked_xent(jnp.asarray(h), jnp.asarray(w),
+                                  jnp.asarray(lab), chunk))
+    th, tw, tl = (torch.from_numpy(a) for a in (h, w, lab))
+    got = TTF._chunked_xent(th, tw, tl, chunk).item()
+    dense = TTF.softmax_xent((th @ tw).float(), tl).item()
+    assert abs(got - ref) <= 1e-6 * abs(ref)
+    assert abs(got - dense) <= 1e-6 * abs(dense)
+
+
+@pytest.mark.parametrize("chunk", [4, 5])
+def test_chunked_xent_gradients_match_jax(chunk):
+    """::test_chunked_xent_gradients_match on both packages: the gradients
+    in the hidden states and the head against ``jax.grad``, at T = 12 in
+    chunks of 4 and of 5 (a shorter last chunk)."""
+    rng = np.random.default_rng(1)
+    h = rng.standard_normal((2, 12, 8)).astype(np.float32)
+    w = rng.standard_normal((8, 20)).astype(np.float32)
+    lab = rng.integers(0, 20, (2, 12)).astype(np.int32)
+    gh_j, gw_j = jax.grad(lambda h_, w_: JTF._chunked_xent(
+        h_, w_, jnp.asarray(lab), chunk), argnums=(0, 1))(
+            jnp.asarray(h), jnp.asarray(w))
+    th = torch.from_numpy(h).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    gh, gw = torch.autograd.grad(
+        TTF._chunked_xent(th, tw, torch.from_numpy(lab), chunk), [th, tw])
+    np.testing.assert_allclose(gh.numpy(), np.asarray(gh_j), rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(gw.numpy(), np.asarray(gw_j), rtol=1e-5,
+                               atol=1e-7)
+
+
+def test_lm_loss_chunked_matches_jax_without_the_logits(model):
+    """``loss_impl="chunked"`` (chunks of 5 over T − 1 = 63 positions):
+    ``lm_loss`` and every gradient against the reference's chunked loss,
+    the value within 1e-6 of the port's dense one, and ``apply_lm(...,
+    logits=False)`` forms neither head's logits."""
+    jcfg, jp, flat, tokens = model
+    jcfg = dataclasses.replace(jcfg, loss_impl="chunked", loss_chunk=5)
+    cfg = dataclasses.replace(get_reduced(NAME), loss_impl="chunked",
+                              loss_chunk=5)
+    jbatch = {"tokens": jnp.asarray(tokens)}
+    batch = {"tokens": torch.from_numpy(tokens)}
+    params = {k: v.requires_grad_() for k, v in
+              TIO.params_from_jax(flat, device="cpu").items()}
+    out = TTF.apply_lm(params, cfg, batch, logits=False)
+    assert "logits" not in out and "aux_heads" not in out
+    loss, _ = TTF.lm_loss(params, cfg, batch)
+    dense, _ = TTF.lm_loss(params, get_reduced(NAME), batch)
+    assert abs(loss.item() - dense.item()) <= 1e-6 * abs(dense.item())
+    loss_j, g_j = jax.value_and_grad(
+        lambda p: JTF.lm_loss(p, jcfg, jbatch)[0])(jp)
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=2e-5)
+    g_j = JIO.flatten_with_paths(g_j)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
+    for k, g in zip(params, grads):
+        assert _rel(g.numpy(), g_j[k]) < 1e-4, k
+
+
 @pytest.mark.parametrize("case", ["cross", "mla", "mtp"],
                          ids=["cross-none", "mla", "mtp"])
 def test_layer_kinds_ported_since_match_jax(case, model):

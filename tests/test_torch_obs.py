@@ -8,6 +8,7 @@ Queue 1 item 15) and raises.
 """
 import dataclasses
 import json
+import math
 
 import pytest
 
@@ -183,14 +184,19 @@ def test_collect_obs_folds_meter_and_tracer():
     assert m["obs/gate/c0/fresh"] == 2.0
     assert m["obs/trace/kept"] == 1.0
     assert m["obs/phase/r0/distill"] > 0.0
-    with pytest.raises(NotImplementedError, match="item 15"):
-        collect_obs(trainer=FakeTrainer(), with_roofline=True)
+    # a trainer that never distilled has no update to price: the
+    # roofline section stays empty, as the reference's
+    snap = collect_obs(trainer=FakeTrainer(), tracer=tracer,
+                       with_roofline=True)
+    assert snap.roofline == {}
+    assert not any(k.startswith("obs/roofline/") for k in snap.to_metrics())
 
 
 def test_experiment_trace_dir_writes_a_trace_the_reference_reads(tmp_path):
     """``trace_dir`` on a lockstep run: a Chrome trace the reference's
     `load_trace` reads, the ``obs/`` metrics (every one of the
-    reference's but the roofline rows), the tracer off again after."""
+    reference's, the roofline rows among them), the tracer off again
+    after."""
     from test_torch_exp import PX, tiny_spec
 
     spec = tiny_spec(PX, "mhd", {"pool_size": 1, "pool_update_every": 2},
@@ -210,7 +216,18 @@ def test_experiment_trace_dir_writes_a_trace_the_reference_reads(tmp_path):
     assert m["obs/trace/dropped"] == 0.0
     assert m["obs/phase/r0/distill"] > 0.0
     assert m["obs/fresh/c1/local_steps"] == 2.0
-    assert not any(k.startswith("obs/roofline/") for k in m)
+    roofline = {k: v for k, v in m.items() if k.startswith("obs/roofline/")}
+    assert any(k.endswith("/flops") for k in roofline)
+    assert any(k.endswith("/achieved_flops_per_s") for k in roofline)
+    bundles = {k.split("/")[2] for k in roofline}
+    assert bundles
+    for name in bundles:
+        for key in ("flops", "bytes", "collective_total", "intensity",
+                    "attainable_flops_per_s", "achieved_flops_per_s",
+                    "roofline_fraction", "distill_span_mean_s"):
+            v = m[f"obs/roofline/{name}/{key}"]
+            assert math.isfinite(v) and v >= 0.0, (name, key)
+        assert m[f"obs/roofline/{name}/flops"] > 0.0
     json.dumps(res.to_payload())
     plain = dataclasses.replace(spec, train=dataclasses.replace(
         spec.train, trace_dir=None, steps=2))
