@@ -138,7 +138,20 @@ the checkout (into ``build/``), then
      rows' top-2 logits lie within 1e-5, a near-tie, recorded), logits
      finite; tokens a second, the median decode tick against its byte
      bound, prefill ms a prompt token, occupancy and the card's peak;
-  15. puts each path's step against the H100's roofline
+  15. drives the pod path (`phase_pod_path`, `core.mhd_distributed`):
+     K = 2 mamba2-370m clients at full width and depth (48 layers, 471.3 M
+     params each, f32) on the paper's fused pod step, SGD momentum, 4 + 4
+     sequences of 512 a client, the ring, in an NCCL process group of
+     world size 1 (a FileStore under chiprun_out/) with a ("pod",) mesh of
+     size 1 holding both clients: 2 top-k steps first run with no group,
+     whose params the group's must equal bitwise, then 4 top-k (k = 32)
+     and 2 full-exchange steps (losses finite, every client's params
+     moved); then `make_mhd_train_step` for 2 steps on one student with
+     Δ = 2 teachers' params (the teachers unchanged) (a profiled step of
+     each exchange: ablations/pod_step.py). topk_wire, dist_ce,
+     emb_dist and ssd_scan must launch, at shapes the kernel phases held.
+     World sizes above 1 need a card a rank and run on the CPU only;
+  16. puts each path's step against the H100's roofline
      (`roofline_row`): its FLOPs by type and bytes counted on the meta
      device at the path's own configuration (`repro_torch.roofline`; each
      kernel an entry of its own cost), the compute and memory terms, the
@@ -149,9 +162,10 @@ the checkout (into ``build/``), then
      supervised steps of (13) and the decode ticks of (14). One whisper
      step is also counted on the card, real tensors and the kernels
      launching, and must equal its meta count; minitron-4b's counted tick
-     bytes must lie in TICK_BYTES_BAND of the hand reckoning. The rows go
-     to the record's ``roofline``;
-  16. prints one ``{"kernels": [...]}`` line and, last, the device line
+     bytes must lie in TICK_BYTES_BAND of the hand reckoning; the pod
+     path's top-k step counted on meta. The rows go to the record's
+     ``roofline``;
+  17. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -488,6 +502,27 @@ SERVE_SEED = 0
 TOL_TIE = 1e-5
 
 
+# the pod path: the paper's fused pod step (`core.mhd_distributed`) on K=2
+# mamba2-370m clients at full width and depth (48 layers, d_model 1,024,
+# vocab 50,280, 2 aux heads, f32), SGD momentum at lr 0.01,
+# MHDConfig(nu_emb=1, nu_aux=3, 2 aux heads, Δ=1), B = 4 private and
+# B_pub = 4 public sequences of 512 a client, the ring; POD_TOPK_STEPS
+# steps of the top-k exchange (k = 32), then POD_FULL_STEPS of the full
+# one, in an NCCL process group of world size 1 with a ("pod",) mesh of
+# size 1 holding both clients; then make_mhd_train_step for POD_MHD_STEPS
+# steps on one student with Δ = 2 teachers' params. World sizes above 1
+# need a card a rank (NCCL refuses two ranks on one card); they run on
+# the CPU over gloo (tests/test_torch_mhd_distributed.py)
+POD_CFG = _LM_FULL
+POD_K, POD_B, POD_B_PUB, POD_SEQ, POD_TOPK = 2, 4, 4, 512, 32
+POD_TOPK_STEPS, POD_FULL_STEPS, POD_MHD_STEPS, POD_SEED = 4, 2, 2, 31
+POD_OPTIMIZER = dict(name="sgd_momentum", init_lr=0.01, total_steps=8)
+POD_MHD = dict(nu_emb=1.0, nu_aux=3.0, num_aux_heads=2, delta=1)
+POD_ROWS = POD_B_PUB * (POD_SEQ - 1)  # B' a client: the public positions
+POD_HEADS = POD_MHD["num_aux_heads"] + 1
+POD_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
+               "emb_dist_bwd", "ssd_scan_fwd", "ssd_scan_bwd")
+
 def lm_path_data(LM, D, k: int = LM_K):
     """The LM path's train and test token arrays and its partition over
     ``k`` clients, built with the lm and data modules ``LM``, ``D`` (this
@@ -822,7 +857,10 @@ def phase_topk(dev) -> dict:
                                         device=dev) * 3, k_srv),
              # deepseek-v3's vocabulary: one LM publish's rows of 505 KB
              ("deepseek", torch.randn(DS_TOPK_ROWS, DS_VOCAB, generator=g,
-                                      device=dev) * 3, LM_COMM["topk"])]
+                                      device=dev) * 3, LM_COMM["topk"]),
+             # the pod path's top-k pack: a client's heads' public rows
+             ("pod", torch.randn(POD_HEADS * POD_ROWS, POD_CFG.vocab_size,
+                                 generator=g, device=dev) * 3, POD_TOPK)]
     for name, x, k in cases:
         v, i, lse = TOPK.topk_wire_kernel(x, k)
         pv, pi, plse = TOPK.topk_wire_plain(x, k)
@@ -1376,7 +1414,13 @@ def phase_dist_ce(dev) -> list:
              # the hybrid, MoE and DeepSeek paths' rows at V = 32,000
              ("zamba2, arctic, deepseek (a)", LM_CE_ROWS, ZAMBA_VOCAB, bf16,
               f32, 3.0),
-             ("deepseek", DS_CE_ROWS, DS_VOCAB, bf16, f32, 3.0)]
+             ("deepseek", DS_CE_ROWS, DS_VOCAB, bf16, f32, 3.0),
+             # the pod step's rows (a client's public positions, the
+             # teacher or self bf16 logits) and make_mhd_train_step's
+             # (Δ + 1 = 3 candidates' decoded f32 rows)
+             ("pod", POD_ROWS, POD_CFG.vocab_size, bf16, bf16, 3.0),
+             ("pod mhd_train_step", 3 * POD_ROWS, POD_CFG.vocab_size, bf16,
+              f32, 3.0)]
     for name, B, V, s_dt, t_dt, scale in cases:
         s = (torch.randn(B, V, generator=g, device=dev) * 3).to(s_dt)
         t = (torch.randn(B, V, generator=g, device=dev) * scale).to(t_dt)
@@ -1436,7 +1480,12 @@ def phase_emb_dist(dev) -> list:
     for name, B, D in (("slice", rows, E), ("large", 256, 8192),
                        ("s==t", rows, E),
                        ("gossip_socket", preset_shapes("gossip_socket")[2],
-                        E), ("serve_loop", *serve_shapes()["emb_dist"])):
+                        E), ("serve_loop", *serve_shapes()["emb_dist"]),
+                       # the pod step's Δ·B' = B' rows, make_mhd_train_step's
+                       # Δ = 2
+                       ("pod", POD_ROWS, POD_CFG.d_model),
+                       ("pod mhd_train_step", 2 * POD_ROWS,
+                        POD_CFG.d_model)):
         s = torch.randn(B, D, generator=g, device=dev)
         t = s.clone() if name == "s==t" else torch.randn(
             B, D, generator=g, device=dev)
@@ -3269,8 +3318,9 @@ class GradWatch:
 
 def _step_profile(step_fn, state, batch, name: str, vocab: int) -> tuple:
     """One more train step under torch.profiler: the device time by
-    kernel and by op. Categories: ``flash_attention`` (its kernels by
-    name); ``heads`` (every op with an input dimension that is a multiple
+    kernel and by op. Categories: each hand kernel that ran
+    (``flash_attention``, ``ssd_scan``, ``topk_wire``, ``dist_ce``,
+    ``emb_dist``: their kernels by name); ``heads`` (every op with an input dimension that is a multiple
     of the vocabulary: the tied or untied head's GEMMs, the aux heads'
     one product of m·V columns, the softmax CE and their backward); ``gemm`` (the other matmuls: projections, FFNs, the front
     ends); ``other`` (norms, activations, residual adds, copies). The
@@ -3289,8 +3339,11 @@ def _step_profile(step_fn, state, batch, name: str, vocab: int) -> tuple:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels)
-    flash = sum(e.self_device_time_total for e in kernels
-                if "flash_attention" in e.key)
+    hand = {n: sum(e.self_device_time_total for e in kernels
+                   if n in e.key)
+            for n in ("flash_attention", "ssd_scan", "topk_wire", "dist_ce",
+                      "emb_dist")}
+    hand = {n: v for n, v in hand.items() if v}
     rows = sorted((e for e in prof.key_averages(group_by_input_shape=True)
                    if e.device_type == DeviceType.CPU
                    and e.self_device_time_total > 0),
@@ -3307,8 +3360,8 @@ def _step_profile(step_fn, state, batch, name: str, vocab: int) -> tuple:
     (out / f"profile_{name}.txt").write_text(prof.key_averages(
         group_by_input_shape=True).table(sort_by="self_device_time_total",
                                          row_limit=60))
-    by = {"gemm": gemm, "heads": heads, "flash_attention": flash,
-          "other": busy - gemm - heads - flash}
+    by = {"gemm": gemm, "heads": heads, **hand,
+          "other": busy - gemm - heads - sum(hand.values())}
     top = [{"op": e.key, "shapes": str(e.input_shapes)[:160],
             "calls": e.count, "device_us": e.self_device_time_total}
            for e in rows[:20]]
@@ -3847,6 +3900,215 @@ def phase_serve_path(dev) -> dict:
     return out
 
 
+def _pod_batches(n: int, clients: int, seed: int) -> list:
+    """``n`` pod batches of POD_CFG's tokens drawn from ``seed``, on the
+    host."""
+    rng = np.random.default_rng(seed)
+    V = POD_CFG.vocab_size
+    return [{"private_tokens": torch.from_numpy(rng.integers(
+                 0, V, (clients, POD_B, POD_SEQ)).astype(np.int32)),
+             "public_tokens": torch.from_numpy(rng.integers(
+                 0, V, (POD_B_PUB, POD_SEQ)).astype(np.int32))}
+            for _ in range(n)]
+
+
+def _pod_steps(step, state, batches, dev, what: str) -> tuple:
+    """Run ``step`` over ``batches``: (state, metrics and seconds a
+    step); every loss finite."""
+    hist, secs = [], []
+    for t, b in enumerate(batches):
+        b = {k: v.to(dev) for k, v in b.items()}
+        a = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - a)
+        m = {k: float(v) for k, v in m.items()}
+        check(all(math.isfinite(v) for v in m.values()),
+              f"pod path: {what} step {t} metrics finite ({m})")
+        hist.append(m)
+    return state, hist, secs
+
+
+def phase_pod_path(dev) -> dict:
+    """The pod path (`core.mhd_distributed`, `launch.steps`): K = 2
+    full-width, full-depth mamba2-370m clients on the paper's fused pod
+    step in an NCCL group of world size 1 (a FileStore under
+    chiprun_out/), a ("pod",) mesh of size 1 holding both: the same 2
+    top-k steps first run with no group (mesh None) from the same params,
+    and the group's params after them must equal those bitwise; then the
+    group's run goes on to POD_TOPK_STEPS top-k and POD_FULL_STEPS full
+    steps (losses finite, every client's params moved). Then
+    make_mhd_train_step on one student with Δ = 2 teachers' params (the
+    fleet's), whose params must not change. Every kernel's count is set to
+    0 by the caller just before and read just after; topk_wire, dist_ce,
+    emb_dist and ssd_scan must have launched, at shapes the kernel phases
+    held. The topk step is counted on meta for its roofline row."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import mhd_distributed as MD
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_mhd_train_step
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    store = out_dir / "pod_filestore"
+    if store.exists():
+        store.unlink()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_test_mesh((1,), ("pod",))
+        out = _pod_run(dev, mesh, MD, make_mhd_train_step)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"pod phase: {out['seconds']:.1f} s")
+    return out
+
+
+def _pod_run(dev, mesh, MD, make_mhd_train_step) -> dict:
+    bundle = build_bundle(POD_CFG)
+    opt = make_optimizer(OptimizerConfig(**POD_OPTIMIZER))
+    mhd = MHDConfig(**POD_MHD)
+    topk = MD.DistributedMHDConfig(num_clients=POD_K, exchange="topk",
+                                   topk=POD_TOPK)
+    full = dataclasses.replace(topk, exchange="full")
+    draws = [bundle.init(torch.Generator(device=dev).manual_seed(i))
+             for i in range(POD_K)]
+    stacked = {k: torch.stack([d.pop(k) for d in draws])
+               for k in list(draws[0])}
+    del draws
+    init = MD.local_params(stacked, bundle, POD_K, mesh)
+    del stacked
+    n_params = sum(v[0].numel() for v in init.values())
+    batches = _pod_batches(POD_TOPK_STEPS + POD_FULL_STEPS, POD_K, POD_SEED)
+    log(f"pod path: {POD_K} x {POD_CFG.name} ({n_params / 1e6:.1f} M params "
+        f"each, {POD_CFG.num_layers} layers), B = {POD_B} + {POD_B_PUB} "
+        f"sequences of {POD_SEQ}, one NCCL rank, mesh "
+        f"{tuple(mesh.mesh_dim_names)} {tuple(mesh.mesh.shape)}")
+    torch.cuda.reset_peak_memory_stats()
+    with KernelShapes() as shapes:
+        # (1) the same 2 top-k steps with no group
+        alone = {"params": {k: v.clone() for k, v in init.items()}}
+        alone["opt"], alone["step"] = opt.init(alone["params"]), 0
+        alone, hist0, _ = _pod_steps(
+            MD.make_distributed_mhd_step(bundle, opt, mhd, topk), alone,
+            batches[:2], dev, "no group")
+        ref = alone["params"]
+        del alone
+        # (2) the group's run: top-k steps, then full ones
+        state = {"params": {k: v.clone() for k, v in init.items()}}
+        state["opt"], state["step"] = opt.init(state["params"]), 0
+        step_topk = MD.make_distributed_mhd_step(bundle, opt, mhd, topk,
+                                                 mesh)
+        state, hist, secs = _pod_steps(step_topk, state, batches[:2], dev,
+                                       "topk")
+        same = [k for k in ref if torch.equal(ref[k], state["params"][k])]
+        check(len(same) == len(ref), f"pod path: params after 2 top-k "
+              f"steps under the NCCL group == with no group, bitwise "
+              f"({len(same)} of {len(ref)} leaves)")
+        check(hist[:2] == hist0, f"pod path: the group's metrics == no "
+              f"group's ({hist[:2]} vs {hist0})")
+        del ref
+        state, h, s = _pod_steps(step_topk, state,
+                                 batches[2:POD_TOPK_STEPS], dev, "topk")
+        hist, secs = hist + h, secs + s
+        state, h_full, s_full = _pod_steps(
+            MD.make_distributed_mhd_step(bundle, opt, mhd, full, mesh),
+            state, batches[POD_TOPK_STEPS:], dev, "full")
+        moved = []
+        for c in range(POD_K):
+            n = sum(int(not torch.equal(v[c], init[k][c]))
+                    for k, v in state["params"].items())
+            moved.append(n)
+            check(n > 0, f"pod path: client {c}'s params moved")
+        peak_pod = torch.cuda.max_memory_allocated() / 2**30
+        del init
+        # (3) make_mhd_train_step: client 0 a student of Δ = 2 teachers
+        teachers = {k: v.detach().clone() for k, v in
+                    state["params"].items()}
+        del state
+        frozen = {k: v.clone() for k, v in teachers.items()}
+        student = {k: v[0].clone() for k, v in teachers.items()}
+        st = {"params": student, "opt": opt.init(student), "step": 0}
+        start = {k: v.clone() for k, v in student.items()}
+        mhd2 = MHDConfig(**dict(POD_MHD, delta=2))
+        mstep = make_mhd_train_step(bundle, opt, mhd2)
+        m_hist, m_secs = [], []
+        for t, b in enumerate(_pod_batches(POD_MHD_STEPS, 1, POD_SEED + 1)):
+            batch = {"private_tokens": b["private_tokens"][0].to(dev),
+                     "public_tokens": b["public_tokens"].to(dev),
+                     "teacher_params": teachers}
+            a = time.perf_counter()
+            st, m = mstep(st, batch)
+            torch.cuda.synchronize()
+            m_secs.append(time.perf_counter() - a)
+            m = {k: float(v) for k, v in m.items()}
+            check(math.isfinite(m["loss"]), f"pod path: mhd_train_step "
+                  f"{t} loss finite")
+            m_hist.append(m)
+        check(all(torch.equal(teachers[k], frozen[k]) for k in frozen),
+              "pod path: the teachers' params unchanged")
+        check(any(not torch.equal(st["params"][k], start[k])
+                  for k in start), "pod path: the student's params moved")
+    counts = ops.launch_counts()
+    shapes.check("pod path")
+    for name in POD_KERNELS:
+        check(counts[name] > 0, f"pod path: kernel {name} launched "
+              f"({counts[name]})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del teachers, frozen, student, st, start
+    torch.cuda.empty_cache()
+    med = statistics.median(secs[1:]) * 1e3
+    med_full = statistics.median(s_full) * 1e3
+    log(f"pod path: top-k steps {[round(x * 1e3, 1) for x in secs]} ms "
+        f"(median after the first {med:.1f}), full steps "
+        f"{[round(x * 1e3, 1) for x in s_full]} ms; losses "
+        f"{[round(m['loss'], 4) for m in hist + h_full]}; every leaf of "
+        f"each client moved: {moved}; card memory peak {peak_pod:.1f} GiB "
+        f"(pod steps), {peak:.1f} GiB with make_mhd_train_step "
+        f"({[round(x * 1e3, 1) for x in m_secs]} ms, losses "
+        f"{[round(m['loss'], 4) for m in m_hist]}); launches {counts}")
+    row = _pod_roofline(bundle, opt, mhd, topk, MD, med, peak_pod)
+    return {"counts": counts, "step_s": secs, "full_step_s": s_full,
+            "median_ms": med, "full_median_ms": med_full,
+            "metrics": hist + h_full, "moved_leaves": moved,
+            "mhd_train_step": {"metrics": m_hist, "step_s": m_secs},
+            "params_per_client": n_params, "max_memory_gib": peak,
+            "pod_max_memory_gib": peak_pod,
+            "kernel_shapes": shapes.record(), "roofline": row}
+
+
+def _pod_roofline(bundle, opt, mhd, topk, MD, step_ms: float,
+                  max_memory_gib: float) -> dict:
+    """The top-k pod step (both clients on one rank, no group) counted on
+    meta: its roofline row against the measured median."""
+    from repro_torch.models.layers import MetaDraw
+
+    t0 = time.perf_counter()
+    p = bundle.init(MetaDraw().manual_seed(0))
+    local = MD.local_params({k: v.unsqueeze(0).expand(POD_K, *v.shape)
+                             for k, v in p.items()}, bundle, POD_K)
+    state = {"params": local, "opt": opt.init(local), "step": 0}
+    b = _pod_batches(1, POD_K, POD_SEED)[0]
+    batch = {k: torch.empty_like(v, device="meta") for k, v in b.items()}
+    args = (state, batch)
+    _, counter = op_cost.count(MD.make_distributed_mhd_step(
+        bundle, opt, mhd, topk), *args)
+    n = sum(v.numel() for v in p.values())
+    tokens = (POD_B + POD_B_PUB) * POD_SEQ
+    return roofline_row(
+        "pod", counter.to_dict(),
+        op_cost.tree_bytes(args) + counter.peak_bytes, step_ms,
+        max_memory_gib, POD_K * model_flops(POD_CFG, n, tokens, "train"),
+        {"clients": POD_K, "count_s": time.perf_counter() - t0,
+         "kernels": counter.kernels})
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -3906,10 +4168,13 @@ def main() -> int:
     xattn_path = phase_xattn_path(dev)
     torch.cuda.empty_cache()
     serve_path = phase_serve_path(dev)
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    pod_path = phase_pod_path(dev)
     paths = {"resnet": resnet, "exp": exp_path["mhd"], "fleet": fleet_path,
              "socket": socket_path, "lm": lm_path, "zamba2": zamba_path,
              "moe": moe_path, "deepseek": deepseek_path, "xattn": xattn_path,
-             "serve": serve_path}
+             "serve": serve_path, "pod": pod_path}
     for k in kernels:
         k["launches_by_path"] = {p: r["counts"][k["name"]]
                                  for p, r in paths.items()}
@@ -3919,7 +4184,7 @@ def main() -> int:
                   fleet_path=fleet_path, socket_path=socket_path,
                   lm_path=lm_path, zamba2_path=zamba_path, moe_path=moe_path,
                   deepseek_path=deepseek_path, xattn_path=xattn_path,
-                  serve_path=serve_path,
+                  serve_path=serve_path, pod_path=pod_path,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -26,25 +26,10 @@ from typing import Any, Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.common.pytree import flatten_with_paths
 from repro_torch.models.resnet import is_conv_kernel
 
 Tensor = torch.Tensor
-
-
-def flatten_with_paths(tree: Any, prefix: str = "") -> Dict[str, Any]:
-    """Nested dicts (and lists/tuples) → ``{"/"-joined path: leaf}``, with
-    dict keys sorted as `jax.tree_util` orders them."""
-    out: Dict[str, Any] = {}
-    if isinstance(tree, Mapping):
-        items = sorted(tree.items())
-    elif isinstance(tree, (list, tuple)):
-        items = list(enumerate(tree))
-    else:
-        return {prefix: tree}
-    for k, v in items:
-        key = f"{prefix}/{k}" if prefix else str(k)
-        out.update(flatten_with_paths(v, key))
-    return out
 
 
 def params_from_jax(flat: Mapping[str, np.ndarray],

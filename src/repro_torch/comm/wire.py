@@ -426,3 +426,86 @@ def dense_frame_nbytes(batch: int, num_classes: int, num_heads: int = 1,
     per_sample = num_heads * num_classes * logit_bytes
     per_sample += emb_dim * emb_bytes_per_dim + hash_bytes
     return batch * per_sample
+
+
+# ---------------------------------------------------------------------------
+# in-graph packing / sparse losses (shared with core/mhd_distributed.py)
+# ---------------------------------------------------------------------------
+
+def topk_iterative(logits: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k as k argmax-and-mask rounds, the reference's in-graph top-k:
+    each round takes the row's maximum (the lowest index on ties, as
+    ``argmax`` gives it) and masks it with -1e30. Returns (vals in the
+    logits' dtype, idx int32), each (..., k)."""
+    neg = torch.tensor(-1e30, dtype=logits.dtype, device=logits.device)
+    cur = logits
+    vals, idxs = [], []
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    for _ in range(k):
+        idx = cur.argmax(dim=-1)
+        vals.append(cur.gather(-1, idx[..., None])[..., 0])
+        idxs.append(idx.to(torch.int32))
+        cur = torch.where(cols == idx[..., None], neg, cur)
+    return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
+
+
+def topk_pack_outputs(outs: Dict[str, Any], k: int) -> Dict[str, Any]:
+    """Compress prediction tensors to (values, indices, logsumexp): the
+    main head (..., B, V) and the aux heads (..., m, B, V) as the rows of
+    one ``topk_wire`` launch (`kernels.ops.topk_wire`, `topk_iterative`'s
+    function plus the f32 lse). ``vals`` keep the logits' dtype, ``idx``
+    is int32, ``lse`` f32."""
+    from repro_torch.kernels import ops
+
+    main, aux = outs["logits"], outs["aux_logits"]
+    V = main.shape[-1]
+    heads = [main.reshape(-1, V)]
+    if aux is not None:
+        heads.append(aux.reshape(-1, V))
+    rows = torch.cat(heads) if len(heads) > 1 else heads[0]
+    vals, idx, lse = ops.topk_wire(rows.detach(), k)
+    vals = vals.to(main.dtype)
+
+    def pack(x: torch.Tensor, lo: int) -> Dict[str, torch.Tensor]:
+        n = x.numel() // V
+        lead = x.shape[:-1]
+        return {"vals": vals[lo:lo + n].reshape(*lead, k),
+                "idx": idx[lo:lo + n].reshape(*lead, k),
+                "lse": lse[lo:lo + n].reshape(lead)}
+
+    n_main = main.numel() // V
+    return {"embedding": outs["embedding"],
+            "logits": pack(main, 0),
+            "aux_logits": None if aux is None else pack(aux, n_main)}
+
+
+def sparse_xent_and_conf(student_logits: torch.Tensor,
+                         packed: Dict[str, torch.Tensor]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CE(student, sparse teacher) and the exact teacher confidence, in
+    plain ops as the reference writes them: the teacher's p over its
+    retained ids is exp(vals − lse) (the mass beyond k dropped, the wire
+    format's approximation), the student's log-probs gathered at them;
+    Λ = p of the top-1 entry."""
+    logp = torch.log_softmax(student_logits.float(), dim=-1)
+    p = torch.exp(packed["vals"].float() - packed["lse"][..., None])
+    logp_at = logp.gather(-1, packed["idx"].long())
+    ce = -(p * logp_at).sum(dim=-1)
+    return ce, p[..., 0]
+
+
+def dense_xent_and_conf(student_logits: torch.Tensor,
+                        teacher_logits: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(−Σ softmax(t)·log softmax(s), max softmax(t)) a row, on the
+    ``dist_ce`` kernel (`kernels.ops.dist_ce`): its ce is
+    lse(s) − Σ softmax(t)·s, the same function, differentiable in the
+    student only; the teacher is a constant."""
+    from repro_torch.kernels import ops
+
+    V = student_logits.shape[-1]
+    lead = student_logits.shape[:-1]
+    ce, t_conf, _ = ops.dist_ce(student_logits.reshape(-1, V),
+                                teacher_logits.detach().reshape(-1, V))
+    return ce.reshape(lead), t_conf.reshape(lead)

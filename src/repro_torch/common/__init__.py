@@ -1,2 +1,4 @@
-"""Framework-free helpers shared by the port (copies of ``repro/common``'s
-numpy-free modules)."""
+"""Framework-free helpers shared by the port (port of ``repro.common``):
+`pytree` (leafwise arithmetic over flat param dicts), `dtypes`
+(`DtypePolicy`), `registry`, and `sharding` (the logical roles and the
+active mesh that the multi-device modules read)."""

@@ -1,0 +1,400 @@
+"""Multi-pod MHD: the paper's fused pod step, clients mapped to the 'pod'
+mesh axis (port of ``repro/core/mhd_distributed.py``).
+
+K clients co-train. The reference stacks them along a leading client dim
+sharded over 'pod' and lets XLA partition each within its pod. In the
+port every rank runs its own block of the fleet: the K clients split
+into contiguous blocks over the pod ranks, a rank holding its clients'
+params stacked (K/|pod|, …). Within a pod the batch splits over the pod's
+ranks (every axis but 'pod', in the mesh's order: 'data', and 'model'
+where the expert-parallel MoE runs — the reference's token axes), and the
+dense gradients are averaged over them.
+
+Every step each client scores the shared public batch; teacher
+predictions move between pods along the bus adjacency (``adj[i]`` names
+client i's in-neighbor, `DistributedMHDConfig.neighbors`; None = the
+1-hop ring). A pack whose student lives on its own rank moves locally
+(at one pod rank, the reference's ``jnp.roll`` / ``jnp.take``); the
+others cross in one ``all_to_all_single`` a leaf with split sizes only
+to the partners, booked as the reference books its ring exchange,
+``collective-permute`` (`roofline.op_cost.collective_kind`).
+
+Wire formats:
+  * ``exchange="full"`` — full-vocab teacher logits (+ embeddings);
+  * ``exchange="topk"`` — the top-k logits + indices + the teacher's
+    logsumexp (+ the embedding), packed by the ``topk_wire`` kernel
+    (`comm.wire.topk_pack_outputs`); Λ stays exact, CE against the
+    truncated teacher drops the mass beyond k.
+
+The loss is the reference's mean over the K clients: a rank's loss is the
+sum of its clients' terms over the global K, the reported loss and
+metrics are all-reduced. The reference's `_topk_2stage` (a two-stage
+top-k for XLA's sort) has no caller there and is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.comm.wire import (dense_xent_and_conf, sparse_xent_and_conf,
+                                   topk_pack_outputs)
+from repro_torch.common.sharding import (axis_index, group_of,
+                                         mesh_axis_sizes, use_mesh)
+from repro_torch.core.lm_adapter import lm_mhd_outputs
+from repro_torch.core.mhd import MHDConfig, embedding_distillation_loss
+from repro_torch.launch.shardings import expert_specs, shard_params
+from repro_torch.models import transformer as TF
+from repro_torch.models.layers import MetaDraw
+from repro_torch.models.zoo import ModelBundle
+from repro_torch.roofline import op_cost
+
+Tensor = torch.Tensor
+POD = "pod"
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedMHDConfig:
+    """Pod-fleet shape + wire format.
+
+    ``neighbors`` is the bus-style adjacency (``adj[i]`` = client i's
+    in-neighbors, the same contract as `PredictionBus.graph_fn`'s output)
+    restricted to exactly one teacher per client — the pod runtime is the
+    Δ=1 fused path. ``None`` keeps the 1-hop ring (client i distills from
+    client i-1 mod K)."""
+
+    num_clients: int = 2  # = number of pods
+    exchange: str = "full"  # "full" | "topk"
+    topk: int = 32
+    max_public_positions: int = 0  # cap distilled positions (0 = all)
+    neighbors: Optional[Tuple[Tuple[int, ...], ...]] = None
+
+
+def _teacher_sources(dist_cfg: DistributedMHDConfig) -> List[int]:
+    """Resolve the adjacency to ``src[i]`` = the client whose prediction
+    client i distills from, validating the Δ=1 contract."""
+    K = dist_cfg.num_clients
+    if dist_cfg.neighbors is None:
+        return [(i - 1) % K for i in range(K)]
+    if len(dist_cfg.neighbors) != K:
+        raise ValueError(
+            f"{len(dist_cfg.neighbors)} neighbor rows for {K} clients")
+    srcs = []
+    for i, nbrs in enumerate(dist_cfg.neighbors):
+        if len(nbrs) != 1:
+            raise ValueError(
+                f"client {i} has {len(nbrs)} in-neighbors; the pod "
+                "runtime is the fused Δ=1 path — exactly one teacher "
+                "per client (use the host-loop runtime for wider "
+                "distillation neighborhoods)")
+        j = int(nbrs[0])
+        if not 0 <= j < K or j == i:
+            raise ValueError(f"client {i} names teacher {j}, not a "
+                             f"distinct client in [0, {K})")
+        srcs.append(j)
+    return srcs
+
+
+# ---------------------------------------------------------------------------
+# the fleet's layout on the mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PodLayout:
+    """Where this rank sits: its pod (``pod`` of ``n_pods``), its clients
+    ``clients`` (a contiguous block of the K), and its block ``shard`` of
+    the ``n_shards`` token shards of its pod over the axes ``inner``."""
+
+    num_clients: int
+    n_pods: int
+    pod: int
+    inner: Tuple[str, ...]
+    n_shards: int
+    shard: int
+
+    @property
+    def per_pod(self) -> int:
+        return self.num_clients // self.n_pods
+
+    @property
+    def clients(self) -> range:
+        return range(self.pod * self.per_pod, (self.pod + 1) * self.per_pod)
+
+    def owner(self, client: int) -> int:
+        return client // self.per_pod
+
+
+def pod_layout(num_clients: int, mesh=None) -> PodLayout:
+    """The layout of ``num_clients`` clients on ``mesh`` (None: one rank
+    holding them all)."""
+    sizes = mesh_axis_sizes(mesh) if mesh is not None else {}
+    n_pods = sizes.get(POD, 1)
+    if num_clients % n_pods:
+        raise ValueError(f"{num_clients} clients do not split into "
+                         f"{n_pods} pods")
+    inner = tuple(a for a in sizes if a != POD)
+    return PodLayout(
+        num_clients, n_pods,
+        int(mesh.get_local_rank(POD)) if POD in sizes else 0, inner,
+        math.prod(sizes[a] for a in inner),
+        axis_index(mesh, inner) if inner else 0)
+
+
+def local_params(stacked: Dict[str, Tensor], bundle: ModelBundle,
+                 num_clients: int, mesh=None) -> Dict[str, Tensor]:
+    """This rank's block of the client-stacked params (K, …): its clients'
+    rows, and for the expert-parallel MoE its expert shards
+    (`launch.shardings.expert_specs` on its pod's axes)."""
+    lay = pod_layout(num_clients, mesh)
+    rows = slice(lay.clients.start, lay.clients.stop)
+    out = {k: v[rows] for k, v in stacked.items()}
+    if lay.inner:
+        sizes = mesh_axis_sizes(mesh, lay.inner)
+        specs = expert_specs(_meta_params(bundle), bundle.config, sizes)
+        coords = {a: int(mesh.get_local_rank(a)) for a in lay.inner}
+        out = shard_params(out, specs, sizes, coords, lead=1)
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def _meta_params(bundle: ModelBundle) -> Dict[str, Tensor]:
+    return bundle.init(MetaDraw().manual_seed(0))
+
+
+# ---------------------------------------------------------------------------
+# the teacher exchange
+# ---------------------------------------------------------------------------
+
+def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Tensor]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        elif v is not None:
+            out[prefix + k] = v
+    return out
+
+
+def _unflat(flat: Dict[str, Tensor], like: Dict[str, Any],
+            prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in like.items():
+        if isinstance(v, dict):
+            out[k] = _unflat(flat, v, f"{prefix}{k}/")
+        else:
+            out[k] = None if v is None else flat[prefix + k]
+    return out
+
+
+def exchange_teachers(packs: Sequence[Dict[str, Any]],
+                      dist_cfg: DistributedMHDConfig, lay: PodLayout,
+                      group=None) -> List[Dict[str, Any]]:
+    """Each local student's teacher pack, from ``packs`` (this rank's
+    clients' packs, in client order): local ones by reference, the rest
+    in one ``all_to_all_single`` a leaf over ``group`` (the pod axis's),
+    each rank sending only to the ranks whose students its clients
+    teach."""
+    srcs = _teacher_sources(dist_cfg)
+    K = dist_cfg.num_clients
+    if lay.n_pods == 1:
+        # the reference's jnp.roll (a ring) / jnp.take along the clients
+        return [packs[srcs[i]] for i in range(K)]
+    base = lay.clients.start
+    # sends: to each other pod, its students' teachers held here, in
+    # student order; receives: the teachers of this pod's students held
+    # elsewhere, by source pod, then student order
+    sends = {p: [srcs[i] - base for i in range(p * lay.per_pod,
+                                               (p + 1) * lay.per_pod)
+                 if lay.owner(srcs[i]) == lay.pod]
+             for p in range(lay.n_pods) if p != lay.pod}
+    remote = [i for i in lay.clients if lay.owner(srcs[i]) != lay.pod]
+    order = sorted(remote, key=lambda i: (lay.owner(srcs[i]), i))
+    in_split = [len(sends.get(p, ())) for p in range(lay.n_pods)]
+    out_split = [sum(1 for i in remote if lay.owner(srcs[i]) == p)
+                 for p in range(lay.n_pods)]
+    flats = [_flat(p) for p in packs]
+    received: Dict[str, Tensor] = {}
+    with op_cost.collective_kind("collective-permute"):
+        for key, ref in flats[0].items():
+            rows = [flats[j][key] for p in range(lay.n_pods)
+                    for j in sends.get(p, ())]
+            inp = (torch.stack(rows) if rows else
+                   ref.new_empty((0, *ref.shape))).contiguous()
+            out = ref.new_empty((len(order), *ref.shape))
+            dist.all_to_all_single(out, inp, output_split_sizes=out_split,
+                                   input_split_sizes=in_split, group=group)
+            received[key] = out
+    teachers = []
+    for i in lay.clients:
+        if lay.owner(srcs[i]) == lay.pod:
+            teachers.append(packs[srcs[i] - base])
+        else:
+            j = order.index(i)
+            teachers.append(_unflat({k: v[j] for k, v in received.items()},
+                                    packs[0]))
+    return teachers
+
+
+# ---------------------------------------------------------------------------
+# the loss
+# ---------------------------------------------------------------------------
+
+def _distill_loss_one_client(student: Dict[str, Any],
+                             teacher: Dict[str, Any], mhd: MHDConfig,
+                             exchange: str) -> Tensor:
+    """Eqs. (2),(4),(5) against ONE ring teacher (Δ=1 in the pod runtime).
+
+    student: dense outputs; teacher: dense or top-k-packed, constants.
+    Eq. 4's gate takes the teacher where its confidence is at least the
+    self candidate's (ties go to the teacher)."""
+    total = torch.zeros((), dtype=torch.float32,
+                        device=student["logits"].device)
+    emb = embedding_distillation_loss(
+        student["embedding"], teacher["embedding"][None], mhd.nu_emb)
+    for k in range(1, mhd.num_aux_heads + 1):
+        student_head = student["aux_logits"][k - 1]
+        self_src = (student["logits"] if k == 1
+                    else student["aux_logits"][k - 2]).detach()
+        if exchange == "topk":
+            t_pack = (teacher["logits"] if k == 1 else
+                      {n: v[k - 2] for n, v in teacher["aux_logits"].items()})
+            ce_t, conf_t = sparse_xent_and_conf(student_head, t_pack)
+        else:
+            t_logits = (teacher["logits"] if k == 1
+                        else teacher["aux_logits"][k - 2])
+            ce_t, conf_t = dense_xent_and_conf(student_head, t_logits)
+        ce_s, conf_s = dense_xent_and_conf(student_head, self_src)
+        use_teacher = conf_t >= conf_s  # Eq. 4 argmax over {teacher, self}
+        total = total + torch.where(use_teacher, ce_t, ce_s).mean()
+    return mhd.nu_aux * total + emb
+
+
+def _private_ce(bundle: ModelBundle, params, tokens: Tensor
+                ) -> Tuple[Tensor, Tensor]:
+    """(the next-token CE of the private batch, its MoE aux loss): the
+    main head's logits at the B·(T−1) positions, cast to bf16 as
+    `lm_mhd_outputs` gives them, their log-softmax in f32 (the aux heads,
+    which nothing here reads, are not formed)."""
+    skip_mtp = {"mtp": False} if getattr(bundle.config, "mtp", False) else {}
+    out = bundle.apply(params, {"tokens": tokens}, logits=False, **skip_mtp)
+    logits = TF.head_logits(params, bundle.config, out["hidden"][:, :-1])
+    logp = torch.log_softmax(logits.to(torch.bfloat16).float(), dim=-1)
+    ll = logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    return -ll.mean(), out["aux_loss"]
+
+
+def _stack_grads(grads: List[Dict[str, Tensor]]) -> Dict[str, Tensor]:
+    out = {}
+    for k in list(grads[0]):
+        out[k] = torch.stack([g.pop(k) for g in grads])
+    return out
+
+
+def make_distributed_mhd_step(bundle: ModelBundle, optimizer,
+                              mhd: MHDConfig,
+                              dist_cfg: DistributedMHDConfig, mesh=None):
+    """Returns train_step(state, batch) for this rank's block of the fleet.
+
+    state["params"]: this rank's clients' params stacked (K/|pod|, …)
+    (`local_params`); state["opt"] its optimizer state, state["step"] an
+    int. batch: the fleet's {"private_tokens": (K, B, T), "public_tokens":
+    (B_pub, T)}, the same on every rank: a rank takes its clients' rows
+    and its token shard. ``mesh`` is a DeviceMesh with a 'pod' axis and
+    any of 'data', 'model' (None: one rank, no process group). The step
+    consumes ``state``, as `launch.steps.make_train_step` does.
+    """
+    K = dist_cfg.num_clients
+    _teacher_sources(dist_cfg)
+    if dist_cfg.exchange not in ("full", "topk"):
+        raise ValueError(f"exchange {dist_cfg.exchange!r}")
+    lay = pod_layout(K, mesh)
+    Q = lay.n_shards
+    if dist_cfg.max_public_positions and Q > 1:
+        raise ValueError("max_public_positions keeps the first positions "
+                         "of the whole public batch; it needs one token "
+                         "shard a pod")
+    pod_group = mesh.get_group(POD) if lay.n_pods > 1 else None
+    sizes = mesh_axis_sizes(mesh, lay.inner) if lay.inner else {}
+    specs = expert_specs(_meta_params(bundle), bundle.config,
+                         sizes) if lay.inner else {}
+
+    def replicas(name: str) -> Tuple[str, ...]:
+        """The pod axes along which the leaf's block repeats."""
+        used = {a for e in specs.get(name, ()) if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+        return tuple(a for a in lay.inner
+                     if a not in used and sizes[a] > 1)
+
+    def shard_rows(x: Tensor, n: int) -> Tensor:
+        if x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                             f"over the pod's {n} ranks")
+        size = x.shape[0] // n
+        return x[lay.shard * size:(lay.shard + 1) * size]
+
+    def step(state: Dict[str, Any], batch: Dict[str, Tensor]):
+        priv_all = batch["private_tokens"][lay.clients.start:
+                                           lay.clients.stop]
+        pub = shard_rows(batch["public_tokens"], Q)
+        n_local = len(lay.clients)
+        leaves = [{k: v[j].detach().requires_grad_()
+                   for k, v in state["params"].items()}
+                  for j in range(n_local)]
+        ce, pub_outs, aux = [], [], []
+        with use_mesh(mesh, lay.inner) if lay.inner else use_mesh(None):
+            for j in range(n_local):
+                ce_j, priv_aux = _private_ce(
+                    bundle, leaves[j], shard_rows(priv_all[j], Q))
+                out = lm_mhd_outputs(bundle, leaves[j], {"tokens": pub},
+                                     max_positions=
+                                     dist_cfg.max_public_positions)
+                ce.append(ce_j)
+                pub_outs.append({"embedding": out["embedding"],
+                                 "logits": out["logits"],
+                                 "aux_logits": out["aux_logits"]})
+                aux.append(out["aux_loss"] + priv_aux)
+        # stop-grad BEFORE packing: the top-k must not be differentiated
+        # (it only feeds the frozen teacher side)
+        frozen = [{k: (None if v is None else v.detach())
+                   for k, v in o.items()} for o in pub_outs]
+        wire = ([topk_pack_outputs(f, dist_cfg.topk) for f in frozen]
+                if dist_cfg.exchange == "topk" else frozen)
+        teachers = exchange_teachers(wire, dist_cfg, lay, pod_group)
+        dist_loss = [_distill_loss_one_client(s, t, mhd, dist_cfg.exchange)
+                     for s, t in zip(pub_outs, teachers)]
+        ce_sum, dist_sum = sum(ce) / K, sum(dist_loss) / K
+        loss = ce_sum + dist_sum + sum(aux) / K
+        flat = [v for lv in leaves for v in lv.values()]
+        grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                    materialize_grads=True)
+        names = list(leaves[0])
+        per_client = [dict(zip(names, grads[j * len(names):
+                                            (j + 1) * len(names)]))
+                      for j in range(n_local)]
+        metrics = torch.stack([loss.detach(), ce_sum.detach(),
+                               dist_sum.detach()])
+        del loss, ce, pub_outs, aux, frozen, wire, teachers, dist_loss
+        del leaves, flat, grads
+        grads = _stack_grads(per_client)
+        if Q > 1:
+            # the pod's objective is the mean of its ranks' losses: a leaf's
+            # gradient is summed over the ranks holding the same block of
+            # it (every rank for a whole leaf; the collectives inside the
+            # a2a MoE have summed an expert shard's), then divided by Q
+            for k, g in grads.items():
+                rest = replicas(k)
+                if rest:
+                    dist.all_reduce(g, group=group_of(mesh, rest))
+                g.div_(Q)
+        if mesh is not None:
+            dist.all_reduce(metrics)
+            metrics = metrics / Q
+        params, opt = optimizer.update(grads, state["opt"], state["params"],
+                                       state["step"])
+        new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
+        return new_state, {"loss": metrics[0], "ce": metrics[1],
+                           "dist": metrics[2]}
+
+    return step

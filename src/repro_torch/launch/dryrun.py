@@ -7,13 +7,19 @@ step on the ``meta`` device (`roofline.op_cost`): the train state and the
 inputs are meta tensors, so nothing is allocated and the step never runs;
 the counter sees every operation the card would launch, each hand kernel
 as one entry of its own cost. It needs no card and sets no environment.
-The mesh is one card (``"1"``); the reference's multi-pod meshes, its
-``--both-meshes`` and its MHD step are the multi-device slice (ROADMAP
-Queue 1 item 15b) and raise.
+The mesh is one card (``"1"``). ``--step mhd`` counts the paper's pod
+step (`dryrun_mhd`): rank 0 of two pods, each a client, under a fake
+process group of world size 2 (``torch.distributed``'s ``fake`` backend:
+every collective returns at once, on meta tensors too), its teacher
+exchange booked as the reference's ``collective-permute``. The
+reference's multi-pod meshes and ``--both-meshes`` partition the dense
+layers within a pod (tensor parallelism and FSDP), which is ROADMAP
+Queue 1 item 15c; they raise.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-12b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out artifacts/dryrun_torch]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --step mhd --exchange topk
 
 Per run: the step counted in the reference's dtype choices (a bf16 bundle;
 ``sgd_momentum`` with bf16 state for ``train``), its FLOPs by type, bytes,
@@ -24,13 +30,15 @@ end.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.pytree import tree_size
 from repro_torch.configs import arch_ids, get_config
@@ -51,8 +59,9 @@ from repro_torch.roofline.analysis import (
 from repro_torch.roofline.op_cost import OpCounter, tree_bytes
 
 MESH, CHIPS = "1", 1
-_ITEM_15B = ("the multi-device dry run (multi-pod meshes, the MHD pod-"
-             "exchange step) is ROADMAP Queue 1 item 15b")
+MHD_PODS, MHD_PUBLIC = 2, 16
+_ITEM_15C = ("the multi-pod meshes partition the dense layers within a pod "
+             "(tensor parallelism and FSDP): ROADMAP Queue 1 item 15c")
 
 
 def _memory_dict(args_bytes: int, out_bytes: int, peak: int
@@ -72,7 +81,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                verbose: bool = True) -> Dict[str, Any]:
     """Count one (arch, shape) step on one card and return the record."""
     if multi_pod:
-        raise NotImplementedError(_ITEM_15B)
+        raise NotImplementedError(_ITEM_15C)
     cfg = get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -141,6 +150,100 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     return record
 
 
+@contextlib.contextmanager
+def fake_group(world: int) -> Iterator[None]:
+    """A ``fake`` process group of ``world`` ranks with this process as
+    rank 0, torn down after."""
+    # registers the fake backend's process-group creator
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_mhd(arch: str, shape_name: str = "train_4k", *,
+               exchange: str = "full", topk: int = 32,
+               overrides: Optional[Dict[str, Any]] = None,
+               verbose: bool = True) -> Dict[str, Any]:
+    """Count the PAPER-TECHNIQUE step: 2 MHD clients on 2 pods, teacher
+    predictions exchanged between them (`core.mhd_distributed`), as rank 0
+    sees it under a fake group of world size 2. exchange="full" ships
+    full-vocab logits; "topk" the sparsified wire format. The reference's
+    defaults: a bf16 bundle, sgd_momentum with bf16 state, B = global
+    batch / K private and 16 public sequences a step."""
+    from repro_torch.core.mhd import MHDConfig
+    from repro_torch.core.mhd_distributed import (DistributedMHDConfig,
+                                                  local_params,
+                                                  make_distributed_mhd_step)
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    shape = INPUT_SHAPES[shape_name]
+    K = MHD_PODS
+    bundle = build_bundle(cfg, dtype=torch.bfloat16)
+    mhd = MHDConfig(nu_emb=1.0, nu_aux=3.0,
+                    num_aux_heads=cfg.num_aux_heads, delta=1)
+    dcfg = DistributedMHDConfig(num_clients=K, exchange=exchange, topk=topk)
+    opt = make_optimizer(OptimizerConfig(
+        name="sgd_momentum", init_lr=0.1, total_steps=60_000,
+        state_dtype="bfloat16"))
+    record: Dict[str, Any] = {
+        "arch": arch, "shape": shape_name, "mesh": f"{K}-mhd", "chips": K,
+        "mode": "mhd_train", "exchange": exchange, "topk": topk,
+        "tokens": shape.global_batch * shape.seq_len,
+    }
+    t0 = time.time()
+    B, T = shape.global_batch // K, shape.seq_len
+    params = bundle.init(MetaDraw().manual_seed(0))
+    batch = {"private_tokens": torch.empty((K, B, T), dtype=torch.int32,
+                                           device="meta"),
+             "public_tokens": torch.empty((MHD_PUBLIC, T), dtype=torch.int32,
+                                          device="meta")}
+    with fake_group(K):
+        mesh = make_mesh((K,), ("pod",), device_type="cpu")
+        stacked = {k: v.unsqueeze(0).expand(K, *v.shape)
+                   for k, v in params.items()}
+        local = local_params(stacked, bundle, K, mesh)
+        state = {"params": local, "opt": opt.init(local), "step": 0}
+        step = make_distributed_mhd_step(bundle, opt, mhd, dcfg, mesh)
+        args = (state, batch)
+        lower_s = time.time() - t0
+        args_bytes = tree_bytes(args)
+        t1 = time.time()
+        with OpCounter(args=args) as counter:
+            out = step(*args)
+        count_s = time.time() - t1
+    cost = counter.to_dict()
+    record.update({
+        "status": "ok",
+        "lower_s": round(lower_s, 2),
+        "compile_s": round(count_s, 2),
+        "num_params": int(tree_size(params) * K),
+        "memory": _memory_dict(args_bytes, tree_bytes(out),
+                               counter.peak_bytes),
+        "collective_bytes_raw": {**counter.coll,
+                                 "total": cost["collective_total"]},
+        "hlo_cost": cost,
+        "kernels": counter.kernels,
+        "ops": counter.ops,
+    })
+    if verbose:
+        print(f"[OK] MHD({exchange}) {arch} × {shape_name} × {K}-mhd "
+              f"(count {count_s:.1f}s)")
+        print(f"  memory: {record['memory']}")
+        print(f"  counted/device: flops={cost['flops']:.3e} "
+              f"bytes={cost['bytes']:.3e} "
+              f"coll={cost['collective_total']:.3e} "
+              f"({record['collective_bytes_raw']})")
+    return record
+
+
 def report(rec: Dict[str, Any]):
     """The record's `RooflineReport` on the default card (the H100)."""
     cfg = get_config(rec["arch"])
@@ -161,11 +264,22 @@ def main(argv=None) -> int:
     p.add_argument("--both-meshes", action="store_true")
     p.add_argument("--out", default="artifacts/dryrun_torch")
     p.add_argument("--step", default="auto", choices=["auto", "mhd"],
-                   help="'mhd' counts the 2-client pod-exchange step")
+                   help="'mhd' counts the 2-client pod-exchange step "
+                        "(--arch defaults to gemma3-12b, --shape to "
+                        "train_4k)")
     p.add_argument("--exchange", default="full", choices=["full", "topk"])
     args = p.parse_args(argv)
-    if args.step == "mhd" or args.multi_pod or args.both_meshes:
-        raise NotImplementedError(_ITEM_15B)
+    if args.multi_pod or args.both_meshes:
+        raise NotImplementedError(_ITEM_15C)
+    if args.step == "mhd":
+        os.makedirs(args.out, exist_ok=True)
+        arch = args.arch or "gemma3-12b"
+        shape_name = args.shape or "train_4k"
+        tag = f"mhd_{args.exchange}__{arch}__{shape_name}".replace("/", "_")
+        rec = dryrun_mhd(arch, shape_name, exchange=args.exchange)
+        with open(os.path.join(args.out, tag + ".json"), "w") as f:
+            json.dump(rec, f, indent=2)
+        return 0
 
     os.makedirs(args.out, exist_ok=True)
     archs = arch_ids() if (args.all or not args.arch) else [args.arch]

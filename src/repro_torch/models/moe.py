@@ -22,9 +22,10 @@ own, as the reference's decode does under ``vmap`` over the engine's
 slots: a row's capacity counts its own T tokens, and its pairs fill slots
 of its own, so no row can push another's pair out.
 
-The reference's expert-parallel all-to-all form (``moe_a2a.py``) falls
-back to this scatter form without a ``model`` mesh axis, and so does the
-port's ``moe_impl="a2a"``: one card holds every expert.
+``moe_impl="a2a"`` runs the expert-parallel all-to-all form
+(`moe_a2a.moe_apply_a2a`, over the active mesh's ``model`` axis), which
+takes this scatter form where the reference does: with no mesh (one card
+holding every expert), or no ``model`` axis that divides E.
 """
 from __future__ import annotations
 

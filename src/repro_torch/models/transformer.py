@@ -63,8 +63,10 @@ The reference's ``apply_lm`` always computes the MTP branch and its
 eagerly, so ``apply_lm(..., mtp=False)`` leaves it out, and the MTP
 leaves get zero gradients there as in the reference.
 
-``moe_impl="a2a"`` runs the scatter form, as the reference does without a
-``model`` mesh axis; the expert-parallel form is item 15.
+``moe_impl="a2a"`` runs `moe_a2a.moe_apply_a2a`: the expert-parallel
+all-to-all over the active mesh's ``model`` axis
+(`common.sharding.use_mesh`), the scatter form where the reference takes
+it (no mesh, or no ``model`` axis that divides E).
 ``attn_logit_softcap`` raises NotImplementedError naming the ROADMAP item
 that ports it.
 """
@@ -80,6 +82,7 @@ from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import moe_a2a as MOEA2A
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import LayerSpec, ModelConfig, Stage
 
@@ -290,8 +293,10 @@ def _layer_forward(lp: Params, cfg: ModelConfig, spec: LayerSpec,
         x = x + L.mlp_apply(_sub(lp, "ffn"), h, cfg.act)
     elif spec.ffn in ("moe", "moe_dense_parallel"):
         h = L.norm_apply(_sub(lp, "ffn_norm"), x, cfg.norm)
-        y, moe_aux = MOE.moe_apply(_sub(lp, "ffn"), h, cfg.moe, cfg.act,
-                                   scoring=cfg.moe_scoring)
+        moe_fn = MOEA2A.moe_apply_a2a if cfg.moe_impl == "a2a" \
+            else MOE.moe_apply
+        y, moe_aux = moe_fn(_sub(lp, "ffn"), h, cfg.moe, cfg.act,
+                            scoring=cfg.moe_scoring)
         if spec.ffn == "moe_dense_parallel":
             y = y + L.mlp_apply(_sub(lp, "ffn_dense"), h, cfg.act)
         x = x + y

@@ -26,7 +26,7 @@ class HardwareSpec:
     name: str = "h100-sxm-80gb-hbm3"
     peak_flops: float = 67e12  # f32 FLOP/s, no tensor cores
     hbm_bw: float = 3.35e12  # bytes/s
-    ici_bw: float = 450e9  # bytes/s a direction, NVLink 4 (item 15b)
+    ici_bw: float = 450e9  # bytes/s a direction, NVLink 4
     hbm_bytes: float = 80e9
     peak_tf32: float = 495e12  # TF32 tensor-core FLOP/s
     peak_bf16: float = 989e12  # bf16 tensor-core FLOP/s

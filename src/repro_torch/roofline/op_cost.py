@@ -32,8 +32,9 @@ on the card or the CPU it counts the same step the same way.
     tracked until a weakref finalizer sees it freed): the counterpart of
     ``compiled.memory_analysis()``'s ``temp_size_in_bytes``. What the step
     is given (params, optimizer state, batch) is its argument bytes.
-  * Collectives: ``torch.distributed`` operations, by kind, as collective
-    bytes (none at world size 1).
+  * Collectives: ``torch.distributed`` operations, by kind, as the bytes
+    of their operands (what a rank sends; the reference's rule); under
+    `collective_kind` as the kind it names.
 
 ``to_dict()`` gives the reference's ``analyze_to_dict`` keys (``flops``,
 ``bytes``, ``collective_total``, ``collective_<kind>``) with the typed
@@ -85,7 +86,15 @@ _COLLECTIVES = {
     "broadcast_": "broadcast",
 }
 
+# c10d operations whose first argument is their output: the reference
+# books a collective's operand bytes, here the second argument's
+_OUTPUT_FIRST = {"alltoall_base_", "alltoall_", "_allgather_base_",
+                 "allgather_", "allgather_into_tensor_coalesced_",
+                 "allgather_coalesced_", "_reduce_scatter_base_",
+                 "reduce_scatter_", "reduce_scatter_tensor_coalesced_"}
+
 _ACTIVE: List["OpCounter"] = []
+_KIND: List[str] = []
 
 
 def tensor_bytes(t: Any) -> int:
@@ -151,9 +160,11 @@ class OpCounter(TorchDispatchMode):
         packet = func._overloadpacket
         ns = packet._qualified_op_name.split("::")[0]
         if ns in ("c10d", "_c10d_functional"):
-            kind = _COLLECTIVES.get(packet.__name__, packet.__name__)
+            name = packet.__name__
+            kind = _KIND[-1] if _KIND else _COLLECTIVES.get(name, name)
+            operands = args[1] if name in _OUTPUT_FIRST else args[0]
             self.coll[kind] = self.coll.get(kind, 0.0) + sum(
-                tensor_bytes(t) for t in ins)
+                tensor_bytes(t) for t in _tensors(operands))
             return
         if packet in flop_registry:
             kind = flop_type(ins[0].dtype) if ins else "f32"
@@ -244,6 +255,17 @@ def kernel(name: str, cost: Tuple[Dict[str, float], float]) -> Iterator[None]:
         c._muted -= 1
 
 
+@contextlib.contextmanager
+def collective_kind(kind: str) -> Iterator[None]:
+    """Book every collective run inside as ``kind`` (the ring exchange's
+    ``all_to_all_single`` as the reference's ``collective-permute``)."""
+    _KIND.append(kind)
+    try:
+        yield
+    finally:
+        _KIND.pop()
+
+
 def count(fn, *args, **kwargs) -> Tuple[Any, OpCounter]:
     """(fn(*args, **kwargs), the counter it ran under); the arguments'
     storages are not the step's memory."""
@@ -265,5 +287,6 @@ def tree_bytes(tree) -> int:
     return total
 
 
-__all__ = ["FLOP_TYPES", "OpCounter", "active", "count", "flop_type",
+__all__ = ["FLOP_TYPES", "OpCounter", "active", "collective_kind", "count",
+           "flop_type",
            "kernel", "tensor_bytes", "tree_bytes"]

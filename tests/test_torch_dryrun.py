@@ -10,7 +10,10 @@
     finite count, or the reference's skip reason. It needs no card and
     allocates nothing (the meta device). The reference's
     ``repro.launch.dryrun`` is not imported: it sets ``XLA_FLAGS`` when
-    imported.
+    imported;
+  * ``main``: a record; ``--step mhd`` for both exchanges, whose booked
+    exchange bytes equal their closed form; the multi-pod modes raising
+    naming item 15c.
 """
 import dataclasses
 import json
@@ -30,6 +33,7 @@ from repro_torch.configs import shapes as TS
 from repro_torch.launch import dryrun as DR
 from repro_torch.launch.steps import train_state_shapes
 from repro_torch.models import build_bundle
+from repro_torch.models.layers import MetaDraw
 from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
 
 test_torch_threads.share_cores()
@@ -150,14 +154,62 @@ def test_dryrun_one_counts_or_skips_as_the_reference(arch, shape):
     json.dumps(rec)
 
 
-def test_main_writes_a_record_and_refuses_the_multi_device_modes(tmp_path):
-    assert DR.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
-                    "--out", str(tmp_path)]) == 0
-    rec = json.loads((tmp_path / "mamba2-370m__decode_32k__1.json")
-                     .read_text())
-    assert rec["status"] == "ok" and rec["mode"] == "decode"
-    for argv in (["--multi-pod"], ["--both-meshes"], ["--step", "mhd"]):
-        with pytest.raises(NotImplementedError, match="item 15b"):
-            DR.main(argv + ["--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        DR.dryrun_one("mamba2-370m", "train_4k", multi_pod=True)
+def _exchange_bytes(cfg, exchange: str, k: int = 32) -> int:
+    """The bytes rank 0 sends its partner in one pod step, in closed
+    form: the public batch's B_pub·(T−1) rows of every head (main + aux)
+    as bf16 logits, or their top-k values (bf16) and indices (int32) with
+    an f32 lse a row and head; plus the rows' bf16 embeddings."""
+    T = TS.INPUT_SHAPES["train_4k"].seq_len
+    rows, heads = DR.MHD_PUBLIC * (T - 1), 1 + cfg.num_aux_heads
+    emb = rows * cfg.d_model * 2
+    if exchange == "full":
+        return rows * cfg.vocab_size * heads * 2 + emb
+    return rows * k * (2 + 4) * heads + rows * heads * 4 + emb
+
+
+@pytest.mark.parametrize("mode", ["record", "mhd", "multi_device"])
+def test_main_writes_a_record_and_refuses_the_multi_device_modes(
+        mode, tmp_path, monkeypatch):
+    """``main`` writes a record; ``--step mhd`` writes one for each
+    exchange, gemma3-12b cut in depth (the exchange does not depend on
+    it), whose booked collective-permute bytes are the closed form and
+    ``topk``'s the smaller; ``--multi-pod`` / ``--both-meshes`` /
+    ``dryrun_one(multi_pod=True)`` raise naming item 15c."""
+    if mode == "record":
+        assert DR.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
+                        "--out", str(tmp_path)]) == 0
+        rec = json.loads((tmp_path / "mamba2-370m__decode_32k__1.json")
+                         .read_text())
+        assert rec["status"] == "ok" and rec["mode"] == "decode"
+    elif mode == "mhd":
+        cut = dataclasses.replace(get_config("gemma3-12b"),
+                                  **depth_cut("gemma3-12b"))
+        monkeypatch.setattr(DR, "get_config", lambda arch: cut)
+        sent = {}
+        for exchange in ("full", "topk"):
+            assert DR.main(["--step", "mhd", "--exchange", exchange,
+                            "--out", str(tmp_path)]) == 0
+            rec = json.loads((tmp_path / f"mhd_{exchange}__gemma3-12b__"
+                              f"train_4k.json").read_text())
+            assert rec["status"] == "ok" and rec["mode"] == "mhd_train"
+            assert (rec["mesh"], rec["chips"]) == ("2-mhd", 2)
+            assert rec["exchange"] == exchange and rec["topk"] == 32
+            coll = rec["collective_bytes_raw"]
+            sent[exchange] = coll["collective-permute"]
+            assert sent[exchange] == _exchange_bytes(cut, exchange)
+            # the metrics' all-reduce: loss, ce, dist in f32
+            assert coll["all-reduce"] == 12
+            assert coll["total"] == sent[exchange] + 12
+            assert rec["num_params"] == 2 * sum(
+                v.numel() for v in build_bundle(cut).init(
+                    MetaDraw().manual_seed(0)).values())
+            for kernel in ("dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd"):
+                assert rec["kernels"][kernel]["calls"] > 0, kernel
+            assert ("topk_wire" in rec["kernels"]) == (exchange == "topk")
+        assert sent["topk"] < sent["full"]
+    else:
+        for argv in (["--multi-pod"], ["--both-meshes"]):
+            with pytest.raises(NotImplementedError, match="item 15c"):
+                DR.main(argv + ["--out", str(tmp_path)])
+        with pytest.raises(NotImplementedError, match="item 15c"):
+            DR.dryrun_one("mamba2-370m", "train_4k", multi_pod=True)

@@ -327,9 +327,12 @@ def _roofline():
 
 
 def _dryrun_mhd():
+    """The reference's MHD dry run partitions each pod's dense layers on
+    its 2×16×16 mesh; the port counts one pod rank's step (``--step mhd``,
+    tests/test_torch_dryrun.py), and the multi-pod mesh is item 15c."""
     from repro_torch.launch.dryrun import main
 
-    main(["--step", "mhd"])
+    main(["--step", "mhd", "--multi-pod"])
 
 
 def _dryrun_multi_pod():
@@ -385,8 +388,8 @@ def _cross():
 
 # what the port does not run yet: each raises naming its ROADMAP item
 DEFERRED = {
-    "dryrun_mhd": (_dryrun_mhd, "item 15b"),
-    "--multi-pod": (_dryrun_multi_pod, "item 15b"),
+    "dryrun_mhd": (_dryrun_mhd, "item 15c"),
+    "--multi-pod": (_dryrun_multi_pod, "item 15c"),
 }
 # features deferred once and ported since: each builds and runs
 PORTED_SINCE = {

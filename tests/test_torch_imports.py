@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of repro_torch (the
 socket transport, the gossip launcher, the MoE FFN, MLA, the training and
 serving launchers and their steps, the serving package, every
-architecture config, the roofline's counter and the dry run among them), chip_smoke.py, examples/port_quickstart.py,
+architecture config, the roofline's counter and the dry run, the mesh
+and sharding modules, the expert-parallel MoE and the pod runtime among
+them), chip_smoke.py, examples/port_quickstart.py,
 examples/port_serve_decode.py and scripts/port_gossip_procs.py leaves jax
 and the JAX package out of sys.modules, and the kernels' sources (which
 import triton) are not imported by any module."""
@@ -32,7 +34,10 @@ assert {"repro_torch.comm.socket", "repro_torch.launch",
         "repro_torch.serve.teacher_cache", "repro_torch.roofline",
         "repro_torch.roofline.analysis", "repro_torch.roofline.op_cost",
         "repro_torch.configs.shapes", "repro_torch.launch.dryrun",
-        "repro_torch.kernels.counted"} <= set(names), names
+        "repro_torch.kernels.counted", "repro_torch.common.dtypes",
+        "repro_torch.common.sharding", "repro_torch.launch.mesh",
+        "repro_torch.launch.shardings", "repro_torch.models.moe_a2a",
+        "repro_torch.core.mhd_distributed"} <= set(names), names
 for name, path in zip(("chip_smoke", "port_quickstart", "port_gossip_procs",
                        "port_serve_decode"), sys.argv[1:]):
     spec = importlib.util.spec_from_file_location(name, path)
@@ -53,7 +58,7 @@ def test_port_imports_no_jax_and_no_reference_package():
          os.path.join(ROOT, "examples", "port_serve_decode.py")],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 94, out.stdout
+    assert int(n) >= 100, out.stdout
     assert bad == "[]", bad
 
 
