@@ -68,7 +68,7 @@ the checkout (into ``build/``), then
      from per-rank snapshots, rank 1 from step 3). The path's launches
      are this process's plus those every child reports;
   9. drives the LM path: K=3 full-width mamba2-370m clients cut in depth
-     to 24 of 48 layers (d_model 1024, vocab 50280, 2 aux heads) exchanging
+     to 16 of 48 layers (d_model 1024, vocab 50280, 2 aux heads) exchanging
      entropy-adaptive, delta-compressed next-token predictions, 12 steps
      and one evaluate(), then one profiled publish round;
   10. drives the hybrid path the same way: K=3 full-width zamba2-7b
@@ -142,8 +142,9 @@ the checkout (into ``build/``), then
      K = 2 mamba2-370m clients at full width and depth (48 layers, 471.3 M
      params each, f32) on the paper's fused pod step, SGD momentum, 4 + 4
      sequences of 512 a client, the ring, in an NCCL process group of
-     world size 1 (a FileStore under chiprun_out/) with a ("pod",) mesh of
-     size 1 holding both clients: 2 top-k steps first run with no group,
+     world size 1 (a FileStore under chiprun_out/) with a ("pod", "data",
+     "model") mesh of (1, 1, 1) holding both clients: 2 top-k steps first
+     run with no group,
      whose params the group's must equal bitwise, then 4 top-k (k = 32)
      and 2 full-exchange steps (losses finite, every client's params
      moved); then `make_mhd_train_step` for 2 steps on one student with
@@ -151,7 +152,17 @@ the checkout (into ``build/``), then
      each exchange: ablations/pod_step.py). topk_wire, dist_ce,
      emb_dist and ssd_scan must launch, at shapes the kernel phases held.
      World sizes above 1 need a card a rank and run on the CPU only;
-  16. puts each path's step against the H100's roofline
+  16. drives the tp path (`phase_tp_path`, `launch.steps.make_train_step`
+     under `use_mesh`): minitron-4b at its published width (3,072, 24
+     heads, 8 KV heads, d_ff 9,216, vocabulary 256,000) cut to TP_DEPTH
+     layers, SGD momentum, 2 steps with no mesh, then on a (data, model)
+     mesh of (1, 1) in an NCCL group of world size 1 (bitwise equal),
+     then on a (1, 2) mesh across two processes on the card over gloo
+     (NCCL refuses two ranks on one card), each rank first checking every
+     collective the step runs and then holding its half of each cut leaf,
+     held against the no-mesh run (metrics 1e-4 relative, params 1e-5);
+     flash_attention must launch, at shapes the kernel phase held;
+  17. puts each path's step against the H100's roofline
      (`roofline_row`): its FLOPs by type and bytes counted on the meta
      device at the path's own configuration (`repro_torch.roofline`; each
      kernel an entry of its own cost), the compute and memory terms, the
@@ -163,9 +174,9 @@ the checkout (into ``build/``), then
      step is also counted on the card, real tensors and the kernels
      launching, and must equal its meta count; minitron-4b's counted tick
      bytes must lie in TICK_BYTES_BAND of the hand reckoning; the pod
-     path's top-k step counted on meta. The rows go to the record's
-     ``roofline``;
-  17. prints one ``{"kernels": [...]}`` line and, last, the device line
+     path's top-k step and the tp path's step counted on meta. The rows
+     go to the record's ``roofline``;
+  18. prints one ``{"kernels": [...]}`` line and, last, the device line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -219,7 +230,7 @@ from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.models.config import (Stage, patterned_stages,  # noqa: E402
                                        uniform_stages)
 from repro_torch.launch.steps import (init_train_state,  # noqa: E402
-                                      make_train_step)
+                                      make_train_step, train_state_shapes)
 from repro_torch.launch.train import supervised_batch  # noqa: E402
 from repro_torch.optim import (Optimizer, OptimizerConfig,  # noqa: E402
                                make_optimizer)
@@ -311,14 +322,15 @@ def exp_spec(algo: str, params: dict, steps: int, aux_heads: int = 0,
 
 # the LM path: K=3 full-width mamba2-370m clients (d_model 1024, 32 heads x
 # 64, d_state 128, vocab 50280, 2 aux heads, f32) cut in depth from 48
-# layers to 24 for margin under the smoke's time limit: with 48 the whole
-# smoke took 1,022.7 s of its 1,200 s on a slow host (every layer runs the
-# same kernels at the same shapes), on
+# layers to 24 for margin under the smoke's time limit (with 48 the whole
+# smoke took 1,022.7 s of its 1,200 s on a slow host), then to 16 when the
+# tp phase brought it to 1,100 s (every layer runs the same kernels at the
+# same shapes), on
 # lm_hetero's MHD and wire (presets.py:114-145), with S_P and W cut to fit
 # memory, 12 steps
 LM_ARCH = "mamba2-370m"
 _LM_FULL = get_config(LM_ARCH)
-LM_DEPTH = 24
+LM_DEPTH = 16
 LM_CFG = dataclasses.replace(
     _LM_FULL, name=f"{LM_ARCH}-{LM_DEPTH}-layers", num_layers=LM_DEPTH,
     stages=uniform_stages(LM_DEPTH, _LM_FULL.stages[0].block[0])).validate()
@@ -508,8 +520,9 @@ TOL_TIE = 1e-5
 # MHDConfig(nu_emb=1, nu_aux=3, 2 aux heads, Δ=1), B = 4 private and
 # B_pub = 4 public sequences of 512 a client, the ring; POD_TOPK_STEPS
 # steps of the top-k exchange (k = 32), then POD_FULL_STEPS of the full
-# one, in an NCCL process group of world size 1 with a ("pod",) mesh of
-# size 1 holding both clients; then make_mhd_train_step for POD_MHD_STEPS
+# one, in an NCCL process group of world size 1 with a ("pod", "data",
+# "model") mesh of (1, 1, 1) holding both clients; then
+# make_mhd_train_step for POD_MHD_STEPS
 # steps on one student with Δ = 2 teachers' params. World sizes above 1
 # need a card a rank (NCCL refuses two ranks on one card); they run on
 # the CPU over gloo (tests/test_torch_mhd_distributed.py)
@@ -522,6 +535,35 @@ POD_ROWS = POD_B_PUB * (POD_SEQ - 1)  # B' a client: the public positions
 POD_HEADS = POD_MHD["num_aux_heads"] + 1
 POD_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
                "emb_dist_bwd", "ssd_scan_fwd", "ssd_scan_bwd")
+
+# the tp path: `launch.steps.make_train_step` under an active mesh on
+# minitron-4b at its published width (d_model 3,072, 24 heads, 8 KV heads
+# of 128, d_ff 9,216, vocabulary 256,000, 2 aux heads), cut in depth from
+# 32 to TP_DEPTH layers (3.47 B params, 3.15 B of them in the three
+# heads), f32, SGD momentum at lr 0.01, TP_B sequences of TP_SEQ a step:
+# (1) TP_STEPS steps with no mesh; (2) the same on a (data, model) mesh of
+# (1, 1) in an NCCL group of world size 1, bitwise equal to (1); (3) where
+# two processes on the one card can run the collectives over gloo (CUDA
+# tensors; NCCL refuses two ranks on one card), the same steps on a
+# (1, 2) mesh, each rank holding its half of every cut leaf (attention on
+# 12 of the 24 heads and 4 of the 8 KV heads, the MLP on 4,608 of the
+# 9,216 columns, the heads on 128,000 of the vocabulary), held against (1)
+# within the CPU tests' tolerances (metrics 1e-4 relative, params 1e-5).
+# Memory (f32): 13.9 GB of params, as much again of gradients and of
+# momentum, the optimizer's transient a leaf (the aux heads' 6.3 GB) and
+# ~4 GB of activations: ~52 GB for (1) and (2), with (1)'s params kept on
+# the host; ~27 GB a rank for (3)
+TP_ARCH = "minitron-4b"
+_TP_FULL = get_config(TP_ARCH)
+TP_DEPTH = 4
+TP_CFG = dataclasses.replace(
+    _TP_FULL, name=f"{TP_ARCH}-{TP_DEPTH}-layers", num_layers=TP_DEPTH,
+    stages=uniform_stages(TP_DEPTH, _TP_FULL.stages[0].block[0])).validate()
+TP_B, TP_SEQ, TP_STEPS, TP_SEED, TP_MODEL = 2, 512, 2, 41, 2
+TP_OPTIMIZER = dict(name="sgd_momentum", init_lr=0.01, total_steps=8)
+TP_RTOL, TP_ATOL = 1e-4, 1e-5
+TP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+TP_TIMEOUT = 300.0  # (3): the ranks' hard cap, seconds
 
 def lm_path_data(LM, D, k: int = LM_K):
     """The LM path's train and test token arrays and its partition over
@@ -604,6 +646,11 @@ FLASH_CASES = [
     ("d=50", (1, 130, 130, 4, 2, 50), True, 0, "float32"),
     ("bf16", (8, 512, 512, 32, 32, 112), True, 0, "bfloat16"),
     ("arctic GQA G=7", (8, 512, 512, 56, 8, 128), True, 0, "float32"),
+    # the tp path's minitron-4b: every head on one rank, and a model rank's
+    # 12 query and 4 KV heads at model = 2 (G = 3)
+    ("minitron-4b", (TP_B, TP_SEQ, TP_SEQ, 24, 8, 128), True, 0, "float32"),
+    ("minitron-4b model rank", (TP_B, TP_SEQ, TP_SEQ, 24 // TP_MODEL,
+                                8 // TP_MODEL, 128), True, 0, "float32"),
     *[(f"{name}", shape, causal, 0, "float32")
       for name, shape, causal in XATTN_FLASH]]
 # the kernels each path runs, and must have launched
@@ -876,6 +923,10 @@ def phase_topk(dev) -> dict:
     zamba = _topk_timing(cases[2][1], LM_COMM["topk"], iters=20)
     deepseek = _topk_timing(cases[-1][1], LM_COMM["topk"], iters=10)
     resnet = _topk_timing(cases[0][1], TOPK_K, iters=50)
+    pod = _topk_timing(cases[-1][1], POD_TOPK, iters=10)
+    log(f"topk_wire timing at the pod path's {pod['shape']}: "
+        f"{pod['ms']:.3f} ms (plain {pod['plain_ms']:.3f}, library "
+        f"{pod['library_ms']:.3f}, bound {pod['bound_ms']:.4f})")
     log(f"topk_wire timing: LM shape {lm['ms']:.3f} ms (plain "
         f"{lm['plain_ms']:.3f}, library {lm['library_ms']:.3f}, bound "
         f"{lm['bound_ms']:.4f}); zamba2 shape {zamba['ms']:.3f} ms (plain "
@@ -890,7 +941,7 @@ def phase_topk(dev) -> dict:
         f"{floor['ms'] * 1e3:.2f} us a call by CUDA events")
     return {**TOPK.INFO, **lm, "max_abs_err": err,
             "at_zamba2_shape": zamba, "at_deepseek_shape": deepseek,
-            "at_resnet_shape": resnet}
+            "at_resnet_shape": resnet, "at_pod_shape": pod}
 
 
 def _with_neg_inf(x: torch.Tensor) -> torch.Tensor:
@@ -1349,16 +1400,29 @@ def phase_flash(dev) -> list:
                 f"(SDPA{', enable_gqa' if kv != h else ''}) "
                 f"{x['library_ms']:.3f}, 3xTF32 bound {x['bound_ms']:.4f} "
                 f"{x['bound_by']}, {x['gflop']:.2f} GFLOP)")
+    at_tp = {"fwd": {}, "bwd": {}}
+    for name, h, kv in (("minitron-4b", 24, 8),
+                        ("minitron-4b model rank", 24 // TP_MODEL,
+                         8 // TP_MODEL)):
+        xf, xb = _flash_timing(dev, g, TP_B, TP_SEQ, h, 128, iters=20, KV=kv)
+        at_tp["fwd"][name], at_tp["bwd"][name] = xf, xb
+        for nm, x in (("fwd", xf), ("bwd", xb)):
+            log(f"flash_attention timing {nm} at {name} (B, T, H, KV, d) = "
+                f"{(TP_B, TP_SEQ, h, kv, 128)}: {x['ms']:.3f} ms (plain "
+                f"{x['plain_ms']:.3f}, library (SDPA, enable_gqa) "
+                f"{x['library_ms']:.3f}, 3xTF32 bound {x['bound_ms']:.4f} "
+                f"{x['bound_by']}, {x['gflop']:.2f} GFLOP)")
     RECORD["sdpa_kernels"] = _sdpa_kernels(dev, g, *FLASH_SHAPE)
     RECORD["sdpa_kernels_arctic"] = _sdpa_kernels(dev, g, B, T, H, d, KV)
     log(f"flash_attention library yardstick: scaled_dot_product_attention "
         f"at {FLASH_SHAPE} causal f32 runs {RECORD['sdpa_kernels']}; at "
         f"arctic's {FLASH_ARCTIC} it runs {RECORD['sdpa_kernels_arctic']}")
     return [{**FA.INFO_FWD, **fwd, "max_abs_err": err_f,
-             "at_T4096": fwd_l, "at_arctic": fwd_a, "at_xattn": at_x["fwd"]},
+             "at_T4096": fwd_l, "at_arctic": fwd_a, "at_xattn": at_x["fwd"],
+             "at_tp": at_tp["fwd"]},
             {**FA.INFO_BWD, **bwd, "max_abs_err": err_b,
              "at_T4096": bwd_l, "at_arctic": bwd_a,
-             "at_xattn": at_x["bwd"]}]
+             "at_xattn": at_x["bwd"], "at_tp": at_tp["bwd"]}]
 
 
 def _dist_ce_library(s, t):
@@ -1367,15 +1431,17 @@ def _dist_ce_library(s, t):
     return -(p_t * logp).sum(-1), p_t.amax(-1), logp.amax(-1).exp()
 
 
-def _dist_ce_timing(dev, g, B, V, s_dt, iters: int) -> tuple:
+def _dist_ce_timing(dev, g, B, V, s_dt, iters: int,
+                    t_dt=torch.float32) -> tuple:
     s = (torch.randn(B, V, generator=g, device=dev) * 3).to(s_dt)
-    t = torch.randn(B, V, generator=g, device=dev) * 3
+    t = (torch.randn(B, V, generator=g, device=dev) * 3).to(t_dt)
     gce = torch.randn(B, generator=g, device=dev)
     stats = DCE.dist_ce_fwd_kernel(s, t)[3]
-    sb = s.element_size()
-    fb, fby = kernel_bound(DCE.cost_fwd(B, V, sb))
-    bb, bby = kernel_bound(DCE.cost_bwd(B, V, sb))
+    sb, tb = s.element_size(), t.element_size()
+    fb, fby = kernel_bound(DCE.cost_fwd(B, V, sb, tb))
+    bb, bby = kernel_bound(DCE.cost_bwd(B, V, sb, tb))
     fwd = {"shape": [B, V], "student_dtype": str(s_dt),
+           "teacher_dtype": str(t_dt),
            "ms": time_ms(lambda: DCE.dist_ce_fwd_kernel(s, t), iters=iters),
            "plain_ms": time_ms(lambda: DCE.dist_ce_fwd_plain(s, t),
                                iters=iters),
@@ -1383,6 +1449,7 @@ def _dist_ce_timing(dev, g, B, V, s_dt, iters: int) -> tuple:
            "library_ms": time_ms(lambda: _dist_ce_library(s, t),
                                  iters=iters)}
     bwd = {"shape": [B, V], "student_dtype": str(s_dt),
+           "teacher_dtype": str(t_dt),
            "ms": time_ms(lambda: DCE.dist_ce_bwd_kernel(s, t, stats, gce),
                          iters=iters),
            "plain_ms": time_ms(
@@ -1451,6 +1518,18 @@ def phase_dist_ce(dev) -> list:
     v32_f, v32_b = _dist_ce_timing(dev, g, LM_CE_ROWS, ZAMBA_VOCAB, bf16, 20)
     ds_f, ds_b = _dist_ce_timing(dev, g, DS_CE_ROWS, DS_VOCAB, bf16, 20)
     rn_f, rn_b = _dist_ce_timing(dev, g, rows, NUM_LABELS, f32, 50)
+    # the pod path's two shapes (the pod step's bf16 teacher rows,
+    # make_mhd_train_step's Δ + 1 = 3 candidates' f32 rows)
+    pod = {name: _dist_ce_timing(dev, g, B, POD_CFG.vocab_size, bf16, 10,
+                                 t_dt)
+           for name, B, t_dt in (("pod", POD_ROWS, bf16),
+                                 ("pod mhd_train_step", 3 * POD_ROWS, f32))}
+    for name, (x, y) in pod.items():
+        log(f"dist_ce timing at {name} {x['shape']} {x['student_dtype']} / "
+            f"{x['teacher_dtype']}: fwd {x['ms']:.3f} ms, bwd "
+            f"{y['ms']:.3f} ms (plain {x['plain_ms']:.3f} / "
+            f"{y['plain_ms']:.3f}, library {x['library_ms']:.3f}, bounds "
+            f"{x['bound_ms']:.4f} / {y['bound_ms']:.4f})")
     log(f"dist_ce timing: LM shape fwd {lm_f['ms']:.3f} ms bwd "
         f"{lm_b['ms']:.3f} ms (plain {lm_f['plain_ms']:.3f} / "
         f"{lm_b['plain_ms']:.3f}); V = 32,000 paths' shape fwd "
@@ -1464,10 +1543,12 @@ def phase_dist_ce(dev) -> list:
         f"{rn_f['ms']:.3f} bwd {rn_b['ms']:.3f}")
     return [{**DCE.INFO_FWD, **lm_f, "max_abs_err": err_f,
              "at_v32000_shape": v32_f, "at_deepseek_shape": ds_f,
-             "at_resnet_shape": rn_f},
+             "at_resnet_shape": rn_f,
+             "at_pod_shapes": {n: x for n, (x, _) in pod.items()}},
             {**DCE.INFO_BWD, **lm_b, "max_abs_err": err_b,
              "at_v32000_shape": v32_b, "at_deepseek_shape": ds_b,
-             "at_resnet_shape": rn_b}]
+             "at_resnet_shape": rn_b,
+             "at_pod_shapes": {n: y for n, (_, y) in pod.items()}}]
 
 def _emb_library(s, t):
     return (F.normalize(s, dim=-1) - F.normalize(t, dim=-1)).square().sum(-1)
@@ -1502,22 +1583,41 @@ def phase_emb_dist(dev) -> list:
         SHAPES_HELD["emb_dist"].add((B, D))
         log(f"emb_dist {name} ({B}, {D}): fwd max|d|={maxerr(o, o_ref):.3g}"
             f" bwd max|d|={maxerr(gs, gs_ref):.3g}")
-    B = rows
-    s = torch.randn(B, E, generator=g, device=dev)
-    t = torch.randn(B, E, generator=g, device=dev)
+    fwd, bwd = _emb_timing(dev, g, rows, E)
+    # the pod path's rows, where emb_dist does real work
+    pod = {name: _emb_timing(dev, g, B, POD_CFG.d_model)
+           for name, B in (("pod", POD_ROWS),
+                           ("pod mhd_train_step", 2 * POD_ROWS))}
+    for name, (x, y) in pod.items():
+        log(f"emb_dist timing at {name} {x['shape']}: fwd {x['ms']:.4f} ms "
+            f"(plain {x['plain_ms']:.4f}, library {x['library_ms']:.4f}, "
+            f"bound {x['bound_ms']:.5f}: {100 * x['bound_ms'] / x['ms']:.1f}"
+            f" %), bwd {y['ms']:.4f} ms (plain {y['plain_ms']:.4f}, bound "
+            f"{y['bound_ms']:.5f}: {100 * y['bound_ms'] / y['ms']:.1f} %)")
+    return [{**EMB.INFO_FWD, **fwd, "max_abs_err": err_f,
+             "at_pod_shapes": {n: x for n, (x, _) in pod.items()}},
+            {**EMB.INFO_BWD, **bwd, "max_abs_err": err_b,
+             "at_pod_shapes": {n: y for n, (_, y) in pod.items()}}]
+
+
+def _emb_timing(dev, g, B: int, D: int) -> tuple:
+    """emb_dist's forward and backward kernel, plain and library times at
+    (B, D) f32, with their bounds."""
+    s = torch.randn(B, D, generator=g, device=dev)
+    t = torch.randn(B, D, generator=g, device=dev)
     gd = torch.randn(B, generator=g, device=dev)
-    fb, fby = kernel_bound(EMB.cost_fwd(B, E))
-    bb, bby = kernel_bound(EMB.cost_bwd(B, E))
-    fwd = {**EMB.INFO_FWD, "shape": [B, E], "max_abs_err": err_f,
+    fb, fby = kernel_bound(EMB.cost_fwd(B, D))
+    bb, bby = kernel_bound(EMB.cost_bwd(B, D))
+    fwd = {"shape": [B, D],
            "ms": time_ms(lambda: EMB.emb_dist_fwd_kernel(s, t)),
            "plain_ms": time_ms(lambda: EMB.emb_dist_plain(s, t)),
            "bound_ms": fb, "bound_by": fby,
            "library_ms": time_ms(lambda: _emb_library(s, t))}
-    bwd = {**EMB.INFO_BWD, "shape": [B, E], "max_abs_err": err_b,
+    bwd = {"shape": [B, D],
            "ms": time_ms(lambda: EMB.emb_dist_bwd_kernel(s, t, gd)),
            "plain_ms": time_ms(lambda: EMB.emb_dist_bwd_plain(s, t, gd)),
            "bound_ms": bb, "bound_by": bby, "library_ms": None}
-    return [fwd, bwd]
+    return fwd, bwd
 
 
 def phase_wire(dev) -> None:
@@ -2719,7 +2819,7 @@ def phase_lm_path(dev, cfg, label: str, kernels, n_clients: int = LM_K,
                   reference=REFERENCE_DISTILLED_LM, after_step=None
                   ) -> tuple:
     """An LM slice through the user's entry points: ``n_clients`` clients of
-    ``cfg`` (three full-width mamba2-370m cut to 24 layers on the LM path;
+    ``cfg`` (three full-width mamba2-370m cut to 16 layers on the LM path;
     three full-width zamba2-7b cut to one period on the hybrid path; two
     full-width arctic-480b cut to one layer of 4 experts on the MoE path;
     two full-width deepseek-v3-671b cut to one MoE layer of 12 experts on
@@ -3933,7 +4033,8 @@ def phase_pod_path(dev) -> dict:
     """The pod path (`core.mhd_distributed`, `launch.steps`): K = 2
     full-width, full-depth mamba2-370m clients on the paper's fused pod
     step in an NCCL group of world size 1 (a FileStore under
-    chiprun_out/), a ("pod",) mesh of size 1 holding both: the same 2
+    chiprun_out/), a ("pod", "data", "model") mesh of (1, 1, 1) holding
+    both: the same 2
     top-k steps first run with no group (mesh None) from the same params,
     and the group's params after them must equal those bitwise; then the
     group's run goes on to POD_TOPK_STEPS top-k and POD_FULL_STEPS full
@@ -3962,7 +4063,7 @@ def phase_pod_path(dev) -> dict:
                             world_size=1,
                             timeout=datetime.timedelta(seconds=60))
     try:
-        mesh = make_test_mesh((1,), ("pod",))
+        mesh = make_test_mesh((1, 1, 1), ("pod", "data", "model"))
         out = _pod_run(dev, mesh, MD, make_mhd_train_step)
     finally:
         dist.destroy_process_group()
@@ -4109,6 +4210,350 @@ def _pod_roofline(bundle, opt, mhd, topk, MD, step_ms: float,
         {"clients": POD_K, "count_s": time.perf_counter() - t0,
          "kernels": counter.kernels})
 
+# ---------------------------------------------------------------------------
+# the tp path: tensor and FSDP sharding within a pod
+# ---------------------------------------------------------------------------
+
+def _tp_batches(dev, cfg, seq: int) -> list:
+    rng = np.random.default_rng(TP_SEED)
+    return [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TP_B, seq)).astype(np.int32)).to(dev)}
+            for _ in range(TP_STEPS)]
+
+
+def _tp_init(dev, cfg) -> dict:
+    """``cfg``'s params drawn on ``dev`` from TP_SEED (the same draw in
+    every process)."""
+    return build_bundle(cfg).init(
+        torch.Generator(device=dev).manual_seed(TP_SEED))
+
+
+def _tp_steps(dev, params: dict, cfg, seq: int) -> tuple:
+    """make_train_step over the tp batches from ``params`` under whatever
+    mesh is active: (params after, metrics a step, seconds a step)."""
+    bundle = build_bundle(cfg)
+    opt = make_optimizer(OptimizerConfig(**TP_OPTIMIZER))
+    step = make_train_step(bundle, opt)
+    state = {"params": params, "opt": opt.init(params), "step": 0}
+    hist, secs = [], []
+    for t, b in enumerate(_tp_batches(dev, cfg, seq)):
+        a = time.perf_counter()
+        state, m = step(state, b)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - a)
+        hist.append({k: float(v) for k, v in m.items()})
+    return state["params"], hist, secs
+
+
+def _check_collectives(rank: int, world: int, dev) -> dict:
+    """Each collective the sharded step runs, over the running group on
+    ``dev``'s tensors, against its expected result: {collective: "ok" or
+    what went wrong}. Two processes on one card run over gloo (NCCL
+    refuses two ranks on one card)."""
+    import torch.distributed as dist
+
+    x = torch.full((2, 3), float(rank + 1), device=dev)
+    total = sum(range(1, world + 1))
+    # uneven all-to-all: rank 0 keeps 2 of its 3 rows and sends 1 to rank
+    # 1, every other rank sends its one row to rank 0
+    rows = 3 if rank == 0 else 1
+    send = [2, 1] + [0] * (world - 2) if rank == 0 else [1] + [0] * (
+        world - 1)
+    recv = [2] + [1] * (world - 1) if rank == 0 else [1 if rank == 1 else 0
+                                                      ] + [0] * (world - 1)
+    want_a2a = ([0.0, 1.0] + [10.0 * r for r in range(1, world)]
+                if rank == 0 else [2.0] if rank == 1 else [])
+
+    def all_to_all():
+        out = torch.empty(sum(recv), device=dev)
+        dist.all_to_all_single(out, torch.arange(float(rows), device=dev)
+                               + 10 * rank, output_split_sizes=recv,
+                               input_split_sizes=send)
+        return out
+
+    def gathered():
+        out = torch.empty(2 * world, 3, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        return out
+
+    def scattered():
+        out = torch.empty(2, 3, device=dev)
+        dist.reduce_scatter_tensor(out, torch.ones(2 * world, 3, device=dev)
+                                   * (rank + 1))
+        return out
+
+    def reduced(op):
+        y = x.clone()
+        dist.all_reduce(y, op=op)
+        return y
+
+    cases = {"all_gather_into_tensor": (gathered, torch.cat(
+                 [torch.full((2, 3), float(r + 1)) for r in range(world)])),
+             "reduce_scatter_tensor": (scattered,
+                                       torch.full((2, 3), float(total))),
+             "all_reduce": (lambda: reduced(dist.ReduceOp.SUM),
+                            torch.full((2, 3), float(total))),
+             "all_reduce max": (lambda: reduced(dist.ReduceOp.MAX),
+                                torch.full((2, 3), float(world))),
+             "all_to_all_single": (all_to_all, torch.tensor(want_a2a))}
+    out = {}
+    for name, (fn, want) in cases.items():
+        try:
+            got = fn()
+            ok = got.device == x.device and torch.equal(got.cpu(), want)
+            out[name] = "ok" if ok else f"wrong result {got.tolist()}"
+        except Exception as e:  # recorded; the caller fails the phase
+            out[name] = f"{type(e).__name__}: {e}"[:300]
+    return out
+
+
+def _tp_rank(rank: int, world: int, store: str, results, done, cfg,
+             seq: int, device_type: str) -> None:
+    """One model rank of the tp path's (3): the collectives checked over
+    the group (`_check_collectives`), then its blocks of the same draw and
+    the same steps on a (1, world) mesh over gloo; puts (rank, the
+    collectives' check, metrics, seconds, coords, specs, its blocks on the
+    card, its memory peak) on ``results`` and holds them until
+    ``done``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.common.sharding import active_partition, use_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import mesh_specs, shard_rank
+
+    cuda = device_type == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(dev)
+        build.build_cuda(["flash_attention"])
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        probe = _check_collectives(rank, world, dev)
+        mesh = make_test_mesh((1, world), ("data", "model"), device_type)
+        with use_mesh(mesh):
+            part = active_partition()
+            specs = mesh_specs(build_bundle(cfg), part)
+            params = {k: v.clone() for k, v in shard_rank(
+                _tp_init(dev, cfg), specs, part).items()}
+            if cuda:
+                torch.cuda.empty_cache()
+            params, hist, secs = _tp_steps(dev, params, cfg, seq)
+        coords = {a: int(mesh.get_local_rank(a))
+                  for a in mesh.mesh_dim_names}
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+        if cuda:
+            # hold the blocks only: the main process compares them on the
+            # card beside every other process's
+            torch.cuda.empty_cache()
+        results.put((rank, probe, hist, secs, coords, specs, params, peak))
+        done.wait(TP_TIMEOUT)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(target, world: int, store: Path, *extra) -> tuple:
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    store.parent.mkdir(exist_ok=True)
+    if store.exists():
+        store.unlink()
+    procs = [ctx.Process(target=target, args=(r, world, str(store), results,
+                                               *extra))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, results
+
+
+def _collect(results, procs, timeout: float):
+    """Each rank's item from ``results``, in arrival order, failing as
+    soon as a rank exits without giving one or ``timeout`` seconds
+    pass."""
+    import queue
+
+    deadline = time.perf_counter() + timeout
+    for _ in procs:
+        while True:
+            try:
+                yield results.get(timeout=2)
+                break
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode]
+                check(not dead and time.perf_counter() < deadline,
+                      f"a rank failed (exit codes {dead}) or "
+                      f"{timeout:.0f} s passed before every rank answered")
+
+
+def _reap(procs, timeout: float) -> list:
+    """Join ``procs`` within ``timeout`` seconds, terminating any left;
+    their exit codes."""
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(10)
+    return [p.exitcode for p in procs]
+
+
+def phase_tp_path(dev) -> dict:
+    """The tp path (`launch.steps.make_train_step` under `use_mesh`, the
+    sharding within a pod): TP_CFG's step (1) with no mesh, (2) on a
+    (data, model) mesh of (1, 1) in an NCCL group of world size 1,
+    bitwise equal to (1), and (3) on a (1, TP_MODEL) mesh across TP_MODEL
+    processes on the card over gloo, each first checking every collective
+    the step runs, held against (1). Every kernel's count is set to 0 by
+    the caller just before and read just after (the main process's runs,
+    (1) and (2)); flash_attention must have launched, at shapes the
+    kernel phase held."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.common.sharding import use_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.shardings import shard_leaf
+
+    t0 = time.perf_counter()
+    n_params = sum(v.numel() for v in build_bundle(TP_CFG).init(
+        LAYERS.MetaDraw().manual_seed(0)).values())
+    log(f"tp path: {TP_CFG.name} at full width ({n_params / 1e9:.3f} B "
+        f"params, {TP_DEPTH} of {_TP_FULL.num_layers} layers), "
+        f"{TP_B} x {TP_SEQ} tokens, SGD momentum, {TP_STEPS} steps")
+    torch.cuda.reset_peak_memory_stats()
+    with KernelShapes() as shapes:
+        # (1) no mesh; its params kept on the host
+        ref, hist0, secs0 = _tp_steps(dev, _tp_init(dev, TP_CFG), TP_CFG,
+                                      TP_SEQ)
+        ref = {k: v.cpu() for k, v in ref.items()}
+        torch.cuda.empty_cache()
+        # (2) a (1, 1) mesh under NCCL
+        store = ROOT / "chiprun_out" / "tp_filestore"
+        store.parent.mkdir(exist_ok=True)
+        if store.exists():
+            store.unlink()
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=60))
+        try:
+            mesh = make_test_mesh((1, 1), ("data", "model"))
+            with use_mesh(mesh):
+                got, hist, secs = _tp_steps(dev, _tp_init(dev, TP_CFG),
+                                            TP_CFG, TP_SEQ)
+        finally:
+            dist.destroy_process_group()
+        same = [k for k in ref if torch.equal(ref[k], got[k].cpu())]
+        check(len(same) == len(ref), f"tp path: params after {TP_STEPS} "
+              f"steps on a (1, 1) mesh under NCCL == with no mesh, bitwise "
+              f"({len(same)} of {len(ref)} leaves)")
+        check(hist == hist0, f"tp path: the mesh's metrics == no mesh's "
+              f"({hist} vs {hist0})")
+        check(all(math.isfinite(v) for m in hist for v in m.values()),
+              "tp path: metrics finite")
+        del got
+    counts = ops.launch_counts()
+    shapes.check("tp path")
+    for name in TP_KERNELS:
+        check(counts[name] > 0, f"tp path: kernel {name} launched "
+              f"({counts[name]})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    out = {"counts": counts, "step_s": secs0, "mesh_step_s": secs,
+           "metrics": hist0, "params": n_params, "max_memory_gib": peak,
+           "kernel_shapes": shapes.record()}
+    log(f"tp path: no mesh {[round(x * 1e3, 1) for x in secs0]} ms, (1, 1) "
+        f"mesh {[round(x * 1e3, 1) for x in secs]} ms a step, losses "
+        f"{[round(m['loss'], 5) for m in hist0]}, card memory peak "
+        f"{peak:.1f} GiB, launches {counts}")
+    out["model_ranks"] = _tp_model_ranks(dev, ref, hist0, shard_leaf)
+    out["roofline"] = _tp_roofline(statistics.median(secs0), peak)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tp phase: {out['seconds']:.1f} s")
+    return out
+
+
+def _tp_model_ranks(dev, ref: dict, hist0: list, shard_leaf) -> dict:
+    """(3): TP_MODEL processes on the card, each its blocks; every
+    collective right over their group, their metrics against (1)'s at
+    TP_RTOL, every block against (1)'s block (moved to the card a leaf at
+    a time) at TP_ATOL."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    done = mp.get_context("spawn").Event()
+    procs, results = _spawn(_tp_rank, TP_MODEL,
+                            ROOT / "chiprun_out" / "tp2_filestore", done,
+                            TP_CFG, TP_SEQ, dev.type)
+    worst, metrics_err, ranks = 0.0, 0.0, {}
+    try:
+        for rank, probe, hist, secs, coords, specs, params, peak in \
+                _collect(results, procs, TP_TIMEOUT):
+            check(all(v == "ok" for v in probe.values()), f"tp path: rank "
+                  f"{rank}'s collectives over gloo on the card: {probe}")
+            ranks[rank] = {"step_s": secs, "max_memory_gib": peak,
+                           "metrics": hist, "collectives": probe}
+            for m, m0 in zip(hist, hist0):
+                for k in m0:
+                    d = abs(m[k] - m0[k])
+                    metrics_err = max(metrics_err, d and d / abs(m0[k])
+                                      if m0[k] else d and math.inf)
+            sizes = {"data": 1, "model": TP_MODEL}
+            for k, v in params.items():
+                want = shard_leaf(ref[k], specs.get(k, ()), sizes, coords)
+                worst = max(worst,
+                            float((v - want.to(v.device)).abs().max()))
+            del params
+    finally:
+        done.set()
+        codes = _reap(procs, 60)
+    check(codes == [0] * TP_MODEL, f"tp path: the model ranks exited "
+          f"{codes}")
+    check(len(ranks) == TP_MODEL and metrics_err <= TP_RTOL,
+          f"tp path: model = {TP_MODEL} metrics against no mesh "
+          f"{metrics_err:.3g} (tolerance {TP_RTOL} relative)")
+    check(worst <= TP_ATOL, f"tp path: model = {TP_MODEL} params against "
+          f"no mesh max|d| {worst:.3g} (tolerance {TP_ATOL})")
+    out = {"ranks": ranks, "metrics_rel_err": metrics_err,
+           "params_max_abs_err": worst, "exit_codes": codes,
+           "seconds": time.perf_counter() - t0}
+    rs = list(ranks.values())
+    log(f"tp path: model = {TP_MODEL} across {TP_MODEL} processes on one "
+        f"card over gloo, every collective right: metrics within "
+        f"{metrics_err:.3g} relative, params within {worst:.3g} of no mesh;"
+        f" steps {[[round(x * 1e3, 1) for x in r['step_s']] for r in rs]} "
+        f"ms; peaks {[round(r['max_memory_gib'], 1) for r in rs]}"
+        f" GiB; {out['seconds']:.1f} s")
+    return out
+
+
+def _tp_roofline(step_ms_s: float, max_memory_gib: float) -> dict:
+    """The tp path's step with no mesh, counted on meta: its roofline row
+    against the measured median."""
+    bundle = build_bundle(TP_CFG)
+    opt = make_optimizer(OptimizerConfig(**TP_OPTIMIZER))
+    state = train_state_shapes(bundle, opt)
+    batch = {"tokens": torch.empty((TP_B, TP_SEQ), dtype=torch.int32,
+                                   device="meta")}
+    args = (state, batch)
+    _, counter = op_cost.count(make_train_step(bundle, opt), *args)
+    n = sum(v.numel() for v in state["params"].values())
+    return roofline_row(
+        "tp", counter.to_dict(), op_cost.tree_bytes(args)
+        + counter.peak_bytes, step_ms_s * 1e3, max_memory_gib,
+        model_flops(TP_CFG, n, TP_B * TP_SEQ, "train"),
+        {"kernels": counter.kernels})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -4171,10 +4616,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     pod_path = phase_pod_path(dev)
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    tp_path = phase_tp_path(dev)
     paths = {"resnet": resnet, "exp": exp_path["mhd"], "fleet": fleet_path,
              "socket": socket_path, "lm": lm_path, "zamba2": zamba_path,
              "moe": moe_path, "deepseek": deepseek_path, "xattn": xattn_path,
-             "serve": serve_path, "pod": pod_path}
+             "serve": serve_path, "pod": pod_path, "tp": tp_path}
     for k in kernels:
         k["launches_by_path"] = {p: r["counts"][k["name"]]
                                  for p, r in paths.items()}
@@ -4185,6 +4633,7 @@ def main() -> int:
                   lm_path=lm_path, zamba2_path=zamba_path, moe_path=moe_path,
                   deepseek_path=deepseek_path, xattn_path=xattn_path,
                   serve_path=serve_path, pod_path=pod_path,
+                  tp_path=tp_path,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

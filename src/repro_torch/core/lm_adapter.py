@@ -117,6 +117,16 @@ def lm_mhd_outputs(bundle, params, batch: Dict[str, Any],
     positions are the batch-head prefix; with a seed they are the
     reference's fixed random subset (`jax_permutation`), identical for
     every client and teacher sharing the seed.
+
+    Under tensor parallelism, where the heads leave their logits as
+    blocks of the vocabulary (`models.transformer.vocab_shards`), the
+    rows come out whole through one all-to-all
+    (`common.sharding.vocab_to_rows`): each 'model' rank holds the same
+    block of the B' rows of every output (`common.sharding.row_block`:
+    its embeddings, labels and sample rows taken alike), so the kernels
+    that score them run unchanged on fewer rows. A mean over the rows is
+    then the sum over 'model' of each block's mean times its share of
+    B'.
     """
     skip_mtp = {"mtp": False} if getattr(bundle.config, "mtp", False) else {}
     out = bundle.apply(params, batch, **skip_mtp)
@@ -148,6 +158,17 @@ def lm_mhd_outputs(bundle, params, batch: Dict[str, Any],
         lab = tokens[:, 1:].reshape(B * Tm1)
         rows = torch.arange(B, dtype=torch.int32,
                             device=tokens.device).repeat_interleave(Tm1)
+    if lg.shape[-1] < bundle.config.vocab_size:
+        from repro_torch.common import sharding as SH
+
+        part = SH.active_partition()
+        lg = SH.vocab_to_rows(lg, part)
+        if aux_flat is not None:
+            aux_flat = SH.vocab_to_rows(aux_flat.transpose(0, 1),
+                                        part).transpose(0, 1)
+        blk = SH.row_block(lab.shape[0], part)
+        emb = SH.tp_enter(emb, part)[blk]
+        lab, rows = lab[blk], rows[blk]
     return {"embedding": emb, "logits": lg, "aux_logits": aux_flat,
             "labels": lab, "sample_rows": rows,
             "aux_loss": out["aux_loss"]}

@@ -5,10 +5,15 @@ K clients co-train. The reference stacks them along a leading client dim
 sharded over 'pod' and lets XLA partition each within its pod. In the
 port every rank runs its own block of the fleet: the K clients split
 into contiguous blocks over the pod ranks, a rank holding its clients'
-params stacked (K/|pod|, …). Within a pod the batch splits over the pod's
-ranks (every axis but 'pod', in the mesh's order: 'data', and 'model'
-where the expert-parallel MoE runs — the reference's token axes), and the
-dense gradients are averaged over them.
+params stacked (K/|pod|, …), each leaf cut to its block by the sharding
+rules on the pod's axes (`launch.shardings.partition_specs`). Within a
+pod the batch splits over the pod's token axes (the logical 'batch'
+role: 'data' under ``"tp"``, whose 'model' ranks share their tokens and
+split the layers; 'data' and 'model' under ``"fsdp"``). A rank's
+gradient is its block of the pod's: the gathers' backward has summed it
+over the token ranks that share the block, an all-reduce sums it over
+those that hold the same block of other tokens, and it is divided by the
+number of token shards (the pod's loss is their mean).
 
 Every step each client scores the shared public batch; teacher
 predictions move between pods along the bus adjacency (``adj[i]`` names
@@ -28,8 +33,11 @@ Wire formats:
 
 The loss is the reference's mean over the K clients: a rank's loss is the
 sum of its clients' terms over the global K, the reported loss and
-metrics are all-reduced. The reference's `_topk_2stage` (a two-stage
-top-k for XLA's sort) has no caller there and is not ported.
+metrics are all-reduced. Under ``"tp"`` each 'model' rank scores its
+block of the public rows (`core.lm_adapter.lm_mhd_outputs`), and the
+distillation term is the sum of the blocks' parts over 'model'. The
+reference's `_topk_2stage` (a two-stage top-k for XLA's sort) has no
+caller there and is not ported.
 """
 from __future__ import annotations
 
@@ -42,11 +50,12 @@ import torch.distributed as dist
 
 from repro_torch.comm.wire import (dense_xent_and_conf, sparse_xent_and_conf,
                                    topk_pack_outputs)
-from repro_torch.common.sharding import (axis_index, group_of,
-                                         mesh_axis_sizes, use_mesh)
+from repro_torch.common import sharding as SH
+from repro_torch.common.sharding import (axis_index, mesh_axis_sizes,
+                                         use_mesh)
 from repro_torch.core.lm_adapter import lm_mhd_outputs
 from repro_torch.core.mhd import MHDConfig, embedding_distillation_loss
-from repro_torch.launch.shardings import expert_specs, shard_params
+from repro_torch.launch.shardings import partition_specs, shard_params
 from repro_torch.models import transformer as TF
 from repro_torch.models.layers import MetaDraw
 from repro_torch.models.zoo import ModelBundle
@@ -105,8 +114,9 @@ def _teacher_sources(dist_cfg: DistributedMHDConfig) -> List[int]:
 @dataclasses.dataclass(frozen=True)
 class PodLayout:
     """Where this rank sits: its pod (``pod`` of ``n_pods``), its clients
-    ``clients`` (a contiguous block of the K), and its block ``shard`` of
-    the ``n_shards`` token shards of its pod over the axes ``inner``."""
+    ``clients`` (a contiguous block of the K), the pod's axes ``inner``,
+    and its block ``shard`` of the ``n_shards`` token shards of its pod
+    over the axes ``tokens``."""
 
     num_clients: int
     n_pods: int
@@ -114,6 +124,7 @@ class PodLayout:
     inner: Tuple[str, ...]
     n_shards: int
     shard: int
+    tokens: Tuple[str, ...] = ()
 
     @property
     def per_pod(self) -> int:
@@ -136,26 +147,34 @@ def pod_layout(num_clients: int, mesh=None) -> PodLayout:
         raise ValueError(f"{num_clients} clients do not split into "
                          f"{n_pods} pods")
     inner = tuple(a for a in sizes if a != POD)
+    tokens = SH.token_axes({a: sizes[a] for a in inner})
     return PodLayout(
         num_clients, n_pods,
         int(mesh.get_local_rank(POD)) if POD in sizes else 0, inner,
-        math.prod(sizes[a] for a in inner),
-        axis_index(mesh, inner) if inner else 0)
+        math.prod(sizes[a] for a in tokens),
+        axis_index(mesh, tokens) if tokens else 0, tokens)
+
+
+def pod_specs(bundle: ModelBundle, mesh, lay: PodLayout):
+    """{name: spec} of the leaves cut on the pod's axes (no client dim)."""
+    if not lay.inner:
+        return {}
+    return partition_specs(_meta_params(bundle),
+                           mesh_axis_sizes(mesh, lay.inner))
 
 
 def local_params(stacked: Dict[str, Tensor], bundle: ModelBundle,
                  num_clients: int, mesh=None) -> Dict[str, Tensor]:
     """This rank's block of the client-stacked params (K, …): its clients'
-    rows, and for the expert-parallel MoE its expert shards
-    (`launch.shardings.expert_specs` on its pod's axes)."""
+    rows, each leaf cut to its block on its pod's axes (`pod_specs`)."""
     lay = pod_layout(num_clients, mesh)
     rows = slice(lay.clients.start, lay.clients.stop)
     out = {k: v[rows] for k, v in stacked.items()}
     if lay.inner:
         sizes = mesh_axis_sizes(mesh, lay.inner)
-        specs = expert_specs(_meta_params(bundle), bundle.config, sizes)
         coords = {a: int(mesh.get_local_rank(a)) for a in lay.inner}
-        out = shard_params(out, specs, sizes, coords, lead=1)
+        out = shard_params(out, pod_specs(bundle, mesh, lay), sizes,
+                           coords, lead=1)
     return {k: v.contiguous() for k, v in out.items()}
 
 
@@ -276,11 +295,17 @@ def _private_ce(bundle: ModelBundle, params, tokens: Tensor
     """(the next-token CE of the private batch, its MoE aux loss): the
     main head's logits at the B·(T−1) positions, cast to bf16 as
     `lm_mhd_outputs` gives them, their log-softmax in f32 (the aux heads,
-    which nothing here reads, are not formed)."""
-    skip_mtp = {"mtp": False} if getattr(bundle.config, "mtp", False) else {}
+    which nothing here reads, are not formed); vocabulary-parallel where
+    the logits are blocks of the vocabulary (`TF.token_nll`)."""
+    cfg = bundle.config
+    skip_mtp = {"mtp": False} if getattr(cfg, "mtp", False) else {}
     out = bundle.apply(params, {"tokens": tokens}, logits=False, **skip_mtp)
-    logits = TF.head_logits(params, bundle.config, out["hidden"][:, :-1])
-    logp = torch.log_softmax(logits.to(torch.bfloat16).float(), dim=-1)
+    logits = TF.head_logits(params, cfg, out["hidden"][:, :-1])
+    logits = logits.to(torch.bfloat16).float()
+    if logits.shape[-1] < cfg.vocab_size:
+        nll = TF.token_nll(logits, tokens[:, 1:], cfg.vocab_size)
+        return nll.mean(), out["aux_loss"]
+    logp = torch.log_softmax(logits, dim=-1)
     ll = logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
     return -ll.mean(), out["aux_loss"]
 
@@ -316,21 +341,14 @@ def make_distributed_mhd_step(bundle: ModelBundle, optimizer,
                          "of the whole public batch; it needs one token "
                          "shard a pod")
     pod_group = mesh.get_group(POD) if lay.n_pods > 1 else None
-    sizes = mesh_axis_sizes(mesh, lay.inner) if lay.inner else {}
-    specs = expert_specs(_meta_params(bundle), bundle.config,
-                         sizes) if lay.inner else {}
-
-    def replicas(name: str) -> Tuple[str, ...]:
-        """The pod axes along which the leaf's block repeats."""
-        used = {a for e in specs.get(name, ()) if e is not None
-                for a in ((e,) if isinstance(e, str) else e)}
-        return tuple(a for a in lay.inner
-                     if a not in used and sizes[a] > 1)
+    specs = pod_specs(bundle, mesh, lay)
+    n_inner = math.prod(mesh_axis_sizes(mesh, lay.inner).values()) \
+        if lay.inner else 1
 
     def shard_rows(x: Tensor, n: int) -> Tensor:
         if x.shape[0] % n:
             raise ValueError(f"a batch of {x.shape[0]} rows does not split "
-                             f"over the pod's {n} ranks")
+                             f"over the pod's {n} token shards")
         size = x.shape[0] // n
         return x[lay.shard * size:(lay.shard + 1) * size]
 
@@ -343,7 +361,10 @@ def make_distributed_mhd_step(bundle: ModelBundle, optimizer,
                    for k, v in state["params"].items()}
                   for j in range(n_local)]
         ce, pub_outs, aux = [], [], []
-        with use_mesh(mesh, lay.inner) if lay.inner else use_mesh(None):
+        with use_mesh(mesh, lay.inner, specs) if lay.inner \
+                else use_mesh(None):
+            part = SH.active_partition()
+            R = TF.vocab_shards(bundle.config)
             for j in range(n_local):
                 ce_j, priv_aux = _private_ce(
                     bundle, leaves[j], shard_rows(priv_all[j], Q))
@@ -355,20 +376,32 @@ def make_distributed_mhd_step(bundle: ModelBundle, optimizer,
                                  "logits": out["logits"],
                                  "aux_logits": out["aux_logits"]})
                 aux.append(out["aux_loss"] + priv_aux)
-        # stop-grad BEFORE packing: the top-k must not be differentiated
-        # (it only feeds the frozen teacher side)
-        frozen = [{k: (None if v is None else v.detach())
-                   for k, v in o.items()} for o in pub_outs]
-        wire = ([topk_pack_outputs(f, dist_cfg.topk) for f in frozen]
-                if dist_cfg.exchange == "topk" else frozen)
-        teachers = exchange_teachers(wire, dist_cfg, lay, pod_group)
-        dist_loss = [_distill_loss_one_client(s, t, mhd, dist_cfg.exchange)
-                     for s, t in zip(pub_outs, teachers)]
-        ce_sum, dist_sum = sum(ce) / K, sum(dist_loss) / K
-        loss = ce_sum + dist_sum + sum(aux) / K
-        flat = [v for lv in leaves for v in lv.values()]
-        grads = torch.autograd.grad(loss, flat, allow_unused=True,
-                                    materialize_grads=True)
+            # stop-grad BEFORE packing: the top-k must not be
+            # differentiated (it only feeds the frozen teacher side)
+            frozen = [{k: (None if v is None else v.detach())
+                       for k, v in o.items()} for o in pub_outs]
+            wire = ([topk_pack_outputs(f, dist_cfg.topk) for f in frozen]
+                    if dist_cfg.exchange == "topk" else frozen)
+            teachers = exchange_teachers(wire, dist_cfg, lay, pod_group)
+            dist_loss = [_distill_loss_one_client(s, t, mhd,
+                                                  dist_cfg.exchange)
+                         for s, t in zip(pub_outs, teachers)]
+            if R > 1:
+                # each model rank scored its block of the rows: the term
+                # is the sum over 'model' of each block's mean times its
+                # share of the rows
+                n_pub = pub.shape[0] * (pub.shape[1] - 1)
+                if dist_cfg.max_public_positions:
+                    n_pub = min(n_pub, dist_cfg.max_public_positions)
+                share = out["labels"].shape[0] / n_pub
+                dist_loss = [SH.tp_exit(d * share, part) for d in dist_loss]
+            ce_sum, dist_sum = sum(ce) / K, sum(dist_loss) / K
+            loss = ce_sum + dist_sum + sum(aux) / K
+            flat = [v for lv in leaves for v in lv.values()]
+            # inside the mesh: a rematerialised unit gathers its blocks
+            # again in the backward
+            grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                        materialize_grads=True)
         names = list(leaves[0])
         per_client = [dict(zip(names, grads[j * len(names):
                                             (j + 1) * len(names)]))
@@ -379,18 +412,13 @@ def make_distributed_mhd_step(bundle: ModelBundle, optimizer,
         del leaves, flat, grads
         grads = _stack_grads(per_client)
         if Q > 1:
-            # the pod's objective is the mean of its ranks' losses: a leaf's
-            # gradient is summed over the ranks holding the same block of
-            # it (every rank for a whole leaf; the collectives inside the
-            # a2a MoE have summed an expert shard's), then divided by Q
-            for k, g in grads.items():
-                rest = replicas(k)
-                if rest:
-                    dist.all_reduce(g, group=group_of(mesh, rest))
-                g.div_(Q)
+            # the pod's objective is the mean of its token shards' losses
+            SH.mean_over_token_shards(grads, specs, mesh, lay.tokens)
         if mesh is not None:
+            # every inner rank holds its token shard's values (the model
+            # ranks of a shard the same under "tp")
             dist.all_reduce(metrics)
-            metrics = metrics / Q
+            metrics = metrics / n_inner
         params, opt = optimizer.update(grads, state["opt"], state["params"],
                                        state["step"])
         new_state = {"params": params, "opt": opt, "step": state["step"] + 1}

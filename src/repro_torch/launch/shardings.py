@@ -15,12 +15,13 @@ reference's ``P()``, replicated. A mesh is a ``DeviceMesh``, a mapping
 ``{axis: size}``, or any object with ``axis_names`` and ``devices.shape``
 or ``axis_sizes`` (an abstract mesh, as the reference's tests fake one).
 
-`shard_leaf` cuts a leaf into one rank's block by its spec and
-`unshard_leaf` puts the blocks back together. In the port the only
-sharded leaves are the expert-parallel MoE's expert weights (E over
-'model', D over 'data', the rules of ``w_gate``/``w_up``/``w_down`` with
-three base dims); every other leaf stays replicated within a pod until
-tensor and FSDP sharding of the dense layers (ROADMAP Queue 1 item 15c).
+`shard_leaf` cuts a leaf into one rank's block by its spec,
+`shard_params` every leaf of a flat dict by `partition_specs`, and
+`unshard_leaf` puts the blocks back together. A rank of a sharded step
+holds exactly these blocks, and runs with them under
+``common.sharding.use_mesh(mesh, axes, specs)``.
+`apply_sharding_strategy` is the reference's ``_apply_sharding_strategy``
+(``"tp"`` | ``"fsdp"``).
 """
 from __future__ import annotations
 
@@ -70,6 +71,32 @@ _RULES: Dict[Tuple[str, int], Tuple[Optional[str], ...]] = {
     ("pos_embed", 2): (None, "tp"),
     ("proj", 2): ("fsdp", "tp"),
 }
+
+
+def apply_sharding_strategy(strategy: str) -> None:
+    """How the 'model' axis is used (the reference's dry-run lever).
+
+    * ``"tp"`` (default): tensor parallelism over 'model' + FSDP over
+      'data'; the batch splits over ('pod', 'data');
+    * ``"fsdp"``: 'model' joins data parallelism — the batch splits over
+      every axis, the parameters stay cut over both and are gathered
+      whole where they are used."""
+    from repro_torch.common.sharding import set_logical_rule
+
+    if strategy == "fsdp":
+        set_logical_rule("batch", ("pod", "data", "model"))
+        set_logical_rule("model", None)
+        set_logical_rule("expert", "model")
+        DEFAULT_ROLES["batch"] = ("pod", "data", "model")
+        DEFAULT_ROLES["tp"] = ("model",)  # params still sharded over both
+    elif strategy == "tp":
+        set_logical_rule("batch", ("pod", "data"))
+        set_logical_rule("model", "model")
+        set_logical_rule("expert", "model")
+        DEFAULT_ROLES["batch"] = ("pod", "data")
+        DEFAULT_ROLES["tp"] = "model"
+    else:
+        raise ValueError(strategy)
 
 
 def mesh_sizes(mesh) -> Dict[str, int]:
@@ -255,29 +282,35 @@ def unshard_leaf(blocks: Mapping[Tuple[int, ...], torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# the expert-parallel MoE's expert weights
+# a rank's blocks of a flat params dict
 # ---------------------------------------------------------------------------
 
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
+def partition_specs(params: Mapping[str, Any], mesh, roles=None
+                    ) -> Dict[str, Spec]:
+    """{name: spec} of the leaves the rules cut on ``mesh`` (a spec with
+    at least one sharded dim); every other leaf is whole on every
+    rank."""
+    return {k: v for k, v in params_shardings(params, mesh, roles).items()
+            if any(e is not None for e in v)}
+
+
 def expert_specs(params: Mapping[str, Any], cfg, mesh) -> Dict[str, Spec]:
-    """{name: spec} of the leaves a rank holds as shards on ``mesh``: the
-    expert weights (``w_gate``/``w_up``/``w_down`` with three base dims)
-    of a ``moe_impl="a2a"`` config, by the rules (E over 'model', D over
-    the data axes, each where it divides). Every other leaf stays whole
-    (tensor and FSDP sharding of the dense layers: item 15c)."""
+    """The expert weights' part of `partition_specs` for a
+    ``moe_impl="a2a"`` config (``w_gate``/``w_up``/``w_down`` with three
+    base dims: E over 'model', D over the data axes, each where it
+    divides), {} for any other."""
     if getattr(cfg, "moe_impl", "scatter") != "a2a":
         return {}
     out = {}
-    for k, v in params.items():
+    for k, spec in partition_specs(params, mesh).items():
         names = k.split("/")
         stacked = any(n.startswith("stage") for n in names[:-1])
         if names[-1] in _EXPERT_LEAVES and \
-                len(v.shape) - int(stacked) == 3:
-            spec = param_pspec(k, tuple(v.shape), mesh)
-            if any(e is not None for e in spec):
-                out[k] = spec
+                len(spec) - int(stacked) == 3:
+            out[k] = spec
     return out
 
 
@@ -285,9 +318,9 @@ def shard_params(params: Mapping[str, torch.Tensor],
                  specs: Mapping[str, Spec], sizes: Mapping[str, int],
                  coords: Mapping[str, int], lead: int = 0
                  ) -> Dict[str, torch.Tensor]:
-    """``params`` with each leaf of ``specs`` cut to this rank's block
-    (contiguous copies); ``lead`` leading dims (a client stack) are kept
-    whole."""
+    """``params`` with each leaf of ``specs`` (`partition_specs` for all
+    of them) cut to this rank's block (contiguous copies); ``lead``
+    leading dims (a client stack) are kept whole."""
     out = {}
     for k, v in params.items():
         if k in specs:
@@ -295,3 +328,11 @@ def shard_params(params: Mapping[str, torch.Tensor],
                            coords).contiguous()
         out[k] = v
     return out
+
+
+def block_shape(shape: Sequence[int], spec: Spec,
+                sizes: Mapping[str, int]) -> Tuple[int, ...]:
+    """The shape of one rank's block of a leaf of ``shape``."""
+    return tuple(n // math.prod(sizes[a] for a in _dim_axes(e))
+                 for n, e in zip(shape, tuple(spec) + (None,) * (
+                     len(shape) - len(spec))))

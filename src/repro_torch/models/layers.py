@@ -17,6 +17,16 @@ from ``kv_src`` (B, S, ·) and calls the kernel non-causal with S ≠ T.
 ``logit_softcap`` raises NotImplementedError naming the ROADMAP item that
 ports it.
 
+Under tensor parallelism (an active ``"tp"`` `common.sharding.Partition`
+with 'model' above 1) a rank holds the column blocks of ``wq`` (whole
+query heads) and of ``w_up``/``w_gate``, and the matching row blocks of
+``wo`` and ``w_down``: attention runs on its heads and the MLP on its
+d_ff columns between `tp_enter` and `tp_exit`. Attention takes its local
+head count from ``wq``'s block; where ``wk``/``wv`` are whole (their
+block would split a KV group, and the layer gathered them), each rank
+takes its query heads' groups. The per-head norm scales enter the region
+as well, since each rank's heads give a part of their gradient.
+
 Decode (``init_kv_cache``, ``attention_decode``, ``causal_conv1d_step``)
 runs one token a row against a cache whose ``index`` holds one position
 per row, so the rows of one call may sit at different positions: each row
@@ -34,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.common import sharding as SH
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -135,7 +146,19 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     return params
 
 
-def mlp_apply(params: Params, x: Tensor, act: str = "silu") -> Tensor:
+def tp_partition() -> Optional[SH.Partition]:
+    """The active partition when tensor parallelism is on, else None."""
+    part = SH.active_partition()
+    return part if part is not None and part.tp else None
+
+
+def mlp_apply(params: Params, x: Tensor, act: str = "silu",
+              tp: bool = False) -> Tensor:
+    """The FFN; ``tp``: the weights are this rank's d_ff blocks (column-
+    parallel in, row-parallel out) under the active partition."""
+    part = tp_partition() if tp else None
+    if part is not None:
+        x = SH.tp_enter(x, part)
     up = x @ params["w_up"]
     if act == "silu":
         h = F.silu(x @ params["w_gate"]) * up
@@ -145,7 +168,10 @@ def mlp_apply(params: Params, x: Tensor, act: str = "silu") -> Tensor:
         h = torch.square(F.relu(up))
     else:
         raise ValueError(act)
-    return (h.to(x.dtype) @ params["w_down"]).to(x.dtype)
+    y = h.to(x.dtype) @ params["w_down"]
+    if part is not None:
+        y = SH.tp_exit(y, part)
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -185,13 +211,28 @@ def init_attention(gen: torch.Generator, dims: AttnDims,
     return params
 
 
+def _local_groups(H: int, dims: AttnDims, part: SH.Partition):
+    """The KV heads this model rank's H query heads attend with (a slice,
+    or an index a query head where its heads straddle groups)."""
+    G = dims.num_heads // dims.num_kv_heads
+    q0 = part.index(("model",)) * H
+    if H % G == 0:
+        return slice(q0 // G, (q0 + H) // G)
+    if G % H == 0:
+        return slice(q0 // G, q0 // G + 1)
+    return torch.arange(q0, q0 + H) // G
+
+
 def _project_qkv(params: Params, dims: AttnDims, x: Tensor, kv_src: Tensor,
                  positions: Tensor, kv_positions: Tensor,
-                 rope_theta: Optional[float]):
+                 rope_theta: Optional[float],
+                 part: Optional[SH.Partition] = None):
     """q (B, T, H, hd) from x (B, T, D), k and v (B, S, KV, hd) from
     kv_src (B, S, ·): bias, per-head RMSNorm of q and k, then RoPE on both
-    (q at ``positions``, k at ``kv_positions``)."""
-    H, KV, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    (q at ``positions``, k at ``kv_positions``). Under ``part`` (tensor
+    parallelism) H and KV are this rank's."""
+    hd = dims.head_dim
+    H, KV = params["wq"].shape[1] // hd, params["wk"].shape[1] // hd
     q = (x @ params["wq"]).to(x.dtype)
     k = (kv_src @ params["wk"]).to(x.dtype)
     v = (kv_src @ params["wv"]).to(x.dtype)
@@ -202,9 +243,15 @@ def _project_qkv(params: Params, dims: AttnDims, x: Tensor, kv_src: Tensor,
     q = q.reshape(q.shape[:-1] + (H, hd))
     k = k.reshape(k.shape[:-1] + (KV, hd))
     v = v.reshape(v.shape[:-1] + (KV, hd))
+    if part is not None and KV == dims.num_kv_heads:
+        sel = _local_groups(H, dims, part)
+        k, v = k[..., sel, :], v[..., sel, :]
     if dims.qk_norm:
-        q = norm_apply({"scale": params["q_norm/scale"]}, q, "rmsnorm")
-        k = norm_apply({"scale": params["k_norm/scale"]}, k, "rmsnorm")
+        qs, ks = params["q_norm/scale"], params["k_norm/scale"]
+        if part is not None:
+            qs, ks = SH.tp_enter(qs, part), SH.tp_enter(ks, part)
+        q = norm_apply({"scale": qs}, q, "rmsnorm")
+        k = norm_apply({"scale": ks}, k, "rmsnorm")
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, kv_positions, rope_theta)
@@ -235,12 +282,22 @@ def attention_apply(params: Params, dims: AttnDims, x: Tensor, *,
         positions = torch.arange(T, device=x.device)[None]
     if kv_positions is None:
         kv_positions = torch.arange(S, device=x.device)[None]
+    part = tp_partition()
+    if part is not None and \
+            params["wq"].shape[1] == dims.num_heads * dims.head_dim:
+        part = None  # whole heads do not divide over 'model': no TP
+    if part is not None:
+        x_in = x
+        x = SH.tp_enter(x, part)
+        kv_src = x if kv_src is x_in else SH.tp_enter(kv_src, part)
     q, k, v = _project_qkv(params, dims, x, kv_src, positions, kv_positions,
-                           rope_theta)
+                           rope_theta, part)
     out = ops.flash_attention(q, k, v, causal=mask_kind != "none",
                               window=window if mask_kind == "swa" else 0)
-    out = out.reshape(B, T, dims.num_heads * dims.head_dim)
-    return (out @ params["wo"]).to(x.dtype)
+    out = out.reshape(B, T, q.shape[2] * dims.head_dim) @ params["wo"]
+    if part is not None:
+        out = SH.tp_exit(out, part)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

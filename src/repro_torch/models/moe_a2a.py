@@ -25,11 +25,16 @@ boundary to bf16 (a custom-vjp identity before each all-to-all), after
 moving it; rounding before the move gives the same values on half the
 bytes.
 
-**Layout.** The port has no partitioner: ``x`` is this rank's block of
-the tokens (the reference's block index ``(pod·|data| + data)·|model| +
-model``), ``w_gate``/``w_up``/``w_down`` its shards by the sharding rules
-(E over 'model'; D over the data axes where they divide it,
-`launch.shardings`), and the output is this rank's block of y. Gradients
+**Layout.** The port has no partitioner: the region runs on this rank's
+block of the tokens (the reference's block index ``(pod·|data| +
+data)·|model| + model``), ``w_gate``/``w_up``/``w_down`` are its shards
+by the sharding rules (E over 'model'; D over the data axes where they
+divide it, `launch.shardings`), and the output is this rank's block of
+y. Under ``"fsdp"`` ``x`` is that block. Under ``"tp"`` the model ranks
+share their tokens: the region takes this rank's block of ``x``'s rows
+at its entry and all-gathers y at its exit; the router and the shared
+expert, used there on the block, enter as tensor-parallel leaves, and
+the aux's gradient is scaled by 1/|model|. Gradients
 follow the mean convention of the pod step (`core.mhd_distributed`): the
 objective is the mean over the ranks of each rank's loss, so replicated
 leaves' gradients are averaged over the ranks and a sharded leaf's
@@ -43,8 +48,12 @@ all-gathers the tokens (and any D-sharded expert weights), runs
 ``moe.moe_apply`` on the whole batch — the reference's global capacity
 and aux — and keeps its block of y; the gathers' backward
 reduce-scatters. The reference's third condition, a global token count
-the token shards do not divide, cannot arise: each rank holds an equal
-block, and the pod step refuses a batch its ranks do not divide.
+the token shards do not divide, arises only under ``"tp"`` (a rank's
+tokens that 'model' does not divide): each rank holds an equal block of
+the batch, and the steps refuse a batch their ranks do not divide.
+`moe_apply_scatter` is the scatter form for ``moe_impl="scatter"`` under
+a sharded step (its token shards gathered, the experts made whole), and
+`moe.moe_apply` itself on one rank.
 """
 from __future__ import annotations
 
@@ -54,8 +63,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.common.sharding import (active_mesh, axis_index, group_of,
-                                         mesh_axis_sizes)
+from repro_torch.common import sharding as SH
+from repro_torch.common.sharding import active_partition
 from repro_torch.models.config import MoEConfig
 from repro_torch.models import moe as MOE
 from repro_torch.models.layers import mlp_apply
@@ -91,70 +100,95 @@ class AllToAllBf16Grad(torch.autograd.Function):
         return out.to(ctx.dtype), None
 
 
-class AllGather(torch.autograd.Function):
-    """x's blocks from every rank of ``group`` concatenated along ``dim``
-    in rank order; the backward reduce-scatters the cotangent (sums it
-    over the ranks and gives each its block)."""
-
-    @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        n = dist.get_world_size(group)
-        xs = x.movedim(dim, 0).contiguous()
-        out = xs.new_empty((n * xs.shape[0], *xs.shape[1:]))
-        dist.all_gather_into_tensor(out, xs, group=group)
-        return out.movedim(0, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
-        gs = g.movedim(ctx.dim, 0).contiguous()
-        out = gs.new_empty((gs.shape[0] // n, *gs.shape[1:]))
-        dist.reduce_scatter_tensor(out, gs, group=ctx.group)
-        return out.movedim(0, ctx.dim), None, None
+def _gather(x: Tensor, axes: Sequence[str], dim: int,
+            grad: str = "sum") -> Tensor:
+    part = active_partition()
+    return SH.gather(x, tuple(a for a in axes if a in part.sizes), dim,
+                     grad, part)
 
 
-def _gather(x: Tensor, mesh, axes: Sequence[str], dim: int) -> Tensor:
-    axes = tuple(a for a in axes if mesh_axis_sizes(mesh)[a] > 1)
-    if not axes:
-        return x
-    return AllGather.apply(x, group_of(mesh, axes), dim)
-
-
-def _full_d(w: Tensor, D: int, dim: int, mesh, data_axes) -> Tensor:
+def _full_d(w: Tensor, D: int, dim: int, data_axes) -> Tensor:
     """An expert weight with its D dim whole: all-gathered over the data
     axes when the rank holds a D shard."""
     if w.shape[dim] == D:
         return w
-    return _gather(w, mesh, data_axes, dim)
+    return _gather(w, data_axes, dim)
 
 
-def _mean_over(value: Tensor, mesh, axes: Sequence[str]) -> Tensor:
+def _mean_over(value: Tensor, axes: Sequence[str],
+               scale: float = 1.0) -> Tensor:
     """The mean of ``value`` over the ranks of ``axes``, carrying the
-    gradient of this rank's own ``value``."""
-    n = math.prod(mesh_axis_sizes(mesh)[a] for a in axes)
+    gradient of this rank's own ``value`` times ``scale``."""
+    part = active_partition()
+    n = math.prod(part.sizes[a] for a in axes)
     if n <= 1:
         return value
     total = value.detach().clone()
-    dist.all_reduce(total, group=group_of(mesh, axes))
-    return value + (total / n - value).detach()
+    dist.all_reduce(total, group=part.group(axes))
+    return value * scale + (total / n - value * scale).detach()
+
+
+def _shared(params: Params, cfg: MoEConfig, D: int, data_axes,
+            model_grad: str, enter_whole: bool = False) -> Params:
+    """The shared expert's MLP, whole: its D dims gathered over the data
+    axes and its d_ff dims over 'model' (``model_grad`` backward) where
+    the rank holds blocks; ``enter_whole``: a d_ff dim the rank holds
+    whole enters the tensor-parallel region instead."""
+    F = cfg.num_shared_experts * cfg.d_ff_expert
+    out = {}
+    for k, v in params.items():
+        if not k.startswith("shared/"):
+            continue
+        d_dim = 1 if k.endswith("w_down") else 0
+        v = _full_d(v, D, d_dim, data_axes)
+        if v.shape[1 - d_dim] < F:
+            v = _gather(v, ("model",), 1 - d_dim, model_grad)
+        elif enter_whole:
+            v = SH.tp_enter(v, active_partition())
+        out[k[len("shared/"):]] = v
+    return out
 
 
 def _scatter_form(params: Params, x: Tensor, cfg: MoEConfig, act: str,
-                  scoring: str, mesh, token_axes, data_axes
+                  scoring: str, token_axes, data_axes
                   ) -> Tuple[Tensor, Tensor]:
-    """``moe_apply`` on every rank's tokens, this rank's block of y."""
+    """``moe_apply`` on every token shard's tokens (the reference's
+    global capacity and aux), this rank's block of y: the tokens
+    all-gathered over ``token_axes``, the expert weights made whole."""
+    part = active_partition()
     D = x.shape[-1]
     xf = x.reshape(-1, D)
     n = xf.shape[0]
-    full = dict(params)
+    # the model ranks share the gathered tokens under "tp": their compute
+    # repeats; under "fsdp" each keeps another block of y
+    model_grad = "slice" if part.tp else "sum"
+    full = {k: v for k, v in params.items() if not k.startswith("shared/")}
     for k, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
-        full[k] = _full_d(params[k], D, dim, mesh, data_axes)
-    x_all = _gather(xf, mesh, token_axes, 0)
+        w = _full_d(params[k], D, dim, data_axes)
+        if w.shape[0] < cfg.num_experts:
+            w = _gather(w, ("model",), 0, model_grad)
+        full[k] = w
+    if cfg.num_shared_experts:
+        full.update({f"shared/{k}": v for k, v in _shared(
+            params, cfg, D, data_axes, model_grad).items()})
+    x_all = _gather(xf, token_axes, 0)
     y_all, aux = MOE.moe_apply(full, x_all, cfg, act, scoring)
-    live = tuple(a for a in token_axes if mesh_axis_sizes(mesh)[a] > 1)
-    blk = axis_index(mesh, live) if live else 0
+    live = tuple(a for a in token_axes if part.sizes[a] > 1)
+    blk = part.index(live) if live else 0
     return y_all[blk * n:(blk + 1) * n].reshape(x.shape), aux
+
+
+def moe_apply_scatter(params: Params, x: Tensor, cfg: MoEConfig,
+                      act: str = "silu", scoring: str = "softmax"
+                      ) -> Tuple[Tensor, Tensor]:
+    """``moe.moe_apply`` for ``moe_impl="scatter"``: itself on one rank;
+    under a sharded step the scatter form over the batch's token shards
+    (the reference's global capacity and aux)."""
+    part = active_partition()
+    if part is None:
+        return MOE.moe_apply(params, x, cfg, act, scoring)
+    return _scatter_form(params, x, cfg, act, scoring, part.token_axes,
+                         tuple(a for a in DATA_AXES if a in part.sizes))
 
 
 def moe_apply_a2a(params: Params, x: Tensor, cfg: MoEConfig,
@@ -165,23 +199,28 @@ def moe_apply_a2a(params: Params, x: Tensor, cfg: MoEConfig,
     reference takes it (no active mesh: `moe_apply` itself). ``x`` (…, D)
     is this rank's block of tokens; returns (its block of y, the aux
     loss)."""
-    mesh, _ = active_mesh()
-    sizes = mesh_axis_sizes()
-    if mesh is None:
+    part = active_partition()
+    if part is None:
         # looked up at the call, as the reference imports it there: a
         # caller that wraps models.moe.moe_apply sees every call
         return MOE.moe_apply(params, x, cfg, act, scoring)
+    sizes = part.sizes
     n_model = sizes.get(MODEL_AXIS, 1)
     token_axes = tuple(a for a in TOKEN_AXES if a in sizes)
     data_axes = tuple(a for a in DATA_AXES if a in sizes)
     E, K = cfg.num_experts, cfg.top_k
-    if n_model <= 1 or E % n_model != 0:
-        return _scatter_form(params, x, cfg, act, scoring, mesh,
-                             token_axes, data_axes)
-
     orig_shape = x.shape
     D = orig_shape[-1]
     xf = x.reshape(-1, D)
+    # under "tp" the model ranks share their tokens: the region takes
+    # this rank's block of them (the reference's rank order) and gives
+    # every model rank all of y back at its exit
+    tp = part.tp
+    if n_model <= 1 or E % n_model != 0 or (tp and xf.shape[0] % n_model):
+        return _scatter_form(params, x, cfg, act, scoring, part.token_axes,
+                             data_axes)
+    if tp:
+        xf = SH.split_rows(xf, part)
     N_dev = xf.shape[0]  # this rank's tokens
     C = max(int(math.ceil(N_dev * K / E * cfg.capacity_factor)), 1)
     E_loc = E // n_model
@@ -190,10 +229,14 @@ def moe_apply_a2a(params: Params, x: Tensor, cfg: MoEConfig,
             f"moe_apply_a2a takes this rank's expert shard (E/|model| = "
             f"{E_loc} experts), got {params['w_gate'].shape[0]}: cut the "
             f"params with launch.shardings.shard_params")
-    experts = {k: _full_d(params[k], D, dim, mesh, data_axes)
+    experts = {k: _full_d(params[k], D, dim, data_axes)
                for k, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 2))}
+    # under "tp" the replicated leaves are used on this rank's tokens
+    # only: their gradients add up over the model ranks
+    router = SH.tp_enter(params["router"], part) if tp else params["router"]
+    shared = _shared(params, cfg, D, data_axes, "sum", enter_whole=tp)
 
-    logits = xf.float() @ params["router"].float()
+    logits = xf.float() @ router.float()
     weights, ids, probs = router_topk(logits, K, scoring)
     aux = load_balance_loss(probs, ids, E)
 
@@ -202,7 +245,7 @@ def moe_apply_a2a(params: Params, x: Tensor, cfg: MoEConfig,
     buf = dispatch(xf, flat_ids, flat_pos, keep, E, C, K)
 
     # dispatch all-to-all over the expert axis
-    group = group_of(mesh, (MODEL_AXIS,))
+    group = part.group((MODEL_AXIS,))
     recv = AllToAllBf16Grad.apply(buf.reshape(n_model, E_loc, C, D), group)
     recv = recv.transpose(0, 1).reshape(E_loc, n_model * C, D)
     out = expert_ffn(experts, recv)
@@ -211,9 +254,12 @@ def moe_apply_a2a(params: Params, x: Tensor, cfg: MoEConfig,
     back = AllToAllBf16Grad.apply(out.contiguous(), group)
     y = combine(back.reshape(E, C, D), flat_ids, flat_pos, keep, weights, K)
 
-    aux_loss = _mean_over(aux, mesh, token_axes) * cfg.router_aux_weight
-    shared = {k[len("shared/"):]: v for k, v in params.items()
-              if k.startswith("shared/")}
+    # the gradient of this rank's own aux, which the step's mean over
+    # its token shards (not over 'model' under "tp") makes the mean's
+    aux_loss = _mean_over(aux, token_axes, 1.0 / n_model if tp else 1.0) \
+        * cfg.router_aux_weight
     if shared:
         y = y + mlp_apply(shared, xf, act)
+    if tp:
+        y = SH.gather_rows(y, part)
     return y.reshape(orig_shape), aux_loss

@@ -69,6 +69,21 @@ all-to-all over the active mesh's ``model`` axis
 it (no mesh, or no ``model`` axis that divides E).
 ``attn_logit_softcap`` raises NotImplementedError naming the ROADMAP item
 that ports it.
+
+**Under a sharded step** (an active `common.sharding.Partition` whose
+specs cut the leaves, `launch.shardings.partition_specs`) each rank holds
+its blocks, and each unit gathers its leaves where it runs, inside its
+checkpoint when rematerialised (so the recompute gathers again and the
+saved tensors are the blocks): along the data dims always (FSDP), and
+along 'model' wherever the layer does not compute on its block
+(`_model_grad`). Under ``"tp"`` attention and the dense MLP compute on
+their 'model' blocks (`layers`); Mamba2, MLA and the scatter MoE are
+gathered whole and repeat their compute on the model ranks' shared
+tokens; the expert-parallel MoE gathers its own (`moe_a2a`). The
+embedding is a vocabulary-parallel lookup, the heads leave their logits
+vocabulary-sharded (`vocab_shards`), and the next-token CE is
+vocabulary-parallel (`token_nll`: the max and the sum of exponentials
+all-reduced over 'model').
 """
 from __future__ import annotations
 
@@ -79,6 +94,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.common import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
@@ -113,6 +129,103 @@ def _sub(params: Params, prefix: str) -> Params:
     """The entries under ``prefix/``, with the prefix removed."""
     n = len(prefix) + 1
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix + "/")}
+
+
+# ---------------------------------------------------------------------------
+# a rank's blocks under a sharded step
+# ---------------------------------------------------------------------------
+
+_ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+_VOCAB_LEAVES = ("embed", "lm_head", "aux_heads")  # 'model' cuts V
+
+
+def _model_grad(name: str, ndim: int, cfg: ModelConfig,
+                part: SH.Partition) -> Optional[str]:
+    """How the leaf ``name`` (a path within its layer, or a top-level
+    name; ``ndim`` base dims) meets its 'model' block: None where its
+    layer computes on the block (tensor parallelism, the heads' and the
+    embedding's vocabulary blocks; the expert-parallel MoE, which gathers
+    its own), else the backward of the gather that makes it whole —
+    ``"slice"`` where the model ranks repeat the same compute, ``"sum"``
+    where each uses a part of it (a KV projection whose block would split
+    a group; every leaf under ``"fsdp"``, whose model ranks hold other
+    tokens)."""
+    path = name.split("/")
+    leaf, parent = path[-1], (path[-2] if len(path) > 1 else "")
+    if cfg.moe_impl == "a2a" and "ffn" in path[:-1] and (
+            leaf == "router" or ndim == 3 or "shared" in path):
+        return None
+    if not part.tp:
+        return "sum"
+    if name in _VOCAB_LEAVES:
+        return None
+    if parent in ("ffn", "ffn_dense") and ndim == 2 and \
+            leaf in ("w_up", "w_gate", "w_down"):
+        return None
+    if parent in ("attn", "xattn", "shared_attn") and leaf in _ATTN_LEAVES \
+            and not (parent == "attn" and cfg.mla is not None):
+        if cfg.num_heads % part.model:
+            return "slice"
+        if leaf in ("wk", "wv", "bk", "bv") and \
+                cfg.num_kv_heads % part.model:
+            return "sum"
+        return None
+    return "slice"
+
+
+def _gather_leaf(x: Tensor, spec, model_grad: Optional[str],
+                 part: SH.Partition) -> Tensor:
+    """``x``'s block put together along each sharded dim of ``spec``:
+    the data dims with a summing backward, 'model' with ``model_grad``
+    (None: left as the block)."""
+    for d, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        if not axes:
+            continue
+        if "model" in axes:
+            if model_grad is not None:
+                x = SH.gather(x, axes, d, model_grad, part)
+        else:
+            x = SH.gather(x, axes, d, "sum", part)
+    return x
+
+
+def _partitioned(params: Params, prefix: str, cfg: ModelConfig,
+                 lead: int = 0, whole: bool = False) -> Params:
+    """The leaves a layer runs with, from this rank's blocks: each leaf
+    of ``params`` (named ``prefix + key`` in the bundle, its first
+    ``lead`` dims — a stage's repeats — already taken) gathered by
+    `_model_grad` (``whole``: every leaf gathered whole, as decode runs).
+    ``params`` itself with no sharded step active."""
+    part = SH.active_partition()
+    if part is None or not part.specs:
+        return params
+    out = {}
+    for k, v in params.items():
+        spec = part.spec(prefix + k, lead)
+        if spec:
+            grad = ("slice" if part.tp else "sum") if whole else \
+                _model_grad(k, v.dim(), cfg, part)
+            v = _gather_leaf(v, spec, grad, part)
+        out[k] = v
+    return out
+
+
+def _top(params: Params, name: str, cfg: ModelConfig) -> Tensor:
+    """The top-level leaf ``name`` gathered for use (`_partitioned`)."""
+    return _partitioned({name: params[name]}, "", cfg)[name]
+
+
+def vocab_shards(cfg: ModelConfig) -> int:
+    """How many 'model' blocks the heads' logits come in under the active
+    partition: |model| where tensor parallelism cuts the vocabulary, else
+    1 (whole rows)."""
+    part = L.tp_partition()
+    if part is None:
+        return 1
+    name, dim = ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
+    spec = part.spec(name)
+    return part.model if spec and spec[dim] == "model" else 1
 
 
 # ---------------------------------------------------------------------------
@@ -288,17 +401,19 @@ def _layer_forward(lp: Params, cfg: ModelConfig, spec: LayerSpec,
         x = x + L.attention_apply(_sub(lp, "xattn"), _attn_dims(cfg), h,
                                   mask_kind="none", kv_src=enc_out,
                                   rope_theta=None)
+    tp_ffn = L.tp_partition() is not None
     if spec.ffn == "dense":
         h = L.norm_apply(_sub(lp, "ffn_norm"), x, cfg.norm)
-        x = x + L.mlp_apply(_sub(lp, "ffn"), h, cfg.act)
+        x = x + L.mlp_apply(_sub(lp, "ffn"), h, cfg.act, tp=tp_ffn)
     elif spec.ffn in ("moe", "moe_dense_parallel"):
         h = L.norm_apply(_sub(lp, "ffn_norm"), x, cfg.norm)
         moe_fn = MOEA2A.moe_apply_a2a if cfg.moe_impl == "a2a" \
-            else MOE.moe_apply
+            else MOEA2A.moe_apply_scatter
         y, moe_aux = moe_fn(_sub(lp, "ffn"), h, cfg.moe, cfg.act,
                             scoring=cfg.moe_scoring)
         if spec.ffn == "moe_dense_parallel":
-            y = y + L.mlp_apply(_sub(lp, "ffn_dense"), h, cfg.act)
+            y = y + L.mlp_apply(_sub(lp, "ffn_dense"), h, cfg.act,
+                                tp=tp_ffn)
         x = x + y
         aux = aux + moe_aux
     return x, aux
@@ -307,13 +422,15 @@ def _layer_forward(lp: Params, cfg: ModelConfig, spec: LayerSpec,
 def _run_stages(params: Params, cfg: ModelConfig, x: Tensor, stages=None,
                 cross_src: Optional[Tensor] = None,
                 enc_out: Optional[Tensor] = None,
-                mask_kind_override: Optional[str] = None
-                ) -> Tuple[Tensor, Tensor]:
+                mask_kind_override: Optional[str] = None,
+                prefix: str = "") -> Tuple[Tensor, Tensor]:
     """Every stage's units (``cfg.stages`` unless given; their leaves under
-    ``stage{i}/`` of ``params``), in order, over x. Returns (x,
-    total_aux). The shared block's weights, the vision tokens and the
-    encoder's output go into every unit as they are, so autograd sums
-    their gradients over the units."""
+    ``stage{i}/`` of ``params``, named ``prefix + stage{i}/…`` in the
+    bundle), in order, over x. Returns (x, total_aux). The shared block's
+    weights, the vision tokens and the encoder's output go into every unit
+    as they are, so autograd sums their gradients over the units. Under a
+    sharded step each unit gathers its blocks (`_partitioned`) where it
+    runs."""
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = {k: v for k, v in params.items()
               if k.startswith(("shared_attn/", "shared_attn_norm/"))}
@@ -324,10 +441,14 @@ def _run_stages(params: Params, cfg: ModelConfig, x: Tensor, stages=None,
         stacked = {k: v.unbind(0)
                    for k, v in _sub(params, f"stage{si}").items()}
 
-        def unit_fn(h, aux_acc, unit_params, _stage=stage):
+        def unit_fn(h, aux_acc, unit_params, _stage=stage, _si=si):
+            unit_params = _partitioned(unit_params, f"{prefix}stage{_si}/",
+                                       cfg, lead=1)
+            unit_shared = _partitioned(shared, prefix, cfg)
             for li, spec in enumerate(_stage.block):
                 h, aux = _layer_forward(
-                    _sub(unit_params, f"layer{li}"), cfg, spec, h, shared,
+                    _sub(unit_params, f"layer{li}"), cfg, spec, h,
+                    unit_shared,
                     cross_src=cross_src, enc_out=enc_out,
                     mask_kind_override=mask_kind_override)
                 aux_acc = aux_acc + aux
@@ -345,7 +466,19 @@ def _run_stages(params: Params, cfg: ModelConfig, x: Tensor, stages=None,
 
 
 def _embed_tokens(params: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    x = params["embed"][tokens.long()]
+    """The embedding lookup; vocabulary-parallel where this rank holds a
+    block of the rows: the other ranks' tokens masked to zero, the sum
+    over 'model' the lookup."""
+    w = _top(params, "embed", cfg)
+    if w.shape[0] < cfg.vocab_size:
+        part = L.tp_partition()
+        n = w.shape[0]
+        ids = tokens.long() - part.index(("model",)) * n
+        inside = ((ids >= 0) & (ids < n))[..., None]
+        x = torch.where(inside, w[ids.clamp(0, n - 1)], 0)
+        x = SH.tp_exit(x, part)
+    else:
+        x = w[tokens.long()]
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -363,7 +496,8 @@ def _add_positional(params: Params, cfg: ModelConfig, x: Tensor,
                     offset: int = 0) -> Tensor:
     T = x.shape[1]
     if cfg.pos_embed == "learned":
-        x = x + params["pos_embed"][offset:offset + T][None].to(x.dtype)
+        pos = _top(params, "pos_embed", cfg)
+        x = x + pos[offset:offset + T][None].to(x.dtype)
     elif cfg.pos_embed == "sinusoidal":
         x = x + _sinusoidal(T, cfg.d_model, x.device)[None].to(x.dtype)
     return x
@@ -374,22 +508,36 @@ def encode_audio(params: Params, cfg: ModelConfig, frames: Tensor) -> Tensor:
     the projection, sinusoidal positions, ``cfg.encoder.num_layers``
     bidirectional full-attention dense layers through the same unit loop
     and remat as the decoder, then ``encoder/final_norm``."""
-    x = (frames @ params["audio_proj"]).to(frames.dtype)
+    x = (frames @ _top(params, "audio_proj", cfg)).to(frames.dtype)
     x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
     enc = _sub(params, "encoder")
     x, _ = _run_stages(enc, cfg, x, (_encoder_stage(cfg),),
-                       mask_kind_override="none")
+                       mask_kind_override="none", prefix="encoder/")
     return L.norm_apply(_sub(enc, "final_norm"), x, cfg.norm)
 
 
 def _head_w(params: Params, cfg: ModelConfig) -> Tensor:
-    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    """The main head (D, V): this rank's block of the vocabulary under
+    ``"tp"``."""
+    if cfg.tie_embeddings:
+        return _top(params, "embed", cfg).t()
+    return _top(params, "lm_head", cfg)
+
+
+def _head_in(hidden: Tensor, head_w: Tensor, cfg: ModelConfig) -> Tensor:
+    """``hidden`` entering the vocabulary-parallel head where the head is
+    a block of the vocabulary."""
+    if head_w.shape[-1] < cfg.vocab_size:
+        return SH.tp_enter(hidden, L.tp_partition())
+    return hidden
 
 
 def head_logits(params: Params, cfg: ModelConfig, hidden: Tensor
                 ) -> Tensor:
-    """The main head's logits (f32) from final hidden states."""
-    return (hidden @ _head_w(params, cfg)).float()
+    """The main head's logits (f32) from final hidden states (this rank's
+    block of the vocabulary under ``"tp"``, `vocab_shards`)."""
+    w = _head_w(params, cfg)
+    return (_head_in(hidden, w, cfg) @ w).float()
 
 
 def _heads(params: Params, cfg: ModelConfig, hidden: Tensor
@@ -398,8 +546,9 @@ def _heads(params: Params, cfg: ModelConfig, hidden: Tensor
     logits = head_logits(params, cfg, hidden)
     aux_logits = None
     if cfg.num_aux_heads:
-        aux_logits = torch.einsum("...d,mdv->m...v", hidden,
-                                  params["aux_heads"]).float()
+        w = _top(params, "aux_heads", cfg)
+        aux_logits = torch.einsum("...d,mdv->m...v",
+                                  _head_in(hidden, w, cfg), w).float()
     return logits, aux_logits
 
 
@@ -410,9 +559,10 @@ def _mtp_hidden(params: Params, cfg: ModelConfig, tokens: Tensor,
     last position, as the reference's ``jnp.roll``)."""
     emb_next = _embed_tokens(params, cfg, torch.roll(tokens, -1, dims=1))
     mtp_in = torch.cat([hidden, emb_next.to(hidden.dtype)], dim=-1)
-    h = (mtp_in @ params["mtp/proj"]).to(hidden.dtype)
+    h = (mtp_in @ _top(params, "mtp/proj", cfg)).to(hidden.dtype)
     h = L.norm_apply(_sub(params, "mtp/norm"), h, cfg.norm)
-    h, _ = _layer_forward(_sub(params, "mtp/layer"), cfg, _MTP_LAYER, h, {})
+    layer = _partitioned(_sub(params, "mtp/layer"), "mtp/layer/", cfg)
+    h, _ = _layer_forward(layer, cfg, _MTP_LAYER, h, {})
     return h
 
 
@@ -431,8 +581,8 @@ def apply_lm(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
     x = _add_positional(params, cfg, x)
     cross_src = None
     if cfg.vision is not None:
-        cross_src = (batch["vision_embeds"] @ params["vision_proj"]).to(
-            x.dtype)
+        cross_src = (batch["vision_embeds"] @ _top(
+            params, "vision_proj", cfg)).to(x.dtype)
     enc_out = None
     if cfg.audio is not None:
         enc_out = encode_audio(params, cfg, batch["audio_frames"])
@@ -451,25 +601,48 @@ def apply_lm(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
 # losses
 # ---------------------------------------------------------------------------
 
-def softmax_xent(logits: Tensor, labels: Tensor, valid=None) -> Tensor:
-    """Mean next-token CE. logits (..., V) fp32; labels int."""
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = logz - ll
+def token_nll(logits: Tensor, labels: Tensor,
+              vocab: Optional[int] = None) -> Tensor:
+    """−log softmax(logits)[label] a row. Where ``logits`` are this rank's
+    block of a ``vocab``-wide vocabulary (`vocab_shards`), the CE is
+    vocabulary-parallel: the rows' maximum and their sums of exponentials
+    all-reduced over 'model', the label's logit taken by the rank that
+    holds it."""
+    n = logits.shape[-1]
+    if vocab is None or n == vocab:
+        logz = torch.logsumexp(logits, dim=-1)
+        return logz - logits.gather(-1, labels.long()[..., None])[..., 0]
+    part = L.tp_partition()
+    mx = SH.all_reduce_max(logits.amax(dim=-1), part)
+    se = SH.tp_exit(torch.exp(logits - mx[..., None]).sum(dim=-1), part)
+    ids = labels.long() - part.index(("model",)) * n
+    inside = (ids >= 0) & (ids < n)
+    ll = logits.gather(-1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    ll = SH.tp_exit(torch.where(inside, ll, 0), part)
+    return mx + torch.log(se) - ll
+
+
+def softmax_xent(logits: Tensor, labels: Tensor, valid=None,
+                 vocab: Optional[int] = None) -> Tensor:
+    """Mean next-token CE. logits (..., V) fp32 (or this rank's block of a
+    ``vocab``-wide vocabulary, `token_nll`); labels int."""
+    nll = token_nll(logits, labels, vocab)
     if valid is not None:
         nll = nll * valid
         return nll.sum() / torch.clamp(valid.sum(), min=1.0)
     return nll.mean()
 
 
-def _chunk_nll(h: Tensor, head_w: Tensor, labels: Tensor) -> Tensor:
-    logits = (h @ head_w).float()
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return (torch.logsumexp(logits, dim=-1) - ll).sum()
+def _chunk_nll(h: Tensor, head_w: Tensor, labels: Tensor,
+               cfg: Optional[ModelConfig]) -> Tensor:
+    if cfg is None:
+        return token_nll((h @ head_w).float(), labels).sum()
+    logits = (_head_in(h, head_w, cfg) @ head_w).float()
+    return token_nll(logits, labels, cfg.vocab_size).sum()
 
 
 def _chunked_xent(hidden: Tensor, head_w: Tensor, labels: Tensor,
-                  chunk: int) -> Tensor:
+                  chunk: int, cfg: Optional[ModelConfig] = None) -> Tensor:
     """Mean CE without the (B, T, V) logits at once (the reference's
     ``_chunked_xent``): time-axis chunks of ``chunk`` positions, each
     chunk's logits under ``torch.utils.checkpoint`` (formed again in the
@@ -481,7 +654,7 @@ def _chunked_xent(hidden: Tensor, head_w: Tensor, labels: Tensor,
     for t0 in range(0, T, chunk):
         total = total + torch.utils.checkpoint.checkpoint(
             _chunk_nll, hidden[:, t0:t0 + chunk], head_w,
-            labels[:, t0:t0 + chunk], use_reentrant=False,
+            labels[:, t0:t0 + chunk], cfg, use_reentrant=False,
             preserve_rng_state=False)
     return total / (B * T)
 
@@ -496,14 +669,16 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]):
     tokens = batch["tokens"]
     if chunked:
         ce = _chunked_xent(out["hidden"][:, :-1], _head_w(params, cfg),
-                           tokens[:, 1:], cfg.loss_chunk)
+                           tokens[:, 1:], cfg.loss_chunk, cfg)
     else:
-        ce = softmax_xent(out["logits"][:, :-1].float(), tokens[:, 1:])
+        ce = softmax_xent(out["logits"][:, :-1].float(), tokens[:, 1:],
+                          vocab=cfg.vocab_size)
     loss = ce + out["aux_loss"]
     metrics = {"ce": ce, "aux_loss": out["aux_loss"]}
     if cfg.mtp:
         mtp_logits = head_logits(params, cfg, out["mtp_hidden"][:, :-2])
-        mtp_ce = softmax_xent(mtp_logits, tokens[:, 2:])
+        mtp_ce = softmax_xent(mtp_logits, tokens[:, 2:],
+                              vocab=cfg.vocab_size)
         loss = loss + 0.3 * mtp_ce
         metrics["mtp_ce"] = mtp_ce
     return loss, metrics
@@ -677,15 +852,18 @@ def decode_step(params: Params, cfg: ModelConfig, token: Tensor,
                 caches: Params) -> Tuple[Tensor, Params]:
     """One token a row: token (B, 1) int. Row b sits at position
     ``caches["index"][b]``. Returns (logits (B, 1, V) f32, the new
-    caches); the old ones are left as they were."""
+    caches); the old ones are left as they were. Under a sharded step
+    each unit gathers its leaves whole (no tensor parallelism in decode:
+    the caches hold the rank's rows with every head), and the logits
+    come as the heads give them (`vocab_shards`)."""
     x = _embed_tokens(params, cfg, token)
     if cfg.pos_embed == "learned":
         pos = (caches["index"] % cfg.max_seq_len).long()
-        x = x + params["pos_embed"][pos][:, None].to(x.dtype)
+        x = x + _top(params, "pos_embed", cfg)[pos][:, None].to(x.dtype)
     else:  # the reference adds position 0's sinusoid at every step
         x = _add_positional(params, cfg, x, offset=0)
-    shared = {k: v for k, v in params.items()
-              if k.startswith(("shared_attn/", "shared_attn_norm/"))}
+    shared = _partitioned({k: v for k, v in params.items() if k.startswith(
+        ("shared_attn/", "shared_attn_norm/"))}, "", cfg, whole=True)
     new: Params = {"index": caches["index"] + 1}
     for si, stage in enumerate(cfg.stages):
         stacked_p = {k: v.unbind(0)
@@ -694,7 +872,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: Tensor,
                      for k, v in _sub(caches, f"stage{si}").items()}
         units = []
         for r in range(stage.repeats):
-            unit_p = {k: v[r] for k, v in stacked_p.items()}
+            unit_p = _partitioned({k: v[r] for k, v in stacked_p.items()},
+                                  f"stage{si}/", cfg, lead=1, whole=True)
             unit_c = {k: v[r] for k, v in stacked_c.items()}
             unit_new: Params = {}
             for li, spec in enumerate(stage.block):

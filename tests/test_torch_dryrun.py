@@ -11,9 +11,18 @@
     allocates nothing (the meta device). The reference's
     ``repro.launch.dryrun`` is not imported: it sets ``XLA_FLAGS`` when
     imported;
-  * ``main``: a record; ``--step mhd`` for both exchanges, whose booked
-    exchange bytes equal their closed form; the multi-pod modes raising
-    naming item 15c.
+  * ``main``: a record; ``--step mhd`` for both exchanges on the 2×16×16
+    mesh, whose booked exchange bytes equal their closed form for rank
+    0's block of the public rows; ``--multi-pod``, ``--both-meshes`` and
+    ``dryrun_one(multi_pod=True)`` counting rank 0 of the reference's
+    meshes (they raised naming item 15c before the sharding within a pod
+    was ported): gemma3-12b cut in depth, rank 0's FLOPs times the chips
+    equal to the one-card count plus the reckoned repeated compute (the
+    K/V projections, which each 'model' rank computes whole where its
+    block of them would split a KV group), with a remainder of 0, and
+    under ``"fsdp"`` with no term at all;
+  * the collective bytes of a reduced qwen2.5-32b train step on a 2×2
+    mesh under ``"fsdp"`` in closed form.
 """
 import dataclasses
 import json
@@ -21,6 +30,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 
 import test_torch_threads
 from repro.common.pytree import flatten_with_paths, tree_size
@@ -155,12 +165,18 @@ def test_dryrun_one_counts_or_skips_as_the_reference(arch, shape):
 
 
 def _exchange_bytes(cfg, exchange: str, k: int = 32) -> int:
-    """The bytes rank 0 sends its partner in one pod step, in closed
-    form: the public batch's B_pub·(T−1) rows of every head (main + aux)
-    as bf16 logits, or their top-k values (bf16) and indices (int32) with
-    an f32 lse a row and head; plus the rows' bf16 embeddings."""
+    """The bytes rank 0 of the 2×16×16 mesh sends its partner in one pod
+    step, in closed form: its block of the public rows — the B_pub·(T−1)
+    positions split over 'data' (one sequence of T−1 = 4,095 rows), then
+    over 'model' (the first 4,095 mod 16 = 15 blocks a row longer: 256)
+    — of every head (main + aux) as bf16 logits, or their top-k values
+    (bf16) and indices (int32) with an f32 lse a row and head; plus the
+    rows' bf16 embeddings."""
     T = TS.INPUT_SHAPES["train_4k"].seq_len
-    rows, heads = DR.MHD_PUBLIC * (T - 1), 1 + cfg.num_aux_heads
+    data, model = 16, 16
+    per_data = DR.MHD_PUBLIC // data * (T - 1)
+    rows = per_data // model + (1 if per_data % model else 0)
+    heads = 1 + cfg.num_aux_heads
     emb = rows * cfg.d_model * 2
     if exchange == "full":
         return rows * cfg.vocab_size * heads * 2 + emb
@@ -174,7 +190,8 @@ def test_main_writes_a_record_and_refuses_the_multi_device_modes(
     exchange, gemma3-12b cut in depth (the exchange does not depend on
     it), whose booked collective-permute bytes are the closed form and
     ``topk``'s the smaller; ``--multi-pod`` / ``--both-meshes`` /
-    ``dryrun_one(multi_pod=True)`` raise naming item 15c."""
+    ``dryrun_one(multi_pod=True)`` count rank 0 of the reference's meshes
+    (`test_mesh_counts_reckon_the_repeated_compute`)."""
     if mode == "record":
         assert DR.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
                         "--out", str(tmp_path)]) == 0
@@ -192,14 +209,17 @@ def test_main_writes_a_record_and_refuses_the_multi_device_modes(
             rec = json.loads((tmp_path / f"mhd_{exchange}__gemma3-12b__"
                               f"train_4k.json").read_text())
             assert rec["status"] == "ok" and rec["mode"] == "mhd_train"
-            assert (rec["mesh"], rec["chips"]) == ("2-mhd", 2)
+            assert (rec["mesh"], rec["chips"]) == ("2x16x16-mhd", 512)
             assert rec["exchange"] == exchange and rec["topk"] == 32
             coll = rec["collective_bytes_raw"]
             sent[exchange] = coll["collective-permute"]
             assert sent[exchange] == _exchange_bytes(cut, exchange)
-            # the metrics' all-reduce: loss, ce, dist in f32
-            assert coll["all-reduce"] == 12
-            assert coll["total"] == sent[exchange] + 12
+            # the tensor-parallel and FSDP collectives within the pod
+            for kind in ("all-gather", "reduce-scatter", "all-reduce",
+                         "all-to-all"):
+                assert coll[kind] > 0, kind
+            assert coll["total"] == sum(v for k, v in coll.items()
+                                        if k != "total")
             assert rec["num_params"] == 2 * sum(
                 v.numel() for v in build_bundle(cut).init(
                     MetaDraw().manual_seed(0)).values())
@@ -208,8 +228,116 @@ def test_main_writes_a_record_and_refuses_the_multi_device_modes(
             assert ("topk_wire" in rec["kernels"]) == (exchange == "topk")
         assert sent["topk"] < sent["full"]
     else:
-        for argv in (["--multi-pod"], ["--both-meshes"]):
-            with pytest.raises(NotImplementedError, match="item 15c"):
-                DR.main(argv + ["--out", str(tmp_path)])
-        with pytest.raises(NotImplementedError, match="item 15c"):
-            DR.dryrun_one("mamba2-370m", "train_4k", multi_pod=True)
+        cut = dataclasses.replace(get_config("gemma3-12b"),
+                                  **depth_cut("gemma3-12b"))
+        monkeypatch.setattr(DR, "get_config", lambda arch: cut)
+        for argv, meshes in ((["--multi-pod"], ["2x16x16"]),
+                             (["--both-meshes"], ["16x16", "2x16x16"])):
+            assert DR.main(argv + ["--arch", "gemma3-12b", "--shape",
+                                   "train_4k", "--out", str(tmp_path)]) == 0
+            for mesh in meshes:
+                rec = json.loads((tmp_path / f"gemma3-12b__train_4k__"
+                                  f"{mesh}.json").read_text())
+                assert rec["status"] == "ok" and rec["mesh"] == mesh
+                assert rec["chips"] == DR.MESHES[mesh][0]
+                assert rec["sharding"] == "tp"
+                assert rec["collective_bytes_raw"]["total"] > 0
+        rec = DR.dryrun_one("gemma3-12b", "train_4k", multi_pod=True,
+                            verbose=False)
+        assert (rec["mesh"], rec["chips"]) == ("2x16x16", 512)
+
+def _kv_projection_flops(cfg, tokens: int) -> float:
+    """The one-card K/V projections' products over every attention
+    layer: forward 2·N·D·KV·hd each for k and v, run twice under the
+    unit's remat, and the backward's two products each."""
+    n_attn = sum(st.repeats * sum(sp.attn in ("full", "swa")
+                                  for sp in st.block) for st in cfg.stages)
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    fwd = 2.0 * tokens * cfg.d_model * kv * 2
+    return n_attn * (fwd * (2 if cfg.remat != "none" else 1) + 2 * fwd)
+
+
+def test_mesh_counts_reckon_the_repeated_compute(monkeypatch):
+    """Rank 0 of the 16×16 and 2×16×16 meshes against one card, gemma3-12b
+    cut in depth (16 heads, 8 KV heads, d_ff 15,360 and a vocabulary of
+    262,144 that 'model' divides): under ``"tp"`` every product runs on
+    1/|model| of the work but the K/V projections, which each model rank
+    computes whole for its query heads' groups (8 KV heads do not divide
+    over 16 ranks), so rank 0's FLOPs × chips = the one-card count +
+    15 × those projections; under ``"fsdp"`` every rank computes the whole
+    model on its tokens, so × chips = the one-card count. Remainder 0."""
+    cut = dataclasses.replace(get_config("gemma3-12b"),
+                              **depth_cut("gemma3-12b"))
+    monkeypatch.setattr(DR, "get_config", lambda arch: cut)
+    one = DR.dryrun_one("gemma3-12b", "train_4k", verbose=False)
+    shape = TS.INPUT_SHAPES["train_4k"]
+    kv = _kv_projection_flops(cut, shape.global_batch * shape.seq_len)
+    for mesh, sharding, repeated in (("16x16", "tp", 15 * kv),
+                                     ("2x16x16", "tp", 15 * kv),
+                                     ("16x16", "fsdp", 0.0)):
+        rec = DR.dryrun_one("gemma3-12b", "train_4k", mesh=mesh,
+                            sharding=sharding, verbose=False)
+        chips = DR.MESHES[mesh][0]
+        remainder = rec["hlo_cost"]["flops"] * chips - (
+            one["hlo_cost"]["flops"] + repeated)
+        assert remainder == 0, (mesh, sharding, remainder)
+        # each rank holds its blocks: the arguments shrink
+        assert rec["memory"]["argument_size_in_bytes"] < \
+            one["memory"]["argument_size_in_bytes"] / 64
+
+
+def test_fsdp_collective_bytes_in_closed_form():
+    """A reduced qwen2.5-32b train step (no remat, the dense loss) as rank
+    0 of a 2×2 (data, model) mesh under ``"fsdp"``, counted on meta:
+    every leaf cut on both axes is gathered whole where it is used, once
+    (its block, S/4, along 'data', then S/2 along 'model': ¾ S all-gathered
+    for its S bytes) and its gradient reduce-scattered back (S along
+    'model', then S/2: 1½ S); a leaf cut on 'model' only (the q/k/v
+    biases) all-gathers S/2, reduce-scatters S and all-reduces its block
+    S/2 over 'data'; a whole leaf all-reduces its gradient, S, over both
+    axes; the metrics (loss, ce, aux_loss in f32) all-reduce 12 bytes.
+    The aux heads, which the dense loss forms and nothing reads, have no
+    backward to reduce-scatter (their gradient is zero)."""
+    from repro_torch.common.sharding import use_mesh
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.shardings import (apply_sharding_strategy,
+                                              partition_specs)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.roofline.op_cost import OpCounter
+
+    cfg = get_reduced("qwen2.5-32b")
+    assert cfg.remat == "none" and cfg.loss_impl == "dense"
+    bundle = build_bundle(cfg)
+    opt = make_optimizer(OptimizerConfig(name="sgd_momentum", init_lr=0.1,
+                                         total_steps=10))
+    whole = bundle.init(MetaDraw().manual_seed(0))
+    sizes = {"data": 2, "model": 2}
+    specs = partition_specs(whole, sizes)
+    want = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 12.0}
+    for k, v in whole.items():
+        S = v.numel() * v.element_size()
+        used = [e for e in specs.get(k, ()) if e is not None]
+        if len(used) == 2:
+            want["all-gather"] += 0.75 * S
+            want["reduce-scatter"] += 1.5 * S * (k != "aux_heads")
+        elif used == ["model"]:
+            want["all-gather"] += 0.5 * S
+            want["reduce-scatter"] += S
+            want["all-reduce"] += 0.5 * S
+        else:
+            assert not used, k
+            want["all-reduce"] += S
+    apply_sharding_strategy("fsdp")
+    try:
+        with DR.fake_group(4):
+            mesh = make_test_mesh((2, 2), ("data", "model"), "cpu")
+            with use_mesh(mesh):
+                state = train_state_shapes(bundle, opt)
+                batch = {"tokens": torch.empty((8, 64), dtype=torch.int32,
+                                               device="meta")}
+                with OpCounter(args=(state, batch)) as counter:
+                    make_train_step(bundle, opt)(state, batch)
+    finally:
+        apply_sharding_strategy("tp")
+    assert counter.coll == want

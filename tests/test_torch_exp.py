@@ -326,19 +326,46 @@ def _roofline():
         assert row["attainable_flops_per_s"] > 0
 
 
-def _dryrun_mhd():
-    """The reference's MHD dry run partitions each pod's dense layers on
-    its 2×16×16 mesh; the port counts one pod rank's step (``--step mhd``,
-    tests/test_torch_dryrun.py), and the multi-pod mesh is item 15c."""
-    from repro_torch.launch.dryrun import main
+def _gemma_cut():
+    from repro_torch.configs import get_config
 
-    main(["--step", "mhd", "--multi-pod"])
+    cfg = get_config("gemma3-12b")
+    stages = tuple(dataclasses.replace(st, repeats=1) for st in cfg.stages)
+    return {"stages": stages, "num_layers": sum(len(st.block)
+                                                for st in stages)}
+
+
+def _dryrun_mhd():
+    """The reference's MHD dry run partitions each pod's layers on its
+    2×16×16 mesh; so does the port's (it counted one pod rank's step with
+    its leaves whole and raised on ``--multi-pod`` before the sharding
+    within a pod, item 15c): gemma3-12b cut in depth, rank 0 of the
+    2×16×16 mesh, its leaves cut by the rules, the exchange booked."""
+    from repro_torch.launch.dryrun import dryrun_mhd
+
+    rec = dryrun_mhd("gemma3-12b", overrides=_gemma_cut(), exchange="topk",
+                     verbose=False)
+    assert (rec["status"], rec["mesh"], rec["chips"]) == (
+        "ok", "2x16x16-mhd", 512)
+    assert rec["collective_bytes_raw"]["collective-permute"] > 0
+    assert rec["collective_bytes_raw"]["all-gather"] > 0
 
 
 def _dryrun_multi_pod():
+    """``--multi-pod`` counts rank 0 of the 2×16×16 mesh (it raised naming
+    item 15c before): mamba2-370m at full width and depth."""
+    import json
+    import tempfile
+
     from repro_torch.launch.dryrun import main
 
-    main(["--multi-pod", "--arch", "mamba2-370m", "--shape", "train_4k"])
+    with tempfile.TemporaryDirectory() as out:
+        assert main(["--multi-pod", "--arch", "mamba2-370m", "--shape",
+                     "train_4k", "--out", out]) == 0
+        with open(f"{out}/mamba2-370m__train_4k__2x16x16.json") as f:
+            rec = json.load(f)
+    assert (rec["status"], rec["mesh"], rec["chips"]) == (
+        "ok", "2x16x16", 512)
 
 
 def _mla():
@@ -386,24 +413,15 @@ def _cross():
     assert torch.isfinite(loss) and set(metrics) == {"ce", "aux_loss"}
 
 
-# what the port does not run yet: each raises naming its ROADMAP item
-DEFERRED = {
-    "dryrun_mhd": (_dryrun_mhd, "item 15c"),
-    "--multi-pod": (_dryrun_multi_pod, "item 15c"),
-}
-# features deferred once and ported since: each builds and runs
+# features deferred once and ported since: each builds and runs (the port
+# defers none of the reference's features now)
 PORTED_SINCE = {
     "mla": _mla,
     "cross_attention": _cross,
     "roofline": _roofline,
+    "dryrun_mhd": _dryrun_mhd,
+    "--multi-pod": _dryrun_multi_pod,
 }
-
-
-@pytest.mark.parametrize("case", sorted(DEFERRED))
-def test_deferred_features_raise_naming_their_item(case):
-    act, item = DEFERRED[case]
-    with pytest.raises(NotImplementedError, match=item):
-        act()
 
 
 @pytest.mark.parametrize("case", sorted(PORTED_SINCE))

@@ -16,6 +16,12 @@ the JAX package's, on the CPU.
   * a non-ring adjacency (the reference's gather form), K = 4, at world
     size 1 and across 2 pods of two clients each (local and remote
     moves);
+  * reduced minitron-4b, top-k exchange, on a (pod 2, model 2) mesh
+    under the ``"tp"`` strategy (each pod's leaves cut over 'model', its
+    attention and MLP tensor-parallel, each model rank scoring its block
+    of the public rows) and under ``"fsdp"`` (the model ranks splitting
+    the tokens, the leaves gathered where used), against the reference's
+    jitted step, every rank's blocks put back together by their specs;
   * reduced arctic-480b on the expert-parallel MoE (``moe_impl="a2a"``),
     both clients in one pod whose two ranks split the tokens over
     'model', against the reference's step on the same (pod 1, model 2)
@@ -77,6 +83,10 @@ MESHES = {2: ((2,), ("pod",)), 4: ((2, 2), ("pod", "data"))}
 # two ranks split the tokens over 'model' (the reference: a forced
 # two-device mesh in a subprocess)
 A2A, A2A_MESH = "arctic-a2a", ((1, 2), ("pod", "model"))
+# tensor and FSDP sharding within each of two pods: the pod step on a
+# (pod 2, model 2) mesh under each strategy
+POD_MODEL = {f"minitron-4b-topk-pod-model-{s}": s for s in ("tp", "fsdp")}
+POD_MODEL_MESH = {4: ((2, 2), ("pod", "model"))}
 # not a ring: client 0 teaches 1 (its own pod at two pods) and 2 (the
 # other pod); 3 learns from 2 in its pod, 0 from 3 across
 GATHER = ((3,), (0,), (0,), (2,))
@@ -122,6 +132,10 @@ def cases():
     out["gather"]["mesh"] = {2: ((2,), ("pod",))}
     out[A2A] = case("arctic-480b", "topk", moe_impl="a2a")
     out[A2A]["mesh"] = {2: A2A_MESH}
+    for name, strategy in POD_MODEL.items():
+        out[name] = case("minitron-4b", "topk")
+        out[name]["mesh"] = POD_MODEL_MESH
+        out[name]["sharding"] = strategy
     return out
 
 
@@ -221,6 +235,9 @@ def reference(cases, ranked):
     out = {}
     for name, c in cases.items():
         if name == A2A:  # on its mesh in `ranked`'s subprocess
+            continue
+        if name in POD_MODEL:  # the same function as minitron-4b-topk's
+            out[name] = out["minitron-4b-topk"]
             continue
         jopt = jax_optimizer(JOptimizerConfig(**c["opt"]))
         d = c["dist"]
@@ -345,7 +362,8 @@ def assembled(ranks: dict, name: str):
 
 @pytest.mark.parametrize("name,world", [(n, w) for n in CASES
                                         for w in sorted(MESHES)]
-                         + [("gather", 2), (A2A, 2)])
+                         + [("gather", 2), (A2A, 2)]
+                         + [(n, 4) for n in POD_MODEL])
 def test_pod_step_across_ranks_matches_the_reference(name, world, reference,
                                                      ranks_done):
     """Across ranks against the reference; the a2a case against the

@@ -7,8 +7,10 @@ joins every process with a deadline, terminating all and failing on
 expiry. The rank bodies below import torch
 and the port only (no jax): `pod_steps` runs
 `core.mhd_distributed.make_distributed_mhd_step`, `a2a_cases`
-`models.moe_a2a.moe_apply_a2a`, each reading its inputs from and writing
-each rank's results to ``torch.save`` files.
+`models.moe_a2a.moe_apply_a2a`, `tp_steps` the sharded
+`launch.steps.make_train_step` / `make_mhd_train_step`,
+`vocab_rows_case` `common.sharding.vocab_to_rows`, each reading its
+inputs from and writing each rank's results to ``torch.save`` files.
 """
 import datetime
 import multiprocessing
@@ -88,14 +90,16 @@ def wait_ranks(handle, timeout: float = TIMEOUT_S) -> None:
 
 def pod_steps(rank, world, in_path, out_path):
     """Every case of ``in_path`` on this rank's block of the fleet: its
-    params after the steps (expert shards among them for an a2a MoE),
-    each step's metrics, its clients and its coordinates in its pod."""
+    params after the steps (each leaf its block by the sharding rules on
+    its pod's axes, under the strategy the case names, "tp" by default),
+    each step's metrics, its clients, its coordinates in its pod and the
+    leaves' specs."""
     import torch
 
     from repro_torch.core import mhd_distributed as MD
     from repro_torch.core.mhd import MHDConfig
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.shardings import expert_specs
+    from repro_torch.launch.shardings import apply_sharding_strategy
     from repro_torch.models import build_bundle
     from repro_torch.optim import OptimizerConfig, make_optimizer
 
@@ -107,6 +111,7 @@ def pod_steps(rank, world, in_path, out_path):
         if (shape, axes) not in meshes:
             meshes[shape, axes] = make_test_mesh(shape, axes, "cpu")
         mesh = meshes[shape, axes]
+        apply_sharding_strategy(c.get("sharding", "tp"))
         bundle = build_bundle(c["cfg"])
         opt = make_optimizer(OptimizerConfig(**c["opt"]))
         dcfg = MD.DistributedMHDConfig(**c["dist"])
@@ -126,15 +131,16 @@ def pod_steps(rank, world, in_path, out_path):
                      "coords": tuple(int(mesh.get_local_rank(a))
                                      for a in lay.inner),
                      "sizes": inner,
-                     "specs": expert_specs(MD._meta_params(bundle),
-                                           bundle.config, inner)}
+                     "specs": MD.pod_specs(bundle, mesh, lay)}
+        apply_sharding_strategy("tp")
     torch.save(out, f"{out_path}.{rank}")
 
 
 def a2a_cases(rank, world, in_path, out_path):
     """Every case of ``in_path`` whose mesh has ``world`` ranks:
-    `moe_apply_a2a` on this rank's block of the tokens and its shards of
-    the expert weights (cut by the sharding rules), then the backward of
+    `moe_apply_a2a` on this rank's block of the tokens over every axis
+    (the ``"fsdp"`` strategy's layout) and its shards of the expert
+    weights (cut by the sharding rules), then the backward of
     its loss |ranks|·Σ y·cot + c·aux, whose mean over the ranks is the
     reference's Σ y·cot + c·aux. Writes y, the aux, each leaf's gradient
     under the mean convention (summed over the ranks that hold the same
@@ -145,9 +151,11 @@ def a2a_cases(rank, world, in_path, out_path):
 
     from repro_torch.common.sharding import axis_index, group_of, use_mesh
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.shardings import param_pspec, shard_leaf
+    from repro_torch.launch.shardings import (apply_sharding_strategy,
+                                              param_pspec, shard_leaf)
     from repro_torch.models.moe_a2a import moe_apply_a2a
 
+    apply_sharding_strategy("fsdp")
     cases = torch.load(in_path, weights_only=False)
     out, meshes = {}, {}
     for name, c in cases.items():
@@ -190,3 +198,98 @@ def a2a_cases(rank, world, in_path, out_path):
                      "coords": tuple(coords[a] for a in axes),
                      "specs": specs}
     torch.save(out, f"{out_path}.{rank}")
+
+
+def tp_steps(rank, world, in_path, out_path):
+    """Every case of ``in_path`` whose (data, model) mesh has ``world``
+    ranks, under the case's strategy, from this rank's blocks of the
+    case's params (cut by `launch.shardings.partition_specs`) over its
+    global batches: `launch.steps.make_train_step`, or for a case with
+    ``"mhd"`` `make_mhd_train_step` with the Δ teachers' blocks cut alike.
+    A case with ``"count"`` counts its first step with
+    `roofline.op_cost.OpCounter`. Writes the rank's blocks after the
+    steps, each step's metrics, its coordinates, the specs, the blocks'
+    shapes from `train_state_shapes` and the count."""
+    import torch
+
+    from repro_torch.common.sharding import active_partition, use_mesh
+    from repro_torch.core.mhd import MHDConfig
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.shardings import apply_sharding_strategy
+    from repro_torch.models import build_bundle
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.roofline.op_cost import OpCounter
+
+    cases = torch.load(in_path, weights_only=False)
+    out, meshes = {}, {}
+    for name, c in cases.items():
+        shape, axes = c["mesh"]
+        if int(torch.tensor(shape).prod()) != world:
+            continue
+        if (shape, axes) not in meshes:
+            meshes[shape, axes] = make_test_mesh(shape, axes, "cpu")
+        mesh = meshes[shape, axes]
+        apply_sharding_strategy(c["sharding"])
+        try:
+            bundle = build_bundle(c["cfg"])
+            opt = make_optimizer(OptimizerConfig(**c["opt"]))
+            if "mhd" in c:
+                step = ST.make_mhd_train_step(bundle, opt,
+                                              MHDConfig(**c["mhd"]))
+            else:
+                step = ST.make_train_step(bundle, opt)
+            count = None
+            with use_mesh(mesh):
+                part = active_partition()
+                specs = ST.mesh_specs(bundle, part)
+                params = ST.shard_rank(c["params"], specs, part)
+                extra = ({"teacher_params": ST.shard_rank(
+                    c["teachers"], specs, part, lead=1)}
+                    if "mhd" in c else {})
+                state = {"params": params, "opt": opt.init(params),
+                         "step": 0}
+                metrics = []
+                for t, batch in enumerate(c["batches"]):
+                    batch = {**batch, **extra}
+                    if t == 0 and c.get("count"):
+                        with OpCounter(args=(state, batch)) as counter:
+                            state, m = step(state, batch)
+                        count = counter.to_dict()
+                    else:
+                        state, m = step(state, batch)
+                    metrics.append({k: float(v) for k, v in m.items()})
+                shapes = ST.train_state_shapes(bundle, opt)["params"]
+        finally:
+            apply_sharding_strategy("tp")
+        out[name] = {"params": state["params"], "metrics": metrics,
+                     "coords": tuple(int(mesh.get_local_rank(a))
+                                     for a in axes),
+                     "specs": specs, "count": count,
+                     "meta_shapes": {k: tuple(v.shape)
+                                     for k, v in shapes.items()}}
+    torch.save(out, f"{out_path}.{rank}")
+
+def vocab_rows_case(rank, world, out_path):
+    """`common.sharding.vocab_to_rows` of 7 rows of a 10-wide vocabulary,
+    this rank holding its 5 columns, then the backward of Σ rows·cot:
+    writes the whole rows, the cotangent, this rank's rows and its
+    columns' gradient."""
+    import torch
+
+    from repro_torch.common.sharding import use_mesh, vocab_to_rows
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh((world,), ("model",), "cpu")
+    g = torch.Generator().manual_seed(0)
+    whole = torch.randn(7, 10, generator=g)
+    cot = torch.randn(7, 10, generator=g)
+    n = 10 // world
+    x = whole[:, rank * n:(rank + 1) * n].clone().requires_grad_()
+    with use_mesh(mesh):
+        rows = vocab_to_rows(x)
+    lo = sum(4 if r < 1 else 3 for r in range(rank))
+    (rows * cot[lo:lo + rows.shape[0]]).sum().backward()
+    torch.save({"whole": whole, "cot": cot, "rows": rows.detach(),
+                "grad": x.grad}, f"{out_path}.{rank}")
+
