@@ -1,3 +1,6 @@
+# The Triton kernels that src/repro_torch/kernels/csrc/emb_dist.cu replaced,
+# kept below as they were in the package: the baseline that
+# ablations/emb_dist.py loads and times (build.py no longer loads them).
 """Triton kernels of the normalized embedding distance, Eq. 2 (Hopper).
 
 Replaces the Pallas TPU kernel ``repro/kernels/emb_dist.py:emb_dist``

@@ -20,7 +20,10 @@ the checkout (into ``build/``), then
      at the main paths' shapes and at edge cases, and times kernel, plain
      version and one library yardstick with CUDA events (median of
      repeated calls), and the launch floor (a one-element fill's device
-     time under the profiler);
+     time under the profiler); emb_dist, whose launch costs the host more
+     than its work costs the card, by a CUDA graph of launches over
+     inputs rotated past the L2 (device time) and by the host's clock
+     (host time a call);
   4. checks the fused wire encodes on the card byte for byte against the
      host: the fixed top-k frame at the ResNet path's shape against the
      numpy host path, the adaptive delta-compressed frame at the LM path's
@@ -188,6 +191,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -711,6 +715,65 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+# inputs rotated over copies that hold at least this many bytes, more
+# than the H100's 50 MB L2: each launch finds its inputs in device memory,
+# as a path's would after a model step
+COLD_BYTES = 64 * 2**20
+
+
+def cold_copies(make, nbytes: int) -> list:
+    """``make()`` (a call's arguments, ``nbytes`` of them) as many times as
+    the cold rotation needs, one more than fill COLD_BYTES."""
+    return [make() for _ in range(-(-COLD_BYTES // max(nbytes, 1)) + 1)]
+
+
+def graph_ms(fn, copies: list) -> float:
+    """Device ms a call of ``fn``: one round of calls over the rotated
+    ``copies`` of its arguments (at least 20 calls), captured in one CUDA
+    graph; CUDA events around each replay, the median of 5 over the
+    calls. The host's launch cost is left out."""
+    launches = max(len(copies), 20)
+    for args in copies[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    # a graph collected during this capture would invalidate it
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            for i in range(launches):
+                fn(*copies[i % len(copies)])
+    finally:
+        gc.enable()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    del graph
+    return statistics.median(times)
+
+
+def host_ms(fn, copies: list, calls: int = 200) -> float:
+    """Host ms a call of ``fn``: ``calls`` calls over the rotated copies on
+    the host's clock with no synchronise among them (the enqueue rate)."""
+    for args in copies[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(*copies[i % len(copies)])
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
 def bound(nbytes: float, flops: float) -> tuple:
     """The least time of the work, ms: its bytes over the card's memory
     rate or its f32 operations over the f32 peak, the larger."""
@@ -757,12 +820,15 @@ def phase_device() -> dict:
             "cuda": torch.version.cuda}
 
 
+CUDA_SOURCES = ("topk_wire", "emb_dist", "ssd_scan", "flash_attention")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build_cuda(["topk_wire", "ssd_scan", "flash_attention"])
+    build.build_cuda(CUDA_SOURCES)
     RECORD["build_s"] = time.perf_counter() - t0
     log(f"build: nvcc {RECORD['build_s']:.2f} s")
-    for name in ("topk_wire", "ssd_scan", "flash_attention"):
+    for name in CUDA_SOURCES:
         fn = name
         for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             # the kernel's name and template arguments, still mangled
@@ -1555,9 +1621,14 @@ def _emb_library(s, t):
 
 
 def phase_emb_dist(dev) -> list:
+    """emb_dist forward and backward against the plain versions at the
+    paths' rows and the edges (s == t, E = 8,192, an odd E on the scalar
+    path, a bf16 student against an f32 teacher); timed at the ResNet
+    path's and both pod rows (`_emb_timing`)."""
     g = torch.Generator(device=dev).manual_seed(2)
     rows = BATCH  # Δ·B
     err_f, err_b = 0.0, 0.0
+    f32 = torch.float32
     for name, B, D in (("slice", rows, E), ("large", 256, 8192),
                        ("s==t", rows, E),
                        ("gossip_socket", preset_shapes("gossip_socket")[2],
@@ -1566,8 +1637,13 @@ def phase_emb_dist(dev) -> list:
                        # Δ = 2
                        ("pod", POD_ROWS, POD_CFG.d_model),
                        ("pod mhd_train_step", 2 * POD_ROWS,
-                        POD_CFG.d_model)):
-        s = torch.randn(B, D, generator=g, device=dev)
+                        POD_CFG.d_model),
+                       # one element a load: E odd
+                       ("odd E", 37, 1001),
+                       # a bf16 student against an f32 teacher
+                       ("bf16 student", 64, 1024)):
+        s_dt = torch.bfloat16 if name == "bf16 student" else f32
+        s = torch.randn(B, D, generator=g, device=dev).to(s_dt)
         t = s.clone() if name == "s==t" else torch.randn(
             B, D, generator=g, device=dev)
         gd = torch.randn(B, generator=g, device=dev)
@@ -1576,10 +1652,17 @@ def phase_emb_dist(dev) -> list:
         gs_ref = EMB.emb_dist_bwd_plain(s, t, gd)
         torch.cuda.synchronize()
         check(close(o, o_ref, TOL_F32, TOL_F32), f"emb_dist {name}")
-        check(close(gs, gs_ref, TOL_F32, TOL_GRAD_ABS),
-              f"emb_dist bwd {name}")
-        err_f, err_b = max(err_f, maxerr(o, o_ref)), max(err_b,
-                                                         maxerr(gs, gs_ref))
+        if s_dt == f32:
+            check(close(gs, gs_ref, TOL_F32, TOL_GRAD_ABS),
+                  f"emb_dist bwd {name}")
+            err_b = max(err_b, maxerr(gs, gs_ref))
+        else:
+            check(gs.dtype == s_dt and close(
+                gs, gs_ref, TOL_BF16_GRAD_REL, TOL_BF16_GRAD_ABS),
+                f"emb_dist bwd {name}")
+        if name == "s==t":
+            check(bool((o == 0).all()), "emb_dist s==t: exactly 0")
+        err_f = max(err_f, maxerr(o, o_ref))
         SHAPES_HELD["emb_dist"].add((B, D))
         log(f"emb_dist {name} ({B}, {D}): fwd max|d|={maxerr(o, o_ref):.3g}"
             f" bwd max|d|={maxerr(gs, gs_ref):.3g}")
@@ -1588,12 +1671,16 @@ def phase_emb_dist(dev) -> list:
     pod = {name: _emb_timing(dev, g, B, POD_CFG.d_model)
            for name, B in (("pod", POD_ROWS),
                            ("pod mhd_train_step", 2 * POD_ROWS))}
-    for name, (x, y) in pod.items():
-        log(f"emb_dist timing at {name} {x['shape']}: fwd {x['ms']:.4f} ms "
-            f"(plain {x['plain_ms']:.4f}, library {x['library_ms']:.4f}, "
-            f"bound {x['bound_ms']:.5f}: {100 * x['bound_ms'] / x['ms']:.1f}"
-            f" %), bwd {y['ms']:.4f} ms (plain {y['plain_ms']:.4f}, bound "
-            f"{y['bound_ms']:.5f}: {100 * y['bound_ms'] / y['ms']:.1f} %)")
+    for name, (x, y) in {"resnet": (fwd, bwd), **pod}.items():
+        for what, z in (("fwd", x), ("bwd", y)):
+            lib = "none" if z["library_ms"] is None \
+                else f"{z['library_ms']:.4f}"
+            log(f"emb_dist {what} timing at {name} {z['shape']}: device "
+                f"{z['ms']:.4f} ms by graph, cold (bound {z['bound_ms']:.5f}"
+                f": {100 * z['bound_ms'] / z['ms']:.1f} %), host "
+                f"{z['host_ms']:.4f} ms a call, a call's events "
+                f"{z['event_ms']:.4f} ms; plain {z['plain_ms']:.4f}, "
+                f"library {lib} (by graph)")
     return [{**EMB.INFO_FWD, **fwd, "max_abs_err": err_f,
              "at_pod_shapes": {n: x for n, (x, _) in pod.items()}},
             {**EMB.INFO_BWD, **bwd, "max_abs_err": err_b,
@@ -1601,21 +1688,34 @@ def phase_emb_dist(dev) -> list:
 
 
 def _emb_timing(dev, g, B: int, D: int) -> tuple:
-    """emb_dist's forward and backward kernel, plain and library times at
-    (B, D) f32, with their bounds."""
-    s = torch.randn(B, D, generator=g, device=dev)
-    t = torch.randn(B, D, generator=g, device=dev)
-    gd = torch.randn(B, generator=g, device=dev)
+    """emb_dist's forward and backward at (B, D) f32, with their bounds:
+    ``ms``, the kernel's device time (`graph_ms`: a CUDA graph of
+    launches over inputs rotated past the L2); ``host_ms``, the wrapper's
+    host time a call (`host_ms`); ``event_ms``, a call's CUDA-event
+    median (`time_ms`, the host's launch cost included, as timed before);
+    the plain version and the library call by graph too."""
+    def make():
+        return (torch.randn(B, D, generator=g, device=dev),
+                torch.randn(B, D, generator=g, device=dev),
+                torch.randn(B, generator=g, device=dev))
+
+    copies = cold_copies(make, 2 * B * D * 4)
+    pairs = [c[:2] for c in copies]
+    s, t, gd = copies[0]
     fb, fby = kernel_bound(EMB.cost_fwd(B, D))
     bb, bby = kernel_bound(EMB.cost_bwd(B, D))
     fwd = {"shape": [B, D],
-           "ms": time_ms(lambda: EMB.emb_dist_fwd_kernel(s, t)),
-           "plain_ms": time_ms(lambda: EMB.emb_dist_plain(s, t)),
+           "ms": graph_ms(EMB.emb_dist_fwd_kernel, pairs),
+           "host_ms": host_ms(EMB.emb_dist_fwd_kernel, pairs),
+           "event_ms": time_ms(lambda: EMB.emb_dist_fwd_kernel(s, t)),
+           "plain_ms": graph_ms(EMB.emb_dist_plain, pairs),
            "bound_ms": fb, "bound_by": fby,
-           "library_ms": time_ms(lambda: _emb_library(s, t))}
+           "library_ms": graph_ms(_emb_library, pairs)}
     bwd = {"shape": [B, D],
-           "ms": time_ms(lambda: EMB.emb_dist_bwd_kernel(s, t, gd)),
-           "plain_ms": time_ms(lambda: EMB.emb_dist_bwd_plain(s, t, gd)),
+           "ms": graph_ms(EMB.emb_dist_bwd_kernel, copies),
+           "host_ms": host_ms(EMB.emb_dist_bwd_kernel, copies),
+           "event_ms": time_ms(lambda: EMB.emb_dist_bwd_kernel(s, t, gd)),
+           "plain_ms": graph_ms(EMB.emb_dist_bwd_plain, copies),
            "bound_ms": bb, "bound_by": bby, "library_ms": None}
     return fwd, bwd
 

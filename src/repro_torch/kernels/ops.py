@@ -10,7 +10,7 @@ on any device, is one entry of its kernel module's ``cost`` for each of
 its forward and backward (`kernels/counted.py` on meta and on the CPU).
 
   dist_ce          Triton (csrc/dist_ce_triton.py), forward + backward
-  emb_dist         Triton (csrc/emb_dist_triton.py), forward + backward
+  emb_dist         CUDA C++ (csrc/emb_dist.cu), forward + backward
   flash_attention  CUDA C++ (csrc/flash_attention.cu), forward + backward
   ssd_scan         CUDA C++ (csrc/ssd_scan.cu), forward + backward
   topk_wire        CUDA C++ (csrc/topk_wire.cu)

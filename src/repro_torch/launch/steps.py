@@ -33,8 +33,10 @@ signatures: the state is this rank's blocks of the leaves by the sharding
 rules (`launch.shardings.partition_specs` on the mesh's axes;
 `train_state_shapes` gives them on meta, `shard_params` cuts a whole
 state), the batch is the global one, of which the rank takes its rows
-over the token axes ('pod', 'data', and 'model' under ``"fsdp"``). The
-step computes the unsharded step's function: a rank's gradient is its
+over the token axes ('pod', 'data', and 'model' under ``"fsdp"``), or
+all of them where those shards do not divide it (the reference's
+``batch_shardings`` replicates such a batch; a MoE train step refuses
+one). The step computes the unsharded step's function: a rank's gradient is its
 block of the mean of the token shards' gradients (summed over the ranks
 that share a block by the gathers' backward and by an all-reduce over
 the token axes the block repeats on, divided by their number), and the
@@ -133,7 +135,19 @@ def make_train_step(bundle: ModelBundle, optimizer: Optimizer) -> Callable:
         if part is None:
             return _descend(optimizer, state,
                             lambda p: bundle.loss(p, batch))
-        local = {k: _token_rows(v, part) for k, v in batch.items()}
+        if bundle.config.moe is not None and any(
+                v.shape[0] % part.n_token_shards for v in batch.values()):
+            # the MoE region takes each rank's batch as its block of the
+            # tokens (moe_a2a's layout): on a replicated batch it would
+            # have to split the tokens itself and gather y back
+            raise ValueError(
+                f"a MoE train step takes a batch that its "
+                f"{part.n_token_shards} token shards divide: the expert "
+                f"region does not run on a replicated batch")
+        # a batch the token shards do not divide runs whole on every rank
+        # (the reference replicates it); the mean over the token shards of
+        # the equal gradients and metrics is then the whole batch's
+        local = {k: _forward_rows(v, part) for k, v in batch.items()}
         return _sharded(part, mesh_specs(bundle, part), optimizer, state,
                         lambda p: bundle.loss(p, local))
 
@@ -142,7 +156,7 @@ def make_train_step(bundle: ModelBundle, optimizer: Optimizer) -> Callable:
 
 def _forward_rows(x: torch.Tensor, part: SH.Partition,
                   dim: int = 0) -> torch.Tensor:
-    """A forward-only step's rows: this rank's where the token shards
+    """A step's rows of a global batch: this rank's where the token shards
     divide the batch, else all of them (every rank computes the whole
     batch, as the reference's batch sharding replicates it)."""
     n = part.n_token_shards

@@ -20,7 +20,9 @@
     equal to the one-card count plus the reckoned repeated compute (the
     K/V projections, which each 'model' rank computes whole where its
     block of them would split a KV group), with a remainder of 0, and
-    under ``"fsdp"`` with no term at all;
+    under ``"fsdp"`` with no term at all; ``--multi-pod --sharding
+    fsdp`` on train_4k, whose batch the 512 ranks do not divide, with
+    rank 0's FLOPs equal to one card's (every rank computes it whole);
   * the collective bytes of a reduced qwen2.5-32b train step on a 2×2
     mesh under ``"fsdp"`` in closed form.
 """
@@ -284,6 +286,35 @@ def test_mesh_counts_reckon_the_repeated_compute(monkeypatch):
         # each rank holds its blocks: the arguments shrink
         assert rec["memory"]["argument_size_in_bytes"] < \
             one["memory"]["argument_size_in_bytes"] / 64
+
+
+def test_multi_pod_fsdp_runs_a_batch_its_ranks_do_not_divide(
+        monkeypatch, tmp_path):
+    """``--multi-pod --sharding fsdp`` counts train_4k, whose 256
+    sequences do not split over the 2×16×16 mesh's 512 token shards:
+    every rank computes the whole batch, as the reference's batch
+    sharding replicates it, so rank 0's FLOPs equal the one-card count
+    (gemma3-12b cut in depth). A MoE arch refuses such a batch, naming
+    the reason (arctic-480b cut in depth)."""
+    cut = dataclasses.replace(get_config("gemma3-12b"),
+                              **depth_cut("gemma3-12b"))
+    monkeypatch.setattr(DR, "get_config", lambda arch: cut)
+    one = DR.dryrun_one("gemma3-12b", "train_4k", verbose=False)
+    assert DR.main(["--multi-pod", "--sharding", "fsdp", "--arch",
+                    "gemma3-12b", "--shape", "train_4k", "--out",
+                    str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "gemma3-12b__train_4k__2x16x16.json")
+                     .read_text())
+    assert rec["status"] == "ok" and rec["sharding"] == "fsdp"
+    assert (rec["mesh"], rec["chips"]) == ("2x16x16", 512)
+    assert rec["hlo_cost"]["flops"] == one["hlo_cost"]["flops"]
+    assert rec["collective_bytes_raw"]["total"] > 0
+    moe = dataclasses.replace(get_config("arctic-480b"),
+                              **depth_cut("arctic-480b"))
+    monkeypatch.setattr(DR, "get_config", lambda arch: moe)
+    with pytest.raises(ValueError, match="replicated batch"):
+        DR.dryrun_one("arctic-480b", "train_4k", mesh="2x16x16",
+                      sharding="fsdp", verbose=False)
 
 
 def test_fsdp_collective_bytes_in_closed_form():

@@ -208,6 +208,71 @@ def test_cpu_tensor_takes_plain_version_and_counts_nothing():
         "flash_attention_bwd"]
 
 
+def test_emb_dist_is_the_cuda_kernel():
+    info = {i["name"]: i for i, _ in ops.KERNELS}
+    root = Path(__file__).resolve().parents[1]
+    for name in ("emb_dist_fwd", "emb_dist_bwd"):
+        assert info[name]["route"] == "cuda"
+        assert info[name]["source"] == \
+            "src/repro_torch/kernels/csrc/emb_dist.cu"
+        assert info[name]["replaces"] == "src/repro/kernels/emb_dist.py:39"
+    assert (root / info["emb_dist_fwd"]["source"]).is_file()
+    assert not list(build.CSRC.glob("emb_dist*.py"))
+
+
+EMB_E = [1, 3, 511, 512, 513, 1024, 1028, 8191, 8192]
+
+
+@pytest.mark.parametrize("E", EMB_E)
+@pytest.mark.parametrize("size", [4, 2])
+def test_emb_dist_geometry_covers_each_element_once(E, size):
+    """`launch_geometry`'s (block, warp, lane, vector) map, as the kernels
+    index: each row of a block's groups gets each of its E columns from
+    exactly one (warp, lane, chunk, element) of its group, in loads that
+    stay inside the row; the 16-byte path only for aligned rows whose E
+    the vector divides; at most 8 warps a block, a warp at most 1,024
+    elements."""
+    for aligned in (True, False):
+        g = EMB.launch_geometry(E, size, size, aligned)
+        vec16 = aligned and E % (16 // size) == 0
+        assert g.path == ("vec16" if vec16 else "scalar")
+        assert g.vec * size == 16 if vec16 else g.vec == 1
+        assert g.threads == 32 * g.warps_per_row * g.rows_per_block <= 256
+        assert g.vec * g.chunks * 32 == EMB.WARP_SPAN
+        B = 2 * g.rows_per_block + 1
+        seen = np.zeros((g.grid(B) * g.rows_per_block, E), np.int64)
+        w, lane, c, v = np.meshgrid(np.arange(g.threads // 32),
+                                    np.arange(32), np.arange(g.chunks),
+                                    np.arange(g.vec), indexing="ij")
+        for block in range(g.grid(B)):
+            row = block * g.rows_per_block + w // g.warps_per_row
+            col = EMB.element_index(g, w % g.warps_per_row, lane, c, v)
+            # a vector is loaded whole or not at all: its first column
+            # decides, and its last stays inside the row
+            first = EMB.element_index(g, w % g.warps_per_row, lane, c, 0)
+            take = first < E
+            assert (col[take] < E).all()
+            np.add.at(seen, (row[take], col[take]), 1)
+        assert (seen[:B] == 1).all(), (E, size, aligned)
+
+
+def test_emb_dist_takes_16_byte_loads_only_when_aligned():
+    base = torch.zeros(8, 1032)
+    s = base[:, :1024]
+    assert EMB._geometry(s, s).path == "vec16"          # stride 1032
+    assert EMB._geometry(base[:, 1:1025], s).path == "scalar"  # off 4 bytes
+    assert EMB._geometry(base[:, 2:1026], s).path == "scalar"
+    odd = torch.zeros(8, 1030)[:, :1024]                # stride 1030
+    assert EMB._geometry(odd, s).path == "scalar"
+    half = torch.zeros(8, 1024, dtype=torch.bfloat16)
+    assert EMB._geometry(half, half).vec == 8
+    assert EMB._geometry(half, s).vec == 4              # bf16 s, f32 t
+    assert EMB._geometry(half[:, 4:], half[:, 4:]).path == "scalar"
+    assert EMB._geometry(half[:, 4:], s).path == "vec16"  # 8-byte vectors
+    wide = torch.zeros(8, 1028, dtype=torch.bfloat16)
+    assert EMB._geometry(wide[:, 2:1026], s).path == "scalar"  # off 4
+
+
 def test_kernel_entry_points_refuse_cpu_tensors():
     x = torch.randn(4, 16)
     with pytest.raises(ValueError):
@@ -278,10 +343,61 @@ def test_triton_kernels_match_plain(cuda):
     out, ref_out = DCE.dist_ce_fwd_kernel(s, t), DCE.dist_ce_fwd_plain(s, t)
     for a, b in zip(out[:3], ref_out[:3]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
-    e_s, e_t = s[:32, :512].contiguous(), t[:32, :512].contiguous()
-    torch.testing.assert_close(EMB.emb_dist_fwd_kernel(e_s, e_t),
-                               EMB.emb_dist_plain(e_s, e_t), rtol=1e-4,
+
+
+def _emb_rows(dev, B, E, dtype, seed, stride=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, stride or E, generator=g, device=dev).to(dtype)
+    return x[:, :E]
+
+
+# (B, E, student dtype, teacher dtype, row stride)
+EMB_KERNEL_CASES = {
+    "resnet 32x512": (32, 512, torch.float32, torch.float32, None),
+    "pod 2044x1024": (2044, 1024, torch.float32, torch.float32, None),
+    "odd E": (37, 1001, torch.float32, torch.float32, None),
+    "E=8192": (64, 8192, torch.float32, torch.float32, None),
+    "E=1028": (33, 1028, torch.float32, torch.float32, None),
+    "bf16 student, f32 teacher": (64, 1024, torch.bfloat16, torch.float32,
+                                  None),
+    "f16 both": (16, 2048, torch.float16, torch.float16, None),
+    "B=0": (0, 512, torch.float32, torch.float32, None),
+    "row stride above E": (40, 512, torch.float32, torch.float32, 520),
+    "row stride off 16 bytes": (40, 512, torch.float32, torch.float32, 514),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(EMB_KERNEL_CASES))
+def test_emb_dist_kernels_match_plain(cuda, name):
+    B, E, s_dt, t_dt, stride = EMB_KERNEL_CASES[name]
+    s = _emb_rows(cuda, B, E, s_dt, 40, stride)
+    t = _emb_rows(cuda, B, E, t_dt, 41, stride)
+    g = torch.randn(B, device=cuda)
+    torch.testing.assert_close(EMB.emb_dist_fwd_kernel(s, t),
+                               EMB.emb_dist_plain(s, t), rtol=1e-4,
                                atol=1e-4)
+    gs, ref = EMB.emb_dist_bwd_kernel(s, t, g), EMB.emb_dist_bwd_plain(s, t, g)
+    assert gs.dtype == s.dtype and gs.shape == (B, E)
+    # a 2-byte gradient may round the other way from a last-bit difference
+    tol = (1e-4, 1e-6) if s_dt == torch.float32 else (1e-2, 1e-4)
+    torch.testing.assert_close(gs.float(), ref.float(), rtol=tol[0],
+                               atol=tol[1])
+    same = EMB.emb_dist_fwd_kernel(s, s.clone())
+    assert (same == 0).all()
+
+
+@pytest.mark.cuda
+def test_emb_dist_refused_launch_raises(cuda, monkeypatch):
+    """A launch the library refuses (here a vector width it has no kernel
+    for) raises; nothing falls back."""
+    s = torch.randn(4, 512, device=cuda)
+    monkeypatch.setattr(EMB, "launch_geometry", lambda *a: EMB.Geometry(
+        "vec16", 3, 1, 1, 4, 128))
+    for call in (lambda: EMB.emb_dist_fwd_kernel(s, s),
+                 lambda: EMB.emb_dist_bwd_kernel(s, s, s[:, 0])):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            call()
 
 
 def _check_flash_kernels(dev, B, T, S, H, KV, d, causal, window, dtype,
@@ -414,6 +530,22 @@ def test_topk_wire_ablation_patches_apply(name):
     source = (build.CSRC / "topk_wire.cu").read_text()
     patches = TOPK_ABLATION.VARIANTS[name]
     assert TOPK_ABLATION.patched(source, name, patches) != source
+
+
+EMB_ABLATION = _load_script(Path(__file__).resolve().parents[1]
+                            / "ablations" / "emb_dist.py")
+
+
+@pytest.mark.parametrize("name", [name for name, (patches, _, _)
+                                  in EMB_ABLATION.VARIANTS.items()
+                                  if patches])
+def test_emb_dist_ablation_patches_apply(name):
+    """ablations/emb_dist.py builds copies of emb_dist.cu patched by text:
+    each text a variant replaces occurs exactly once in the committed
+    source, and the copy differs from it."""
+    source = (build.CSRC / "emb_dist.cu").read_text()
+    patches = EMB_ABLATION.VARIANTS[name][0]
+    assert EMB_ABLATION.patched(source, name, patches) != source
 
 
 @pytest.mark.cuda

@@ -28,6 +28,11 @@ package's sharded step and the port's unsharded one, on the CPU.
         reference's a2a takes its scatter form, the unsharded function,
         which tests/test_torch_lm.py and test_torch_mla.py hold against
         the reference;
+  * a batch that the token shards do not divide: reduced qwen2.5-32b with
+    3 sequences a step on the 2×2 mesh under ``"fsdp"`` (4 token shards),
+    which every rank computes whole, as the reference's batch sharding
+    replicates it; held against the port's unsharded step and the
+    reference's run of the same case;
   * each rank holds exactly its blocks: every leaf's shape is the block
     shape of its `param_pspec` spec on the mesh, on the state and on
     `train_state_shapes`' meta state;
@@ -72,6 +77,15 @@ for _op in (torch.exp, torch.log, torch.sqrt, torch.tanh):
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 RTOL_METRICS, ATOL_PARAMS = 1e-4, 1e-5
 STEPS, B, T, T_AUDIO = 2, 4, 16, 24
+# a family entry that runs qwen2.5-32b on a batch of 3 rows, which the 4
+# token shards of 2x2 under "fsdp" do not divide
+UNEVEN, UNEVEN_B = "qwen2.5-32b@b3", 3
+
+
+def arch(family: str) -> str:
+    return family.split("@")[0]
+
+
 OPT = dict(name="sgd_momentum", init_lr=0.01, total_steps=10)
 AXES = ("data", "model")
 MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2)}
@@ -80,10 +94,11 @@ STRATEGIES = ["tp", "fsdp"]
 FAMILIES = {"qwen2.5-32b": None, "gemma3-12b": None, "mamba2-370m": None,
             "zamba2-7b": None, "arctic-480b": "a2a",
             "deepseek-v3-671b": "a2a", "whisper-large-v3": None,
-            "llama-3.2-vision-90b": None}
+            "llama-3.2-vision-90b": None, UNEVEN: None}
 A2A = {f for f in FAMILIES if FAMILIES[f] == "a2a" or
-       get_reduced(f).moe_impl == "a2a"}
-CASES = [(f, m, s) for f in FAMILIES for m in MESHES for s in STRATEGIES]
+       get_reduced(arch(f)).moe_impl == "a2a"}
+CASES = [(f, m, s) for f in FAMILIES if f != UNEVEN for m in MESHES
+         for s in STRATEGIES] + [(UNEVEN, "2x2", "fsdp")]
 
 
 def case_name(family: str, mesh: str, strategy: str) -> str:
@@ -91,25 +106,25 @@ def case_name(family: str, mesh: str, strategy: str) -> str:
 
 
 def reduced(family: str):
-    cfg = get_reduced(family)
+    cfg = get_reduced(arch(family))
     if FAMILIES[family]:
         cfg = dataclasses.replace(cfg, moe_impl=FAMILIES[family])
     return cfg
 
 
-def family_batches(cfg, seed: int = 3) -> list:
+def family_batches(cfg, seed: int = 3, rows: int = B) -> list:
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(STEPS):
         b = {"tokens": torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (B, T)).astype(np.int32))}
+            0, cfg.vocab_size, (rows, T)).astype(np.int32))}
         if cfg.vision is not None:
             b["vision_embeds"] = torch.from_numpy(rng.standard_normal(
-                (B, cfg.vision.num_patches, cfg.vision.embed_dim))
+                (rows, cfg.vision.num_patches, cfg.vision.embed_dim))
                 .astype(np.float32))
         if cfg.audio is not None:
             b["audio_frames"] = torch.from_numpy(rng.standard_normal(
-                (B, T_AUDIO, cfg.audio.frame_dim)).astype(np.float32))
+                (rows, T_AUDIO, cfg.audio.frame_dim)).astype(np.float32))
         out.append(b)
     return out
 
@@ -125,8 +140,9 @@ def reference_run(family: str, mesh: str, strategy: str):
     every other family the 2×2 run under "tp" (both strategies' sharded
     function is the unsharded one; qwen2.5-32b, the reference's own
     case, also runs under "fsdp"); None for the a2a at model 1 (its
-    scatter form, the unsharded function)."""
-    if on_model_axis(family, mesh):
+    scatter form, the unsharded function). The uneven batch's case is
+    held against its own run."""
+    if on_model_axis(family, mesh) or family == UNEVEN:
         return case_name(family, mesh, strategy)
     if family in A2A:
         return None
@@ -169,8 +185,8 @@ def inputs():
     for f in FAMILIES:
         cfg = reduced(f)
         params = build_bundle(cfg).init(torch.Generator().manual_seed(0))
-        out[f] = {"cfg": cfg, "params": params,
-                  "batches": family_batches(cfg)}
+        out[f] = {"cfg": cfg, "params": params, "batches": family_batches(
+            cfg, rows=UNEVEN_B if f == UNEVEN else B)}
     return out
 
 
@@ -228,7 +244,7 @@ REFERENCE = textwrap.dedent("""
     for c in cases:
         apply_strategy(c["sharding"])
         f = c["family"]
-        cfg = get_reduced(f)
+        cfg = get_reduced(f.split("@")[0])
         if c["moe_impl"]:
             cfg = dataclasses.replace(cfg, moe_impl=c["moe_impl"])
         bundle = build_bundle(cfg)
