@@ -65,11 +65,10 @@ the checkout (into ``build/``), then
      OS processes through launch_gossip, each its own CUDA context on
      this card: 40 steps a rank, every rank distilling and launching
      topk_wire, dist_ce and emb_dist, delivered == offered on every edge;
-     (c) scripts/port_gossip_procs.py's scoreboard smoke (3 processes,
-     one paced straggler; the fast ranks under half its wall); (d) its
-     churn smoke (rank 1 crashed and reaped promptly, the fleet resumed
-     from per-rank snapshots, rank 1 from step 3). The path's launches
-     are this process's plus those every child reports;
+     (c) scripts/port_gossip_procs.py's churn smoke (rank 1 crashed and
+     reaped promptly, the fleet resumed from per-rank snapshots, rank 1
+     from step 3). The path's launches are this process's plus those
+     every child reports;
   9. drives the LM path: K=3 full-width mamba2-370m clients cut in depth
      to 16 of 48 layers (d_model 1024, vocab 50280, 2 aux heads) exchanging
      entropy-adaptive, delta-compressed next-token predictions, 12 steps
@@ -238,6 +237,7 @@ from repro_torch.launch.steps import (init_train_state,  # noqa: E402
 from repro_torch.launch.train import supervised_batch  # noqa: E402
 from repro_torch.optim import (Optimizer, OptimizerConfig,  # noqa: E402
                                make_optimizer)
+from repro_torch.optim.optimizers import global_norm  # noqa: E402
 from repro_torch import serve as SERVE  # noqa: E402
 from repro_torch.core.runtime import batch_to_device, meta_like  # noqa: E402
 from repro_torch.fleet import load_client_params  # noqa: E402
@@ -564,7 +564,11 @@ TP_CFG = dataclasses.replace(
     _TP_FULL, name=f"{TP_ARCH}-{TP_DEPTH}-layers", num_layers=TP_DEPTH,
     stages=uniform_stages(TP_DEPTH, _TP_FULL.stages[0].block[0])).validate()
 TP_B, TP_SEQ, TP_STEPS, TP_SEED, TP_MODEL = 2, 512, 2, 41, 2
-TP_OPTIMIZER = dict(name="sgd_momentum", init_lr=0.01, total_steps=8)
+# clipping by the global norm at 1.0 (every exp preset's and AdamW's
+# default), which the step's gradient norm exceeds: each rank of (3) clips
+# its blocks by the whole gradient's norm
+TP_OPTIMIZER = dict(name="sgd_momentum", init_lr=0.01, total_steps=8,
+                    grad_clip_norm=1.0)
 TP_RTOL, TP_ATOL = 1e-4, 1e-5
 TP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 TP_TIMEOUT = 300.0  # (3): the ranks' hard cap, seconds
@@ -657,6 +661,20 @@ FLASH_CASES = [
                                 8 // TP_MODEL, 128), True, 0, "float32"),
     *[(f"{name}", shape, causal, 0, "float32")
       for name, shape, causal in XATTN_FLASH]]
+# the logit softcap c (Gemma 2's attn_logit_softcapping is 50.0): the tp
+# path's minitron-4b shape at c = 50 and at c = 5, where tanh saturates
+# and its derivative matters, and a sliding-window GQA case; name, shape,
+# causal, window, dtype, c. Their q is scaled by SOFTCAP_Q_SCALE so that
+# the scores reach the cap
+SOFTCAP = 50.0
+SOFTCAP_Q_SCALE = 4.0
+SOFTCAP_FLASH_CASES = [
+    ("minitron-4b softcap 50", (TP_B, TP_SEQ, TP_SEQ, 24, 8, 128), True, 0,
+     "float32", SOFTCAP),
+    ("minitron-4b softcap 5", (TP_B, TP_SEQ, TP_SEQ, 24, 8, 128), True, 0,
+     "float32", 5.0),
+    ("GQA d=128 window softcap 50", (1, 2048, 2048, 16, 8, 128), True, 1024,
+     "float32", SOFTCAP)]
 # the kernels each path runs, and must have launched
 RESNET_KERNELS = ("topk_wire", "dist_ce_fwd", "dist_ce_bwd", "emb_dist_fwd",
                   "emb_dist_bwd")
@@ -679,7 +697,8 @@ HETERO_RANK_KERNELS = {0: LM_KERNELS, 1: MOE_KERNELS, 2: MOE_KERNELS}
 SHARED_KERNELS = {"ssd_scan_prep_kernel": ("ssd_scan_fwd", "ssd_scan_bwd")}
 # the shapes at which the kernel phases held topk_wire ((rows, V, k)),
 # dist_ce ((rows, V, student dtype, teacher dtype)), emb_dist ((rows, D))
-# and flash_attention ((B, T, S, H, KV, d, causal, window, dtype)) against
+# and flash_attention ((B, T, S, H, KV, d, causal, window, dtype, softcap))
+# against
 # their plain
 # versions; each path that launches them checks (KernelShapes) that every
 # shape its run launched is one
@@ -1277,22 +1296,28 @@ def _sdpa(q, k, v, causal: bool = True):
 
 
 def _flash_timing(dev, g, B, T, H, d, iters: int, KV: int = 0, S: int = 0,
-                  causal: bool = True) -> tuple:
+                  causal: bool = True, softcap: float = 0.0) -> tuple:
     """Kernel, plain and library times of the forward and of the backward
     alone at (B, T, S, H, d), f32, causal unless asked; MHA, or GQA with
-    ``KV`` heads; S = T unless given."""
+    ``KV`` heads; S = T unless given; under a ``softcap`` (q scaled by
+    SOFTCAP_Q_SCALE, as the checks have it), where SDPA has no call that
+    computes the function: library_ms None."""
     KV, S = KV or H, S or T
     q, do = (torch.randn(B, T, H, d, generator=g, device=dev)
              for _ in range(2))
+    if softcap:
+        q = q * SOFTCAP_Q_SCALE
     k, v = (torch.randn(B, S, KV, d, generator=g, device=dev)
             for _ in range(2))
-    o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=causal)
+    o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=causal,
+                                           softcap=softcap)
     (fb, fby), (bb, bby), fl_f, fl_b = _flash_bounds(B, T, S, H, KV, d,
                                                      causal, 0, 4)
     # the plain and library backward alone: autograd on one saved graph
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    o_plain = FA.flash_attention_plain(*leaves, causal=causal)
-    o_lib = _sdpa(*leaves, causal=causal)
+    o_plain = FA.flash_attention_plain(*leaves, causal=causal,
+                                       softcap=softcap)
+    o_lib = None if softcap else _sdpa(*leaves, causal=causal)
 
     def plain_bwd():
         torch.autograd.grad(o_plain, leaves, do, retain_graph=True)
@@ -1307,18 +1332,22 @@ def _flash_timing(dev, g, B, T, H, d, iters: int, KV: int = 0, S: int = 0,
     fwd = {"shape": shape, "gflop": fl_f / 1e9,
            "mma_sync_floor_ms": 3 * tiles / MMA_SYNC_TF32 * 1e3,
            "ms": time_ms(lambda: FA.flash_attention_fwd_kernel(
-               q, k, v, causal=causal), iters=iters),
+               q, k, v, causal=causal, softcap=softcap), iters=iters),
            "plain_ms": time_ms(lambda: FA.flash_attention_plain(
-               q, k, v, causal=causal), iters=iters, warmup=2),
+               q, k, v, causal=causal, softcap=softcap), iters=iters,
+               warmup=2),
            "bound_ms": fb, "bound_by": fby,
-           "library_ms": time_ms(lambda: _sdpa(q, k, v, causal),
-                                 iters=iters)}
+           "library_ms": None if softcap else time_ms(
+               lambda: _sdpa(q, k, v, causal), iters=iters)}
     bwd = {"shape": shape, "gflop": fl_b / 1e9,
            "ms": time_ms(lambda: FA.flash_attention_bwd_kernel(
-               q, k, v, o, lse, do, causal=causal, window=0), iters=iters),
+               q, k, v, o, lse, do, causal=causal, window=0,
+               softcap=softcap), iters=iters),
            "plain_ms": time_ms(plain_bwd, iters=iters, warmup=2),
            "bound_ms": bb, "bound_by": bby,
-           "library_ms": time_ms(lib_bwd, iters=iters)}
+           "library_ms": None if softcap else time_ms(lib_bwd, iters=iters)}
+    if softcap:
+        fwd["softcap"] = bwd["softcap"] = softcap
     del leaves, o_plain, o_lib
     return fwd, bwd
 
@@ -1342,14 +1371,18 @@ def _sdpa_kernels(dev, g, B, T, H, d, KV: int = 0) -> list:
                    if e.device_type == DeviceType.CUDA})
 
 
-def _flash_lse_plain(q, k, causal: bool, window: int) -> torch.Tensor:
-    """Each row's logsumexp of the masked scaled scores, (B, H, T): the
-    oracle of the forward kernel's second output. Masked scores are -1e30,
-    so a row with no key in its band has lse -1e30."""
+def _flash_lse_plain(q, k, causal: bool, window: int,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """Each row's logsumexp of the masked scaled scores (capped to c
+    tanh(s / c) under a softcap c), (B, H, T): the oracle of the forward
+    kernel's second output. Masked scores are -1e30, so a row with no key
+    in its band has lse -1e30."""
     B, T, H, d = q.shape
     S, KV = k.shape[1], k.shape[2]
     s = torch.einsum("btkgd,bskd->bkgts", q.reshape(B, T, KV, H // KV, d),
                      k) / math.sqrt(d)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
     t = torch.arange(T, device=q.device)[:, None]
     u = torch.arange(S, device=q.device)[None, :]
     mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
@@ -1374,36 +1407,42 @@ def phase_flash(dev) -> list:
     sliding window at gemma3 / qwen2.5 widths and T = 4096, d = 256,
     non-causal S != T, rows with no key in their band (T > S + window),
     bf16 inputs, arctic-480b's GQA with G = 7, the cross-attention
-    path's five shapes (XATTN_FLASH) and lm_hetero's two transformers (d
-    = 32, GQA G = 2, T = 12, with and without its sliding window); each
-    case's shape goes into SHAPES_HELD. Timed at the path's shape, at
-    zamba2's context, T = 4096, at arctic's shape against SDPA with
-    ``enable_gqa``, and at XATTN_FLASH's shapes against SDPA with each
-    case's causality."""
+    path's five shapes (XATTN_FLASH), lm_hetero's two transformers (d
+    = 32, GQA G = 2, T = 12, with and without its sliding window) and the
+    logit softcap (SOFTCAP_FLASH_CASES); each case's shape (and cap) goes
+    into SHAPES_HELD. Timed at the path's shape, at zamba2's context, T =
+    4096, at arctic's shape against SDPA with ``enable_gqa``, at
+    XATTN_FLASH's shapes against SDPA with each case's causality, and at
+    the tp path's shapes with and without the softcap (SDPA has none)."""
     g = torch.Generator(device=dev).manual_seed(7)
     names = ("o", "lse", "dq", "dk", "dv")
     record, err_f, err_b = [], 0.0, 0.0
-    hetero = [(f"lm_hetero window={w}", shape, True, w, "float32")
+    hetero = [(f"lm_hetero window={w}", shape, True, w, "float32", 0.0)
               for shape, w in hetero_shapes()["flash"]]
-    for name, (b, t, s_, h, kv, dd), causal, window, dt_name in [
-            *FLASH_CASES, *hetero]:
+    for name, (b, t, s_, h, kv, dd), causal, window, dt_name, cap in [
+            *[(*c, 0.0) for c in FLASH_CASES], *hetero,
+            *SOFTCAP_FLASH_CASES]:
         dt = getattr(torch, dt_name)
         q = torch.randn(b, t, h, dd, generator=g, device=dev).to(dt)
+        if cap:
+            q = q * SOFTCAP_Q_SCALE
         k = torch.randn(b, s_, kv, dd, generator=g, device=dev).to(dt)
         v = torch.randn(b, s_, kv, dd, generator=g, device=dev).to(dt)
         do = torch.randn(b, t, h, dd, generator=g, device=dev).to(dt)
         o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=causal,
-                                               window=window)
+                                               window=window, softcap=cap)
         grads = FA.flash_attention_bwd_kernel(q, k, v, o, lse, do,
-                                              causal=causal, window=window)
+                                              causal=causal, window=window,
+                                              softcap=cap)
         torch.cuda.synchronize()
         SHAPES_HELD["flash_attention"].add(flash_key(q, k, v, causal,
-                                                     window))
+                                                     window, cap))
         leaves = [x.double().requires_grad_() for x in (q, k, v)]
-        o2 = FA.flash_attention_plain(*leaves, causal=causal, window=window)
+        o2 = FA.flash_attention_plain(*leaves, causal=causal, window=window,
+                                      softcap=cap)
         grads2 = torch.autograd.grad(o2, leaves, do.double())
         lse2 = _flash_lse_plain(leaves[0].detach(), leaves[1].detach(),
-                                causal, window)
+                                causal, window, cap)
         live = lse2 > -1e29
         check(bool((lse[~live] <= -1e29).all()),
               f"flash {name}: lse of the rows with no key")
@@ -1423,11 +1462,13 @@ def phase_flash(dev) -> list:
             err_f = max(err_f, *abs_errs[:2])
             err_b = max(err_b, *abs_errs[2:])
         log(f"flash_attention {name} (B, T, S, H, KV, d) = "
-            f"{(b, t, s_, h, kv, dd)} causal={causal} window={window} {dt}: "
+            f"{(b, t, s_, h, kv, dd)} causal={causal} window={window} "
+            f"softcap={cap} {dt}: "
             + " ".join(f"{nm} {e:.3g}" for nm, e in zip(names, errs))
             + f" (max|d| / max|plain|, tolerance {tol})")
         record.append({"case": name, "shape": [b, t, s_, h, kv, dd],
-                       "causal": causal, "window": window, "dtype": str(dt),
+                       "causal": causal, "window": window, "softcap": cap,
+                       "dtype": str(dt),
                        "tol": tol, "rel": dict(zip(names, errs)),
                        "abs": dict(zip(names, abs_errs))})
         del q, k, v, do, o, lse, grads, leaves, o2, lse2, grads2
@@ -1467,17 +1508,21 @@ def phase_flash(dev) -> list:
                 f"{x['library_ms']:.3f}, 3xTF32 bound {x['bound_ms']:.4f} "
                 f"{x['bound_by']}, {x['gflop']:.2f} GFLOP)")
     at_tp = {"fwd": {}, "bwd": {}}
-    for name, h, kv in (("minitron-4b", 24, 8),
-                        ("minitron-4b model rank", 24 // TP_MODEL,
-                         8 // TP_MODEL)):
-        xf, xb = _flash_timing(dev, g, TP_B, TP_SEQ, h, 128, iters=20, KV=kv)
+    for name, h, kv, cap in (
+            ("minitron-4b", 24, 8, 0.0),
+            (f"minitron-4b softcap {SOFTCAP:g}", 24, 8, SOFTCAP),
+            ("minitron-4b model rank", 24 // TP_MODEL, 8 // TP_MODEL, 0.0)):
+        xf, xb = _flash_timing(dev, g, TP_B, TP_SEQ, h, 128, iters=20, KV=kv,
+                               softcap=cap)
         at_tp["fwd"][name], at_tp["bwd"][name] = xf, xb
         for nm, x in (("fwd", xf), ("bwd", xb)):
+            lib = ("none (SDPA applies no softcap)" if cap else
+                   f"{x['library_ms']:.3f}")
             log(f"flash_attention timing {nm} at {name} (B, T, H, KV, d) = "
                 f"{(TP_B, TP_SEQ, h, kv, 128)}: {x['ms']:.3f} ms (plain "
-                f"{x['plain_ms']:.3f}, library (SDPA, enable_gqa) "
-                f"{x['library_ms']:.3f}, 3xTF32 bound {x['bound_ms']:.4f} "
-                f"{x['bound_by']}, {x['gflop']:.2f} GFLOP)")
+                f"{x['plain_ms']:.3f}, library (SDPA, enable_gqa) {lib}, "
+                f"3xTF32 bound {x['bound_ms']:.4f} {x['bound_by']}, "
+                f"{x['gflop']:.2f} GFLOP)")
     RECORD["sdpa_kernels"] = _sdpa_kernels(dev, g, *FLASH_SHAPE)
     RECORD["sdpa_kernels_arctic"] = _sdpa_kernels(dev, g, B, T, H, d, KV)
     log(f"flash_attention library yardstick: scaled_dot_product_attention "
@@ -2588,14 +2633,15 @@ def phase_fleet_path(dev) -> dict:
 # the socket path: gossip_socket (4 ResNet-18 clients on a cycle, top-k 5
 # in f16, int8 embeddings, S_P 5, horizon 20, 40 steps) on the fleet
 # path's data, in-process over one socket transport and then one OS
-# process (one CUDA context) per client through launch_gossip; the
-# scoreboard and churn smokes of scripts/port_gossip_procs.py at the same
-# width
+# process (one CUDA context) per client through launch_gossip; the churn
+# smoke of scripts/port_gossip_procs.py at the same width (its scoreboard
+# smoke, a paced straggler across processes, left the smoke to keep it in
+# its time: `python scripts/port_gossip_procs.py --scoreboard-smoke` runs
+# it, and phase_fleet_path holds the scoreboard in-process)
 SOCKET_DIR = ROOT / "build" / "socket"
 SOCKET_KERNELS = FLEET_KERNELS
-SOCKET_PACE_MS = 1000.0  # (c) the straggler's pace
-SOCKET_TIMEOUT = 240.0  # (b), (c): every launch's hard cap, seconds
-SOCKET_CHURN_TIMEOUT = 120.0  # (d): each of its two launches
+SOCKET_TIMEOUT = 240.0  # (b): every launch's hard cap, seconds
+SOCKET_CHURN_TIMEOUT = 120.0  # (c): each of its two launches
 
 
 def _gossip_script():
@@ -2717,11 +2763,10 @@ def _socket_procs(dev, spec) -> dict:
 def phase_socket_path(dev) -> dict:
     """The socket transport and the gossip launcher on the card: (a)
     gossip_socket in-process, socket == loopback bitwise; (b) the same
-    spec as 4 OS processes; (c) the scoreboard smoke (3 processes, one
-    paced straggler); (d) the churn smoke (rank 1 crashed, the fleet
-    resumed from its per-rank snapshots). The counts are set to 0 just
-    before (a); the path's launches are this process's, read after (d),
-    plus what every child reported."""
+    spec as 4 OS processes; (c) the churn smoke (rank 1 crashed, the
+    fleet resumed from its per-rank snapshots). The counts are set to 0
+    just before (a); the path's launches are this process's, read after
+    (c), plus what every child reported."""
     script = _gossip_script()
     register_resnet18()
     shutil.rmtree(SOCKET_DIR, ignore_errors=True)
@@ -2735,32 +2780,17 @@ def phase_socket_path(dev) -> dict:
     out["procs"] = _socket_procs(dev, spec)
     counts = dict(out["procs"]["counts"])
 
-    sb = script.scoreboard_smoke(
-        base=fleet_preset("gossip_socket", 16), device=str(dev),
-        child_init=register_resnet18, slow_pace_ms=SOCKET_PACE_MS,
-        timeout=SOCKET_TIMEOUT, warm=False)
-    check(not sb["failures"], f"socket (c): {sb['failures']}")
-    _add_counts(counts, _sum_counts(sb["results"]))
-    out["scoreboard"] = {
-        "fast_wall_s": sb["fast_wall_s"], "slow_wall_s": sb["slow_wall_s"],
-        "slow_pace_ms": sb["slow_pace_ms"],
-        "ranks": _socket_ranks(sb["results"], "socket (c)"),
-        "backpressure_s": sb["fleet"]["backpressure_seconds"]}
-    log(f"socket (c): fast ranks {sb['fast_wall_s']:.2f} s against the "
-        f"straggler's {sb['slow_wall_s']:.2f} s at {SOCKET_PACE_MS:.0f} "
-        f"ms a step (must be under 0.5x)")
-
     churn = script.churn_smoke(
         base=fleet_preset("gossip_socket", 8), device=str(dev),
         child_init=register_resnet18, timeout=SOCKET_CHURN_TIMEOUT,
         snap_dir=SOCKET_DIR / "churn", warm=False)
-    check(not churn["failures"], f"socket (d): {churn['failures']}")
+    check(not churn["failures"], f"socket (c): {churn['failures']}")
     _add_counts(counts, _sum_counts(churn["results"]))
     out["churn"] = {
         "crash_detect_s": churn["crash_detect_s"],
         "crash_error": churn["crash_error"], "resume_s": churn["resume_s"],
-        "ranks": _socket_ranks(churn["results"], "socket (d)")}
-    log(f"socket (d): the crash of rank 1 failed the launch in "
+        "ranks": _socket_ranks(churn["results"], "socket (c)")}
+    log(f"socket (c): the crash of rank 1 failed the launch in "
         f"{churn['crash_detect_s']:.2f} s (cap {SOCKET_CHURN_TIMEOUT:.0f} "
         f"s): {churn['crash_error']}; resumed in {churn['resume_s']:.2f} s, "
         f"rank 1 from step {churn['results'][1]['start_step']}")
@@ -2857,12 +2887,13 @@ def phase_adaptive_wire(dev) -> None:
                                                        DS_VOCAB, "deepseek")
 
 
-def flash_key(q, k, v=None, causal: bool = True, window: int = 0) -> tuple:
+def flash_key(q, k, v=None, causal: bool = True, window: int = 0,
+              softcap: float = 0.0) -> tuple:
     """A flash_attention launch's SHAPES_HELD key: (B, T, S, H, KV, d,
-    causal, window, dtype)."""
+    causal, window, dtype, softcap)."""
     B, T, H, d = q.shape
     return (B, T, k.shape[1], H, k.shape[2], d, bool(causal), int(window),
-            str(q.dtype))
+            str(q.dtype), float(softcap))
 
 
 class KernelShapes:
@@ -4330,9 +4361,17 @@ def _tp_init(dev, cfg) -> dict:
 
 def _tp_steps(dev, params: dict, cfg, seq: int) -> tuple:
     """make_train_step over the tp batches from ``params`` under whatever
-    mesh is active: (params after, metrics a step, seconds a step)."""
+    mesh is active: (params after, metrics a step with the norm the
+    optimizer clipped by as "grad_norm", seconds a step)."""
     bundle = build_bundle(cfg)
-    opt = make_optimizer(OptimizerConfig(**TP_OPTIMIZER))
+    base = make_optimizer(OptimizerConfig(**TP_OPTIMIZER))
+    norms = []
+
+    def update(grads, state, params, step):
+        norms.append(global_norm(grads))
+        return base.update(grads, state, params, step)
+
+    opt = Optimizer(base.init, update)
     step = make_train_step(bundle, opt)
     state = {"params": params, "opt": opt.init(params), "step": 0}
     hist, secs = [], []
@@ -4343,6 +4382,7 @@ def _tp_steps(dev, params: dict, cfg, seq: int) -> tuple:
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - a)
         hist.append({k: float(v) for k, v in m.items()})
+        hist[-1]["grad_norm"] = float(norms[t])
     return state["params"], hist, secs
 
 
@@ -4560,7 +4600,25 @@ def phase_tp_path(dev) -> dict:
               f"({hist} vs {hist0})")
         check(all(math.isfinite(v) for m in hist for v in m.values()),
               "tp path: metrics finite")
+        clip = TP_OPTIMIZER["grad_clip_norm"]
+        check(all(m["grad_norm"] > clip for m in hist0), f"tp path: the "
+              f"clip binds: gradient norms {[m['grad_norm'] for m in hist0]}"
+              f" > {clip}")
         del got
+        torch.cuda.empty_cache()
+        # the logit softcap: the same model with attn_logit_softcap set
+        capped = dataclasses.replace(TP_CFG, attn_logit_softcap=SOFTCAP)
+        got, hist_cap, secs_cap = _tp_steps(dev, _tp_init(dev, capped),
+                                            capped, TP_SEQ)
+        del got
+        check(all(math.isfinite(v) for m in hist_cap for v in m.values()),
+              f"tp path: softcap {SOFTCAP:g} metrics finite ({hist_cap})")
+        check(hist_cap[0]["loss"] != hist0[0]["loss"], "tp path: the "
+              "softcap changes the loss")
+        capped_launches = sum(n for key, n in shapes.seen[
+            "flash_attention"].items() if key[-1] == SOFTCAP)
+        check(capped_launches > 0, "tp path: flash_attention launched "
+              f"with softcap {SOFTCAP:g} ({capped_launches})")
     counts = ops.launch_counts()
     shapes.check("tp path")
     for name in TP_KERNELS:
@@ -4570,11 +4628,19 @@ def phase_tp_path(dev) -> dict:
     torch.cuda.empty_cache()
     out = {"counts": counts, "step_s": secs0, "mesh_step_s": secs,
            "metrics": hist0, "params": n_params, "max_memory_gib": peak,
-           "kernel_shapes": shapes.record()}
+           "kernel_shapes": shapes.record(),
+           "softcap": {"c": SOFTCAP, "step_s": secs_cap,
+                       "metrics": hist_cap,
+                       "flash_launches": capped_launches}}
     log(f"tp path: no mesh {[round(x * 1e3, 1) for x in secs0]} ms, (1, 1) "
         f"mesh {[round(x * 1e3, 1) for x in secs]} ms a step, losses "
-        f"{[round(m['loss'], 5) for m in hist0]}, card memory peak "
-        f"{peak:.1f} GiB, launches {counts}")
+        f"{[round(m['loss'], 5) for m in hist0]}, gradient norms "
+        f"{[round(m['grad_norm'], 4) for m in hist0]} clipped to "
+        f"{TP_OPTIMIZER['grad_clip_norm']}; softcap {SOFTCAP:g}: "
+        f"{[round(x * 1e3, 1) for x in secs_cap]} ms a step, losses "
+        f"{[round(m['loss'], 5) for m in hist_cap]}, {capped_launches} "
+        f"capped forward launches; card memory peak {peak:.1f} GiB, "
+        f"launches {counts}")
     out["model_ranks"] = _tp_model_ranks(dev, ref, hist0, shard_leaf)
     out["roofline"] = _tp_roofline(statistics.median(secs0), peak)
     out["seconds"] = time.perf_counter() - t0

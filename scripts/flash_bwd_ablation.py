@@ -131,7 +131,8 @@ def build_all() -> dict:
             lib.flash_attention_bwd.argtypes = ([ctypes.c_int]
                                                 + [ctypes.c_void_p] * 10
                                                 + [ctypes.c_int] * 8
-                                                + [ctypes.c_void_p])
+                                                + [ctypes.c_float,
+                                                   ctypes.c_void_p])
         libs[name] = lib
     return libs
 
@@ -184,7 +185,8 @@ def main() -> None:
             err = lib.flash_attention_bwd(
                 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), do.data_ptr(), Dv.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, T, T, H, H, d, 1, 0, stream)
+                dk.data_ptr(), dv.data_ptr(), B, T, T, H, H, d, 1, 0, 0.0,
+                stream)
             if err:
                 raise SystemExit(f"launch failed: cudaError {err}")
 

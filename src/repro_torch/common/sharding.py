@@ -105,14 +105,18 @@ Spec = Tuple[Any, ...]
 class Partition:
     """The active mesh: ``axes`` of ``mesh`` (of ``sizes``), the spec of
     every leaf the ranks hold as blocks (by its name in the bundle's flat
-    params; a leaf absent from ``specs`` is whole on every rank) and the
-    sharding strategy in force when it was made."""
+    params; a leaf absent from ``specs`` is whole on every rank), the
+    sharding strategy in force when it was made, and ``whole_rows``: the
+    code runs on the whole batch on every rank of the token axes (one
+    they do not divide, which the reference replicates), not on this
+    rank's block of it."""
 
     mesh: Any
     axes: Tuple[str, ...]
     sizes: Dict[str, int]
     specs: Mapping[str, Spec]
     strategy: str
+    whole_rows: bool = False
 
     @property
     def token_axes(self) -> Tuple[str, ...]:
@@ -151,25 +155,44 @@ _ACTIVE: List[Optional[Partition]] = []
 
 @contextlib.contextmanager
 def use_mesh(mesh, axes: Optional[Sequence[str]] = None,
-             specs: Optional[Mapping[str, Spec]] = None) -> Iterator[None]:
+             specs: Optional[Mapping[str, Spec]] = None,
+             whole_rows: bool = False) -> Iterator[None]:
     """Make ``axes`` of ``mesh`` (all of them by default) the active mesh
     for the code run inside, the ranks holding the blocks ``specs`` gives
-    (None: every leaf whole); ``mesh=None`` makes none active (one
-    device)."""
+    (None: every leaf whole), on the whole batch if ``whole_rows``
+    (`Partition`); ``mesh=None`` makes none active (one device)."""
     if mesh is None:
-        _ACTIVE.append(None)
+        part = None
     else:
         names = tuple(mesh.mesh_dim_names)
         axes = names if axes is None else tuple(axes)
         unknown = [a for a in axes if a not in names]
         if unknown:
             raise ValueError(f"axes {unknown} not in the mesh's {names}")
-        _ACTIVE.append(Partition(mesh, axes, mesh_axis_sizes(mesh, axes),
-                                 dict(specs or {}), sharding_strategy()))
-    try:
+        part = Partition(mesh, axes, mesh_axis_sizes(mesh, axes),
+                         dict(specs or {}), sharding_strategy(), whole_rows)
+    with _Active(part):
         yield
-    finally:
+
+
+class _Active:
+    """``part`` (a `Partition` or None) active inside; reusable."""
+
+    def __init__(self, part: Optional[Partition]):
+        self.part = part
+
+    def __enter__(self):
+        _ACTIVE.append(self.part)
+
+    def __exit__(self, *exc):
         _ACTIVE.pop()
+
+
+def remat_context():
+    """``torch.utils.checkpoint``'s ``context_fn``: a rematerialised
+    unit's recompute in the backward runs under the partition that was
+    active at its forward, whatever is active when the backward runs."""
+    return contextlib.nullcontext(), _Active(active_partition())
 
 
 def active_partition() -> Optional[Partition]:
@@ -244,6 +267,31 @@ def group_of(mesh, axes: Sequence[str]):
     return cache[axes]
 
 
+def spec_axes(spec: Spec) -> set:
+    """The mesh axes a spec cuts its leaf along."""
+    return {a for e in spec if e is not None
+            for a in ((e,) if isinstance(e, str) else e)}
+
+
+def global_sum_of_squares(grads: Mapping[str, torch.Tensor],
+                          part: Partition) -> torch.Tensor:
+    """Σ g² over every distinct entry of a gradient that the ranks of
+    ``part`` hold as blocks (each leaf's by ``part.specs``, its leading
+    dims beyond its spec carried along), each entry counted once: this
+    rank's sum of squares of a block weighted by 1 / the number of ranks
+    of ``part.axes`` that hold that same block, all-reduced over them. An
+    f32 0-d tensor on the device, with no host sync."""
+    terms = []
+    for k, g in grads.items():
+        used = spec_axes(part.specs.get(k, ()))
+        holders = math.prod(part.sizes[a] for a in part.axes
+                            if a not in used)
+        terms.append(g.float().square().sum() / holders)
+    total = torch.stack(terms).sum()
+    dist.all_reduce(total, group=part.group(part.axes))
+    return total
+
+
 def mean_over_token_shards(grads: Dict[str, torch.Tensor],
                            specs: Mapping[str, Spec], mesh,
                            axes: Sequence[str]) -> None:
@@ -257,8 +305,7 @@ def mean_over_token_shards(grads: Dict[str, torch.Tensor],
     if n == 1:
         return
     for k, g in grads.items():
-        used = {a for e in specs.get(k, ()) if e is not None
-                for a in ((e,) if isinstance(e, str) else e)}
+        used = spec_axes(specs.get(k, ()))
         rest = tuple(a for a in axes if a not in used)
         if rest:
             dist.all_reduce(g, group=group_of(mesh, rest))

@@ -13,7 +13,12 @@ split the layers; 'data' and 'model' under ``"fsdp"``). A rank's
 gradient is its block of the pod's: the gathers' backward has summed it
 over the token ranks that share the block, an all-reduce sums it over
 those that hold the same block of other tokens, and it is divided by the
-number of token shards (the pod's loss is their mean).
+number of token shards (the pod's loss is their mean). A batch whose
+rows the token shards do not divide runs whole on every rank of the pod,
+as the reference's partitioner pads it. A clipping optimizer clips by the
+norm of the whole fleet's gradient, every client's, as the reference's
+step clips the stacked tree (`optim.optimizers.global_norm` under the
+mesh, the 'pod' axis cutting the client dim).
 
 Every step each client scores the shared public batch; teacher
 predictions move between pods along the bus adjacency (``adj[i]`` names
@@ -35,7 +40,12 @@ The loss is the reference's mean over the K clients: a rank's loss is the
 sum of its clients' terms over the global K, the reported loss and
 metrics are all-reduced. Under ``"tp"`` each 'model' rank scores its
 block of the public rows (`core.lm_adapter.lm_mhd_outputs`), and the
-distillation term is the sum of the blocks' parts over 'model'. The
+distillation term is the sum of the blocks' parts over 'model'.
+``max_public_positions`` keeps the first positions of the whole public
+batch, as the reference does: each token shard keeps those that fall in
+its block of the flattened positions, and its term is its block's mean
+times its share of them (a shard that keeps none runs its forward and
+scores, packs and exchanges nothing). The
 reference's `_topk_2stage` (a two-stage top-k for XLA's sort) has no
 caller there and is not ported.
 """
@@ -290,6 +300,18 @@ def _distill_loss_one_client(student: Dict[str, Any],
     return mhd.nu_aux * total + emb
 
 
+def _untaught(student: Dict[str, Any], mhd: MHDConfig) -> Tensor:
+    """0 in place of `_distill_loss_one_client` on a rank that scores no
+    row, differentiated through the same outputs (the student heads and,
+    where Eq. 2 counts, the embedding), so that the backward runs the same
+    collectives as on its peers."""
+    used = [student["aux_logits"][k] for k in range(mhd.num_aux_heads)]
+    if mhd.nu_emb != 0.0:
+        used.append(student["embedding"])
+    zero = student["logits"].new_zeros((), dtype=torch.float32)
+    return zero + 0.0 * sum(u.float().sum() for u in used)
+
+
 def _private_ce(bundle: ModelBundle, params, tokens: Tensor
                 ) -> Tuple[Tensor, Tensor]:
     """(the next-token CE of the private batch, its MoE aux loss): the
@@ -336,65 +358,98 @@ def make_distributed_mhd_step(bundle: ModelBundle, optimizer,
         raise ValueError(f"exchange {dist_cfg.exchange!r}")
     lay = pod_layout(K, mesh)
     Q = lay.n_shards
-    if dist_cfg.max_public_positions and Q > 1:
-        raise ValueError("max_public_positions keeps the first positions "
-                         "of the whole public batch; it needs one token "
-                         "shard a pod")
     pod_group = mesh.get_group(POD) if lay.n_pods > 1 else None
     specs = pod_specs(bundle, mesh, lay)
     n_inner = math.prod(mesh_axis_sizes(mesh, lay.inner).values()) \
         if lay.inner else 1
 
-    def shard_rows(x: Tensor, n: int) -> Tensor:
-        if x.shape[0] % n:
-            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
-                             f"over the pod's {n} token shards")
-        size = x.shape[0] // n
-        return x[lay.shard * size:(lay.shard + 1) * size]
+    def shard_rows(x: Tensor) -> Tuple[Tensor, bool]:
+        """This rank's block of the rows over the pod's token shards, or
+        all of them (True) where the shards do not divide them."""
+        if x.shape[0] % Q:
+            return x, True
+        size = x.shape[0] // Q
+        return x[lay.shard * size:(lay.shard + 1) * size], False
+
+    def rows_mesh(whole: bool):
+        """The pod's axes active, on the whole batch if ``whole``."""
+        if not lay.inner:
+            return use_mesh(None)
+        return use_mesh(mesh, lay.inner, specs, whole_rows=whole)
+
+    def kept_positions(n_blk: int, whole: bool) -> Tuple[int, int]:
+        """(the positions this rank's block of ``n_blk`` public positions
+        keeps, those the reference keeps of the whole public batch): the
+        first max_public_positions of the flattened batch, split over the
+        token shards' blocks in order."""
+        total = n_blk * (1 if whole else Q)
+        cap = dist_cfg.max_public_positions
+        kept = min(cap, total) if cap else total
+        first = 0 if whole else lay.shard * n_blk
+        return min(max(kept - first, 0), n_blk), kept
+
+    def fleet_specs(grads: Dict[str, Tensor]):
+        lead = (POD,) if POD in mesh.mesh_dim_names else (None,)
+        return {k: lead + tuple(specs.get(k, ())) for k in grads}
 
     def step(state: Dict[str, Any], batch: Dict[str, Tensor]):
         priv_all = batch["private_tokens"][lay.clients.start:
                                            lay.clients.stop]
-        pub = shard_rows(batch["public_tokens"], Q)
+        pub, pub_whole = shard_rows(batch["public_tokens"])
+        priv_whole = bool(priv_all.shape[1] % Q)
+        n_blk = pub.shape[0] * (pub.shape[1] - 1)
+        keep, n_kept = kept_positions(n_blk, pub_whole)
         n_local = len(lay.clients)
         leaves = [{k: v[j].detach().requires_grad_()
                    for k, v in state["params"].items()}
                   for j in range(n_local)]
         ce, pub_outs, aux = [], [], []
-        with use_mesh(mesh, lay.inner, specs) if lay.inner \
-                else use_mesh(None):
+        with rows_mesh(False):
             part = SH.active_partition()
             R = TF.vocab_shards(bundle.config)
             for j in range(n_local):
-                ce_j, priv_aux = _private_ce(
-                    bundle, leaves[j], shard_rows(priv_all[j], Q))
-                out = lm_mhd_outputs(bundle, leaves[j], {"tokens": pub},
-                                     max_positions=
-                                     dist_cfg.max_public_positions)
+                with rows_mesh(priv_whole):
+                    ce_j, priv_aux = _private_ce(
+                        bundle, leaves[j], shard_rows(priv_all[j])[0])
+                # a block that keeps no position still runs the forward
+                # (its collectives), and distills nothing
+                with rows_mesh(pub_whole):
+                    out = lm_mhd_outputs(
+                        bundle, leaves[j], {"tokens": pub},
+                        max_positions=keep if keep < n_blk else 0)
                 ce.append(ce_j)
                 pub_outs.append({"embedding": out["embedding"],
                                  "logits": out["logits"],
                                  "aux_logits": out["aux_logits"]})
                 aux.append(out["aux_loss"] + priv_aux)
-            # stop-grad BEFORE packing: the top-k must not be
-            # differentiated (it only feeds the frozen teacher side)
-            frozen = [{k: (None if v is None else v.detach())
-                       for k, v in o.items()} for o in pub_outs]
-            wire = ([topk_pack_outputs(f, dist_cfg.topk) for f in frozen]
-                    if dist_cfg.exchange == "topk" else frozen)
-            teachers = exchange_teachers(wire, dist_cfg, lay, pod_group)
-            dist_loss = [_distill_loss_one_client(s, t, mhd,
-                                                  dist_cfg.exchange)
-                         for s, t in zip(pub_outs, teachers)]
+            # the rows this rank scores: its block's kept positions, of
+            # which each model rank holds a block under "tp"
+            rows = out["labels"].shape[0] if keep else 0
+            frozen = wire = teachers = None
+            if rows:
+                # stop-grad BEFORE packing: the top-k must not be
+                # differentiated (it only feeds the frozen teacher side)
+                frozen = [{k: (None if v is None else v.detach())
+                           for k, v in o.items()} for o in pub_outs]
+                wire = ([topk_pack_outputs(f, dist_cfg.topk)
+                         for f in frozen]
+                        if dist_cfg.exchange == "topk" else frozen)
+                teachers = exchange_teachers(wire, dist_cfg, lay, pod_group)
+                dist_loss = [_distill_loss_one_client(s, t, mhd,
+                                                      dist_cfg.exchange)
+                             for s, t in zip(pub_outs, teachers)]
+            else:
+                dist_loss = [_untaught(o, mhd) for o in pub_outs]
+            # the reference's term is the mean over its kept positions:
+            # each rank's block mean times its share of them, times the
+            # token shards the pod's mean is over (1 where every block
+            # keeps all its positions), summed over 'model' where each
+            # model rank scored its block of the rows
+            share = (1 if pub_whole else Q) * rows / n_kept
             if R > 1:
-                # each model rank scored its block of the rows: the term
-                # is the sum over 'model' of each block's mean times its
-                # share of the rows
-                n_pub = pub.shape[0] * (pub.shape[1] - 1)
-                if dist_cfg.max_public_positions:
-                    n_pub = min(n_pub, dist_cfg.max_public_positions)
-                share = out["labels"].shape[0] / n_pub
                 dist_loss = [SH.tp_exit(d * share, part) for d in dist_loss]
+            elif share != 1:
+                dist_loss = [d * share for d in dist_loss]
             ce_sum, dist_sum = sum(ce) / K, sum(dist_loss) / K
             loss = ce_sum + dist_sum + sum(aux) / K
             flat = [v for lv in leaves for v in lv.values()]
@@ -419,8 +474,12 @@ def make_distributed_mhd_step(bundle: ModelBundle, optimizer,
             # ranks of a shard the same under "tp")
             dist.all_reduce(metrics)
             metrics = metrics / n_inner
-        params, opt = optimizer.update(grads, state["opt"], state["params"],
-                                       state["step"])
+        # a clipping optimizer's norm covers the fleet: every client's
+        # blocks, the pod axis cutting the client dim
+        with use_mesh(mesh, None, fleet_specs(grads)) if mesh is not None \
+                else use_mesh(None):
+            params, opt = optimizer.update(grads, state["opt"],
+                                           state["params"], state["step"])
         new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
         return new_state, {"loss": metrics[0], "ce": metrics[1],
                            "dist": metrics[2]}

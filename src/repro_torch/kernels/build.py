@@ -36,6 +36,9 @@ TRITON_CACHE = REPO_ROOT / "build" / "triton"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources of many fully unrolled kernels, whose optimisation nvcc spreads
+# over the host's threads: flash_attention.cu's 18 kernels took 62 s on one
+SPLIT_COMPILE = {"flash_attention"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -85,7 +88,9 @@ def build_cuda(names: Iterable[str]) -> List[Path]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        split = ["--split-compile=0"] if name in SPLIT_COMPILE else []
+        cmd = [_nvcc(), *NVCC_FLAGS, *split, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     built = []

@@ -10,6 +10,20 @@
 //   mask    = u < S & t < T  [& u <= t if causal]  [& u > t - window]
 //   o_t     = sum_{u < S} softmax(s[t])_u v_u    (f32 sums, o in q's type)
 //
+// and, given a logit softcap c > 0 (Gemma 2's attn_logit_softcapping; the
+// reference's models/layers.py applies it, the TPU kernel does not), each
+// scaled score is capped to c tanh(s / c) before the mask and the running
+// max, as the reference caps it; the backward recomputes the capped score
+// and multiplies dS by its derivative 1 - (capped / c)^2. The accurate
+// tanhf (not tanh.approx.f32, whose ~2^-11 relative error would pass into
+// every probability) and an IEEE division. The forward takes the cap as a
+// template flag (one more instantiation a head dim and type): a run-time
+// test in the kernel, a branch uniform over the block and outside the
+// products, cost the uncapped forward 1.5-2.5 % on an H100
+// (ablations/flash_softcap.py). The backward tests it at run time, at no
+// cost measured there (+0.2 %). c = 0
+// computes what the kernels computed before, bit for bit.
+//
 // with the online softmax over key tiles: a running max m and sum l per
 // row, the accumulator rescaled by exp(m_old - m_new) as each tile comes,
 // and o = acc / max(l, 1e-30). As in the TPU kernel a masked score is
@@ -172,6 +186,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// a scaled score under a logit softcap c: c tanh(s / c), as the reference
+// writes it (the accurate tanhf and an IEEE division)
+__device__ __forceinline__ float softcap(float s, float cap) {
+  return cap * tanhf(s / cap);
 }
 
 __device__ __forceinline__ bool in_band(int t, int u, int T, int S,
@@ -410,13 +430,13 @@ __device__ void stage_tile(const T* __restrict__ src, float* dst, int b,
 // the band reaches, with the next one loading meanwhile: s = q.k^T (16 x
 // BS a warp), the online softmax in registers, acc += P.V with P where
 // the softmax left it.
-template <int DMAX, typename T>
+template <int DMAX, typename T, bool CAPPED>
 __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
                            float* __restrict__ lse, int Tq, int S, int H,
                            int KV, int d, int causal, int window,
-                           float scale) {
+                           float scale, float cap) {
   using C = Tiles<DMAX>;
   constexpr int BT = kFwdBT, BS = C::kFwdBS, LD = C::kLdB;
   constexpr int NTH = 32 * kFwdWarps;
@@ -470,6 +490,17 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mma3(sc[j], aq, frag_bt<LD>(ks, 8 * j, i0, lane));
     }
 
+    // under a softcap the scores are scaled and capped here, and the
+    // passes below leave them as they are; with none they scale them
+    if constexpr (CAPPED) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[j][e] = softcap(sc[j][e] * scale, cap);
+      }
+    }
+    const float sscale = CAPPED ? 1.f : scale;
     // the online softmax of rows gr and gr + 8 over this tile; the scores
     // are masked unless the tile lies inside the band of every row
     const bool inner = last - tw == 15 && s0 + BS <= S &&
@@ -481,7 +512,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < NS; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          sc[j][e] *= scale;
+          sc[j][e] *= sscale;
           mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
         }
       }
@@ -491,7 +522,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int t = tw + gr + 4 * (e & 2), u = s0 + 8 * j + gc + (e & 1);
-          sc[j][e] = in_band(t, u, Tq, S, causal, window) ? sc[j][e] * scale
+          sc[j][e] = in_band(t, u, Tq, S, causal, window) ? sc[j][e] * sscale
                      : u < S                              ? kMinus
                                                           : kNoKey;
           mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
@@ -600,7 +631,8 @@ flash_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const float* __restrict__ Dv,
                            float* __restrict__ dq_acc, T* __restrict__ dk,
                            T* __restrict__ dv, int Tq, int S, int H, int KV,
-                           int d, int causal, int window, float scale) {
+                           int d, int causal, int window, float scale,
+                           float cap) {
   using C = Tiles<DMAX>;
   constexpr int BS = C::kBS, LD = C::kLdB, LDT = C::kLdTB;
   constexpr int WM = BS / 16, WN = kBwdWarps / WM;  // s^T, dK, dV warps
@@ -672,7 +704,8 @@ flash_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       // P = exp(s scale - lse) in the band, 1/S on a row with no key;
-      // dS = P (dP - D) in the band
+      // dS = P (dP - D) in the band; under a softcap s scale is capped
+      // first, and dS is times the cap's derivative 1 - (capped / c)^2
 #pragma unroll
       for (int j = 0; j < NT_S; ++j) {
 #pragma unroll
@@ -680,11 +713,20 @@ flash_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int ul = m0 + gr + 8 * (e >> 1), u = s0 + ul;
           const int tl = n0s + 8 * j + gc + (e & 1), t = t0 + tl;
           const bool band = in_band(t, u, Tq, S, causal, window);
-          const float p = band ? expf(st[j][e] * scale - ls[tl])
+          // s scale - lse as one fma with no cap, as the kernel always
+          // rounded it
+          float arg = fmaf(st[j][e], scale, -ls[tl]), dcap = 1.f;
+          if (cap > 0.f) {
+            const float sv = softcap(st[j][e] * scale, cap);
+            const float r = sv / cap;
+            arg = sv - ls[tl];
+            dcap = 1.f - r * r;
+          }
+          const float p = band ? expf(arg)
                           : (t >= keyless && t < Tq && u < S) ? inv_s
                                                               : 0.f;
           pt[ul * LDT + tl] = p;
-          dst[ul * LDT + tl] = band ? p * (dpt[j][e] - ds_[tl]) : 0.f;
+          dst[ul * LDT + tl] = band ? p * (dpt[j][e] - ds_[tl]) * dcap : 0.f;
         }
       }
       __syncthreads();  // P^T and dS^T are whole
@@ -764,27 +806,41 @@ int set_smem(const void* fn, size_t bytes) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <int DMAX, typename T, bool CAPPED>
+int launch_fwd_as(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int Tq, int S, int H, int KV, int d,
+                  int causal, int window, float cap, cudaStream_t stream) {
+  using C = Tiles<DMAX>;
+  static const int attr = set_smem(
+      (const void*)flash_attention_fwd_kernel<DMAX, T, CAPPED>, C::kFwdSmem);
+  if (attr) return attr;
+  const dim3 grid((Tq + kFwdBT - 1) / kFwdBT, H, B);
+  flash_attention_fwd_kernel<DMAX, T, CAPPED>
+      <<<grid, 32 * kFwdWarps, C::kFwdSmem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Tq, S, H, KV, d,
+      causal, window, 1.0f / sqrtf((float)d), cap);
+  return (int)cudaGetLastError();
+}
+
+// the forward with a softcap, or the one without (the cap a template flag:
+// see the header)
 template <int DMAX, typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Tq, int S, int H, int KV, int d,
-               int causal, int window, cudaStream_t stream) {
-  using C = Tiles<DMAX>;
-  static const int attr = set_smem(
-      (const void*)flash_attention_fwd_kernel<DMAX, T>, C::kFwdSmem);
-  if (attr) return attr;
-  const dim3 grid((Tq + kFwdBT - 1) / kFwdBT, H, B);
-  flash_attention_fwd_kernel<DMAX, T>
-      <<<grid, 32 * kFwdWarps, C::kFwdSmem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Tq, S, H, KV, d,
-      causal, window, 1.0f / sqrtf((float)d));
-  return (int)cudaGetLastError();
+               int causal, int window, float cap, cudaStream_t stream) {
+  return cap > 0.f
+             ? launch_fwd_as<DMAX, T, true>(q, k, v, o, lse, B, Tq, S, H, KV,
+                                            d, causal, window, cap, stream)
+             : launch_fwd_as<DMAX, T, false>(q, k, v, o, lse, B, Tq, S, H,
+                                             KV, d, causal, window, 0.f,
+                                             stream);
 }
 
 template <int DMAX, typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const float* lse, const void* dout, float* Dv, float* dq_acc,
                void* dk, void* dv, int B, int Tq, int S, int H, int KV, int d,
-               int causal, int window, cudaStream_t stream) {
+               int causal, int window, float cap, cudaStream_t stream) {
   using C = Tiles<DMAX>;
   static const int attr = set_smem(
       (const void*)flash_attention_bwd_kernel<DMAX, T>, C::kBwdSmem);
@@ -800,7 +856,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
       <<<dim3((S + C::kBS - 1) / C::kBS, KV, B), 32 * kBwdWarps, C::kBwdSmem,
          stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout,
                    lse, Dv, dq_acc, (T*)dk, (T*)dv, Tq, S, H, KV, d, causal,
-                   window, scale);
+                   window, scale, cap);
   return (int)cudaGetLastError();
 }
 
@@ -821,17 +877,20 @@ extern "C" void flash_attention_fwd_tile(int d, int* rows, int* keys) {
 }
 
 // Forward: q (B,T,H,d), k, v (B,S,KV,d), contiguous, dtype 0 = f32,
-// 1 = bf16 -> o (B,T,H,d) in q's type and lse (B,H,T) f32. Returns the
-// cudaError_t of the launch.
+// 1 = bf16 -> o (B,T,H,d) in q's type and lse (B,H,T) f32; cap > 0 caps the
+// scaled scores to cap tanh(s / cap). Returns the cudaError_t of the
+// launch.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, float* lse, int B,
                                    int Tq, int S, int H, int KV, int d,
-                                   int causal, int window, void* stream) {
+                                   int causal, int window, float cap,
+                                   void* stream) {
   if (B <= 0 || Tq <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV || d <= 0 || d > 256 || S <= 0) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
 #define FA_FWD(DM, TY) \
-  launch_fwd<DM, TY>(q, k, v, o, lse, B, Tq, S, H, KV, d, causal, window, st)
+  launch_fwd<DM, TY>(q, k, v, o, lse, B, Tq, S, H, KV, d, causal, window, \
+                     cap, st)
   if (dtype == 0)
     return d <= 64 ? FA_FWD(64, float) : d <= 128 ? FA_FWD(128, float)
                                                   : FA_FWD(256, float);
@@ -843,23 +902,24 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   return kBadArgs;
 }
 
-// Backward: the forward's inputs, its o and lse, and dO (B,T,H,d) -> dk,
-// dv in the inputs' type and dQ added into dq_acc (B,T,H,d) f32, which the
-// caller zeroes; `Dv` is (B,H,T) f32 scratch. Two launches: D = rowsum(dO
-// o O), then the fused dK/dV/dQ kernel.
+// Backward: the forward's inputs (the same cap), its o and lse, and dO
+// (B,T,H,d) -> dk, dv in the inputs' type and dQ added into dq_acc
+// (B,T,H,d) f32, which the caller zeroes; `Dv` is (B,H,T) f32 scratch. Two
+// launches: D = rowsum(dO o O), then the fused dK/dV/dQ kernel.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
                                    const void* v, const void* o,
                                    const float* lse, const void* dout,
                                    float* Dv, float* dq_acc, void* dk,
                                    void* dv,
                                    int B, int Tq, int S, int H, int KV, int d,
-                                   int causal, int window, void* stream) {
+                                   int causal, int window, float cap,
+                                   void* stream) {
   if (B <= 0 || Tq <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV || d <= 0 || d > 256 || S <= 0) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
 #define FA_BWD(DM, TY)                                                  \
   launch_bwd<DM, TY>(q, k, v, o, lse, dout, Dv, dq_acc, dk, dv, B, Tq, S, H, \
-                     KV, d, causal, window, st)
+                     KV, d, causal, window, cap, st)
   if (dtype == 0)
     return d <= 64 ? FA_BWD(64, float) : d <= 128 ? FA_BWD(128, float)
                                                   : FA_BWD(256, float);

@@ -7,18 +7,22 @@ sm_90a, loaded with ctypes); see its header for the design and the bound
 on the H100. For q (B, T, H, d) and k, v (B, S, KV, d), query head h reads
 kv head h // (H // KV):
 
-    o_t = Σ_u softmax_u(q_t·k_u / √d  over the mask) v_u
+    o_t = Σ_u softmax_u(s_tu over the mask) v_u,  s_tu = q_t·k_u / √d
     mask: u ≤ t if causal; u > t − window if window > 0
+    softcap c > 0: s_tu → c·tanh(s_tu / c) before the mask
 
 in f32 sums, with the output in q's dtype. ``flash_attention(q, k, v,
-causal=, window=)`` is differentiable in q, k and v. A CUDA tensor
+causal=, window=, softcap=)`` is differentiable in q, k and v. A CUDA tensor
 launches the kernels (the forward, which also saves each row's
 logsumexp, and the backward when autograd needs it), or raises; a CPU
 tensor takes `flash_attention_plain`, differentiated by autograd; a meta
 tensor gets empty outputs and gradients. Under a cost counter the forward
 and the backward are one entry each, of `cost_fwd` and `cost_bwd`
 (`kernels/counted.py`). The TPU kernel has no backward; the port writes
-one (FA2: D = rowsum(dO∘O), P = exp(s − lse), dS = P∘(dP − D)).
+one (FA2: D = rowsum(dO∘O), P = exp(s − lse), dS = P∘(dP − D), times
+1 − (s / c)² under a softcap). The TPU kernel applies no softcap; the
+reference's XLA attention does (``models/layers.py``), and so do these
+kernels. The counted FLOPs are the products' alone, with or without it.
 """
 from __future__ import annotations
 
@@ -108,16 +112,21 @@ def _mask(T: int, S: int, causal: bool, window: int, device) -> Tensor:
 
 
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
-                          causal: bool = True, window: int = 0) -> Tensor:
+                          causal: bool = True, window: int = 0,
+                          softcap: float = 0.0) -> Tensor:
     """The function in plain tensor ops, in the layout of
     ``ref.flash_attention_ref``: q (B, T, H, d), k, v (B, S, KV, d) →
     (B, T, H, d) in q's dtype; the dense masked softmax, masked scores
-    −1e30 (so a row with no key in its band takes the mean of v)."""
+    −1e30 (so a row with no key in its band takes the mean of v); a
+    ``softcap`` c > 0 caps the scaled scores to c·tanh(s / c) before the
+    mask, as the reference's ``attention_scores`` does."""
     B, T, H, d = q.shape
     S, KV = k.shape[1], k.shape[2]
     acc = _acc_dtype(q)
     qg = q.to(acc).reshape(B, T, KV, H // KV, d)
     s = torch.einsum("btkgd,bskd->bkgts", qg, k.to(acc)) * (1.0 / math.sqrt(d))
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
     s = torch.where(_mask(T, S, causal, window, q.device), s,
                     torch.full_like(s, _NEG))
     probs = torch.softmax(s, dim=-1)
@@ -131,14 +140,15 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = cuda_library("flash_attention")
-    lib.flash_attention_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 8 + [_P]
+    lib.flash_attention_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 8 + [_F, _P]
     lib.flash_attention_fwd.restype = _I
-    lib.flash_attention_bwd.argtypes = [_I] + [_P] * 10 + [_I] * 8 + [_P]
+    lib.flash_attention_bwd.argtypes = [_I] + [_P] * 10 + [_I] * 8 + [_F, _P]
     lib.flash_attention_bwd.restype = _I
     lib.flash_attention_max_d.argtypes = []
     lib.flash_attention_max_d.restype = _I
@@ -187,10 +197,11 @@ def _stream(dev) -> int:
 
 
 def flash_attention_fwd_kernel(q: Tensor, k: Tensor, v: Tensor, *,
-                               causal: bool = True, window: int = 0
+                               causal: bool = True, window: int = 0,
+                               softcap: float = 0.0
                                ) -> Tuple[Tensor, Tensor]:
     """Launch the forward kernel. Returns (o (B, T, H, d) in q's dtype,
-    lse (B, H, T) f32)."""
+    lse (B, H, T) f32, of the capped scores under a ``softcap``)."""
     B, T, S, H, KV, d = _check(q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dev = q.device
@@ -200,7 +211,7 @@ def flash_attention_fwd_kernel(q: Tensor, k: Tensor, v: Tensor, *,
         err = _lib().flash_attention_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), B, T, S, H, KV, d, int(causal),
-            int(window), _stream(dev))
+            int(window), float(softcap), _stream(dev))
     if err:
         raise RuntimeError(
             f"flash_attention forward launch failed: cudaError {err}")
@@ -210,7 +221,8 @@ def flash_attention_fwd_kernel(q: Tensor, k: Tensor, v: Tensor, *,
 
 def flash_attention_bwd_kernel(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
                                lse: Tensor, do: Tensor, *, causal: bool,
-                               window: int) -> Tuple[Tensor, Tensor, Tensor]:
+                               window: int, softcap: float = 0.0
+                               ) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch the backward kernels (D, then one fused kernel for dK, dV and
     dQ, which adds dQ into a zeroed f32 buffer with atomics). Returns (dq,
     dk, dv) in the inputs' dtype."""
@@ -227,7 +239,7 @@ def flash_attention_bwd_kernel(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), do.data_ptr(), Dv.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, S, H, KV, d,
-            int(causal), int(window), _stream(dev))
+            int(causal), int(window), float(softcap), _stream(dev))
     if err:
         raise RuntimeError(
             f"flash_attention backward launch failed: cudaError {err}")
@@ -240,13 +252,14 @@ class FlashAttention(torch.autograd.Function):
     v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):
         with op_cost.kernel(INFO_FWD["name"], _costs(q, k, causal,
                                                       window)[0]):
             o, lse = flash_attention_fwd_kernel(q, k, v, causal=causal,
-                                                window=window)
+                                                window=window,
+                                                softcap=softcap)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return o
 
     @staticmethod
@@ -255,15 +268,19 @@ class FlashAttention(torch.autograd.Function):
         with op_cost.kernel(INFO_BWD["name"], _costs(q, k, ctx.causal,
                                                       ctx.window)[1]):
             dq, dk, dv = flash_attention_bwd_kernel(
-                q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+                q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window,
+                softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    window: int = 0) -> Tensor:
-    """q (B, T, H, d), k, v (B, S, KV, d) → (B, T, H, d) in q's dtype."""
+                    window: int = 0, softcap: float = 0.0) -> Tensor:
+    """q (B, T, H, d), k, v (B, S, KV, d) → (B, T, H, d) in q's dtype;
+    ``softcap`` c > 0 caps the scaled scores to c·tanh(s / c)."""
+    softcap = float(softcap or 0.0)
     if q.is_cuda:
-        return FlashAttention.apply(q, k, v, bool(causal), int(window))
+        return FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                    softcap)
     if counted.counting_route(q):
         if q.device.type == "meta":
             _check(q, k, v, "meta")
@@ -274,7 +291,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         else:
             def plain(q, k, v):
                 return flash_attention_plain(q, k, v, causal=causal,
-                                             window=window)
+                                             window=window, softcap=softcap)
 
             call = counted.Call((INFO_FWD["name"], INFO_BWD["name"]),
                                 _costs(q, k, causal, window),
@@ -283,4 +300,5 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         return counted.run(call, q, k, v)[0]
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
-    return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)

@@ -35,8 +35,9 @@ rules (`launch.shardings.partition_specs` on the mesh's axes;
 state), the batch is the global one, of which the rank takes its rows
 over the token axes ('pod', 'data', and 'model' under ``"fsdp"``), or
 all of them where those shards do not divide it (the reference's
-``batch_shardings`` replicates such a batch; a MoE train step refuses
-one). The step computes the unsharded step's function: a rank's gradient is its
+``batch_shardings`` replicates such a batch; the expert-parallel MoE then
+takes each rank's block of the tokens itself, `models.moe_a2a`). The
+step computes the unsharded step's function: a rank's gradient is its
 block of the mean of the token shards' gradients (summed over the ranks
 that share a block by the gathers' backward and by an all-reduce over
 the token axes the block repeats on, divided by their number), and the
@@ -113,13 +114,16 @@ def _token_rows(x: torch.Tensor, part: SH.Partition) -> torch.Tensor:
 
 
 def _sharded(part: SH.Partition, specs, optimizer: Optimizer,
-             state: Dict[str, Any], loss_fn: Callable):
-    """`_descend` for this rank's blocks under ``part``; the gradient rule
-    and the metrics' mean of the module docstring."""
+             state: Dict[str, Any], loss_fn: Callable,
+             whole_rows: bool = False):
+    """`_descend` for this rank's blocks under ``part`` (on the whole
+    batch if ``whole_rows``); the gradient rule and the metrics' mean of
+    the module docstring. A clipping optimizer's norm is the whole
+    gradient's (`optim.optimizers.global_norm` under the mesh)."""
     def reduce(grads: Dict[str, torch.Tensor]) -> None:
         SH.mean_over_token_shards(grads, specs, part.mesh, part.token_axes)
 
-    with SH.use_mesh(part.mesh, part.axes, specs):
+    with SH.use_mesh(part.mesh, part.axes, specs, whole_rows):
         new_state, out = _descend(optimizer, state, loss_fn, reduce)
     names = sorted(out)
     vals = torch.stack([out[k].float() for k in names])
@@ -135,21 +139,14 @@ def make_train_step(bundle: ModelBundle, optimizer: Optimizer) -> Callable:
         if part is None:
             return _descend(optimizer, state,
                             lambda p: bundle.loss(p, batch))
-        if bundle.config.moe is not None and any(
-                v.shape[0] % part.n_token_shards for v in batch.values()):
-            # the MoE region takes each rank's batch as its block of the
-            # tokens (moe_a2a's layout): on a replicated batch it would
-            # have to split the tokens itself and gather y back
-            raise ValueError(
-                f"a MoE train step takes a batch that its "
-                f"{part.n_token_shards} token shards divide: the expert "
-                f"region does not run on a replicated batch")
         # a batch the token shards do not divide runs whole on every rank
         # (the reference replicates it); the mean over the token shards of
         # the equal gradients and metrics is then the whole batch's
         local = {k: _forward_rows(v, part) for k, v in batch.items()}
+        whole = any(v.shape[0] % part.n_token_shards
+                    for v in batch.values())
         return _sharded(part, mesh_specs(bundle, part), optimizer, state,
-                        lambda p: bundle.loss(p, local))
+                        lambda p: bundle.loss(p, local), whole)
 
     return train_step
 

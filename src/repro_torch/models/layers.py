@@ -14,8 +14,9 @@ reference picks between a dense score matrix and a query-block scan by
 size (``attention_scores`` / ``_blockwise_attention``), a memory lever of
 the same value that the kernel replaces. Cross attention takes K and V
 from ``kv_src`` (B, S, ·) and calls the kernel non-causal with S ≠ T.
-``logit_softcap`` raises NotImplementedError naming the ROADMAP item that
-ports it.
+``logit_softcap`` c caps the scaled scores to c·tanh(s / c) before the
+mask, as the reference does: in the kernel on the full-sequence path, in
+the dense scores at decode.
 
 Under tensor parallelism (an active ``"tp"`` `common.sharding.Partition`
 with 'model' above 1) a rank holds the column blocks of ``wq`` (whole
@@ -189,10 +190,6 @@ class AttnDims:
     kv_input_dim: Optional[int] = None  # cross-attn: K/V source dim
 
 
-_SOFTCAP = "ROADMAP Queue 2 item 2.5 (logit_softcap: no configuration " \
-           "sets it, and the flash_attention kernel does not apply it)"
-
-
 def init_attention(gen: torch.Generator, dims: AttnDims,
                    dtype=torch.float32) -> Params:
     H, KV, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
@@ -269,10 +266,8 @@ def attention_apply(params: Params, dims: AttnDims, x: Tensor, *,
     through the ``flash_attention`` kernel. K and V come from ``kv_src``
     (B, S, ·), x itself when None; positions default to 0..T−1 and
     0..S−1. mask_kind: causal | swa (keys within ``window`` of the query)
-    | none (every key: the encoder and cross attention)."""
-    if logit_softcap is not None:
-        raise NotImplementedError(f"attention logit_softcap is not ported "
-                                  f"yet: {_SOFTCAP}")
+    | none (every key: the encoder and cross attention). ``logit_softcap``
+    c caps the scaled scores to c·tanh(s / c) (None: no cap)."""
     if mask_kind not in ("causal", "swa", "none"):
         raise ValueError(mask_kind)
     B, T = x.shape[0], x.shape[1]
@@ -293,7 +288,8 @@ def attention_apply(params: Params, dims: AttnDims, x: Tensor, *,
     q, k, v = _project_qkv(params, dims, x, kv_src, positions, kv_positions,
                            rope_theta, part)
     out = ops.flash_attention(q, k, v, causal=mask_kind != "none",
-                              window=window if mask_kind == "swa" else 0)
+                              window=window if mask_kind == "swa" else 0,
+                              softcap=logit_softcap or 0.0)
     out = out.reshape(B, T, q.shape[2] * dims.head_dim) @ params["wo"]
     if part is not None:
         out = SH.tp_exit(out, part)
@@ -330,17 +326,21 @@ def causal_conv1d_apply(params: Params, x: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def attention_scores(q: Tensor, k: Tensor, v: Tensor,
-                     mask: Optional[Tensor]) -> Tensor:
+                     mask: Optional[Tensor],
+                     logit_softcap: Optional[float] = None) -> Tensor:
     """The reference's dense GQA attention. q (B, T, H, hd), k and v (B, S,
     KV, hd); ``mask`` broadcastable to (B, KV, G, T, S), True where a key
-    counts, or None. Scores in f32, masked at −1e30 (not −inf, as the
-    reference), the output in v's dtype."""
+    counts, or None. Scores in f32, capped to c·tanh(s / c) under a
+    ``logit_softcap`` c, masked at −1e30 (not −inf, as the reference), the
+    output in v's dtype."""
     B, T, H, hd = q.shape
     KV = k.shape[2]
     dt = torch.promote_types(q.dtype, k.dtype)
     q5 = q.reshape(B, T, KV, H // KV, hd).to(dt)
     scores = torch.einsum("btkgh,bskh->bkgts", q5, k.to(dt)).float()
     scores = scores / math.sqrt(hd)
+    if logit_softcap is not None:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
     if mask is not None:
         scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1)
@@ -369,10 +369,8 @@ def attention_decode(params: Params, dims: AttnDims, x: Tensor,
     longest sequence) KV cache. Row b writes its k and v to slot
     ``index[b] mod S`` and attends to the slots whose absolute position
     lies in [0, index[b]] (and within ``window`` of it). Returns (y (B, 1,
-    D), the new cache); the old one is left as it was."""
-    if logit_softcap is not None:
-        raise NotImplementedError(f"attention logit_softcap is not ported "
-                                  f"yet: {_SOFTCAP}")
+    D), the new cache); the old one is left as it was. ``logit_softcap``
+    as in `attention_scores`."""
     B = x.shape[0]
     S = cache["k"].shape[1]
     idx = cache["index"]
@@ -390,7 +388,8 @@ def attention_decode(params: Params, dims: AttnDims, x: Tensor,
     valid = (abs_pos >= 0) & (abs_pos <= pos)
     if window:
         valid &= abs_pos > pos - window
-    out = attention_scores(q, k, v, valid[:, None, None, None, :])
+    out = attention_scores(q, k, v, valid[:, None, None, None, :],
+                           logit_softcap)
     out = out.reshape(B, 1, dims.num_heads * dims.head_dim)
     y = (out.to(params["wo"].dtype) @ params["wo"]).to(x.dtype)
     return y, {"k": k, "v": v, "index": idx + 1}

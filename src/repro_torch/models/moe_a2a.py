@@ -34,7 +34,16 @@ y. Under ``"fsdp"`` ``x`` is that block. Under ``"tp"`` the model ranks
 share their tokens: the region takes this rank's block of ``x``'s rows
 at its entry and all-gathers y at its exit; the router and the shared
 expert, used there on the block, enter as tensor-parallel leaves, and
-the aux's gradient is scaled by 1/|model|. Gradients
+the aux's gradient is scaled by 1/|model|. On a batch that the step's
+token shards do not divide (``Partition.whole_rows``: every rank holds
+the whole batch, as the reference replicates it) the region takes this
+rank's block of the flattened tokens over the token axes itself (the
+same rank order, as the reference's ``shard_map`` splits them) and
+all-gathers y over them at its exit, the gather's backward summing the
+ranks' cotangents: every rank's loss is the whole batch's, so the
+router, the shared expert and the experts, which see this rank's tokens
+only, get the sum over the token shards that the step's mean needs.
+Gradients
 follow the mean convention of the pod step (`core.mhd_distributed`): the
 objective is the mean over the ranks of each rank's loss, so replicated
 leaves' gradients are averaged over the ranks and a sharded leaf's
@@ -43,14 +52,13 @@ The returned aux carries the mean's value and the gradient of this
 rank's own term, which that average turns into the mean's.
 
 **The scatter form** is taken exactly where the reference takes it: no
-'model' axis of size above 1, or E not divisible by it. There every rank
-all-gathers the tokens (and any D-sharded expert weights), runs
+'model' axis of size above 1, E not divisible by it, or a global token
+count that the token shards over every axis do not divide. There every
+rank all-gathers the tokens (and any D-sharded expert weights), runs
 ``moe.moe_apply`` on the whole batch — the reference's global capacity
 and aux — and keeps its block of y; the gathers' backward
-reduce-scatters. The reference's third condition, a global token count
-the token shards do not divide, arises only under ``"tp"`` (a rank's
-tokens that 'model' does not divide): each rank holds an equal block of
-the batch, and the steps refuse a batch their ranks do not divide.
+reduce-scatters. On a whole batch it gathers no tokens and keeps all of
+y.
 `moe_apply_scatter` is the scatter form for ``moe_impl="scatter"`` under
 a sharded step (its token shards gathered, the experts made whole), and
 `moe.moe_apply` itself on one rank.
@@ -160,7 +168,8 @@ def _scatter_form(params: Params, x: Tensor, cfg: MoEConfig, act: str,
     xf = x.reshape(-1, D)
     n = xf.shape[0]
     # the model ranks share the gathered tokens under "tp": their compute
-    # repeats; under "fsdp" each keeps another block of y
+    # repeats; under "fsdp" each keeps another block of y (or, on a whole
+    # batch, computes all of it, as every rank does)
     model_grad = "slice" if part.tp else "sum"
     full = {k: v for k, v in params.items() if not k.startswith("shared/")}
     for k, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
@@ -171,6 +180,9 @@ def _scatter_form(params: Params, x: Tensor, cfg: MoEConfig, act: str,
     if cfg.num_shared_experts:
         full.update({f"shared/{k}": v for k, v in _shared(
             params, cfg, D, data_axes, model_grad).items()})
+    if part.whole_rows:
+        y, aux = MOE.moe_apply(full, xf, cfg, act, scoring)
+        return y.reshape(x.shape), aux
     x_all = _gather(xf, token_axes, 0)
     y_all, aux = MOE.moe_apply(full, x_all, cfg, act, scoring)
     live = tuple(a for a in token_axes if part.sizes[a] > 1)
@@ -197,8 +209,8 @@ def moe_apply_a2a(params: Params, x: Tensor, cfg: MoEConfig,
     """``moe.moe_apply`` for ``moe_impl="a2a"``: the expert-parallel form
     over the active mesh's 'model' axis, or the scatter form where the
     reference takes it (no active mesh: `moe_apply` itself). ``x`` (…, D)
-    is this rank's block of tokens; returns (its block of y, the aux
-    loss)."""
+    is this rank's block of tokens, or the whole batch under
+    ``whole_rows``; returns (y of the same tokens, the aux loss)."""
     part = active_partition()
     if part is None:
         # looked up at the call, as the reference imports it there: a
@@ -214,11 +226,19 @@ def moe_apply_a2a(params: Params, x: Tensor, cfg: MoEConfig,
     xf = x.reshape(-1, D)
     # under "tp" the model ranks share their tokens: the region takes
     # this rank's block of them (the reference's rank order) and gives
-    # every model rank all of y back at its exit
-    tp = part.tp
-    if n_model <= 1 or E % n_model != 0 or (tp and xf.shape[0] % n_model):
+    # every model rank all of y back at its exit; on a whole batch it
+    # first takes this rank's block over the step's token axes
+    tp, whole = part.tp, part.whole_rows
+    live = tuple(a for a in part.token_axes if sizes[a] > 1)
+    n_blk = math.prod(sizes[a] for a in live) if whole else 1
+    if n_model <= 1 or E % n_model != 0 or \
+            xf.shape[0] % (n_blk * (n_model if tp else 1)):
         return _scatter_form(params, x, cfg, act, scoring, part.token_axes,
                              data_axes)
+    if whole:
+        size = xf.shape[0] // n_blk
+        blk = part.index(live)
+        xf = xf[blk * size:(blk + 1) * size]
     if tp:
         xf = SH.split_rows(xf, part)
     N_dev = xf.shape[0]  # this rank's tokens
@@ -262,4 +282,6 @@ def moe_apply_a2a(params: Params, x: Tensor, cfg: MoEConfig,
         y = y + mlp_apply(shared, xf, act)
     if tp:
         y = SH.gather_rows(y, part)
+    if whole:
+        y = SH.gather(y, live, 0, "sum", part)
     return y.reshape(orig_shape), aux_loss

@@ -67,14 +67,15 @@ leaves get zero gradients there as in the reference.
 all-to-all over the active mesh's ``model`` axis
 (`common.sharding.use_mesh`), the scatter form where the reference takes
 it (no mesh, or no ``model`` axis that divides E).
-``attn_logit_softcap`` raises NotImplementedError naming the ROADMAP item
-that ports it.
+``attn_logit_softcap`` caps the self-attention layers' scores, as the
+reference's (not MLA's, the cross layers' or the shared block's).
 
 **Under a sharded step** (an active `common.sharding.Partition` whose
 specs cut the leaves, `launch.shardings.partition_specs`) each rank holds
 its blocks, and each unit gathers its leaves where it runs, inside its
-checkpoint when rematerialised (so the recompute gathers again and the
-saved tensors are the blocks): along the data dims always (FSDP), and
+checkpoint when rematerialised (so the recompute, which runs under the
+partition active at its forward, `common.sharding.remat_context`,
+gathers again and the saved tensors are the blocks): along the data dims always (FSDP), and
 along 'model' wherever the layer does not compute on its block
 (`_model_grad`). Under ``"tp"`` attention and the dense MLP compute on
 their 'model' blocks (`layers`); Mamba2, MLA and the scatter MoE are
@@ -104,16 +105,6 @@ from repro_torch.models.config import LayerSpec, ModelConfig, Stage
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
-
-_SOFTCAP = ("ROADMAP Queue 2 item 2.5 (logit_softcap: no configuration "
-            "sets it, and the flash_attention kernel does not apply it)")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError(
-            f"attn_logit_softcap is not ported yet: {_SOFTCAP}")
-
 
 # the MTP block's one layer (unstacked), MLA when the model's attention is;
 # and the encoder's (bidirectional under mask_kind_override="none")
@@ -292,7 +283,6 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     ``device`` is; a CUDA one draws on the card) and placed on ``device``
     (``None`` → ``cuda``, as every entry point of the port)."""
     cfg.validate()
-    _check_supported(cfg)
     device = resolve_device(device)
     params: Params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
                                             dtype)}
@@ -381,7 +371,8 @@ def _layer_forward(lp: Params, cfg: ModelConfig, spec: LayerSpec,
             _sub(lp, "attn"), _attn_dims(cfg), h,
             mask_kind=mask_kind_override or (
                 "swa" if spec.attn == "swa" else "causal"),
-            window=cfg.window_size, rope_theta=rope)
+            window=cfg.window_size, rope_theta=rope,
+            logit_softcap=cfg.attn_logit_softcap)
     elif spec.attn == "cross":
         h = L.norm_apply(_sub(lp, "attn_norm"), x, cfg.norm)
         a = L.attention_apply(_sub(lp, "attn"), _attn_dims(cfg, cross=True),
@@ -459,7 +450,8 @@ def _run_stages(params: Params, cfg: ModelConfig, x: Tensor, stages=None,
             if cfg.remat != "none" and torch.is_grad_enabled():
                 x, total_aux = torch.utils.checkpoint.checkpoint(
                     unit_fn, x, total_aux, unit, use_reentrant=False,
-                    preserve_rng_state=False)
+                    preserve_rng_state=False,
+                    context_fn=SH.remat_context)
             else:
                 x, total_aux = unit_fn(x, total_aux, unit)
     return x, total_aux
@@ -576,7 +568,6 @@ def apply_lm(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
     both heads' (…, T, V) logits (no ``logits`` or ``aux_heads`` key):
     the chunked loss forms them a chunk at a time, where the reference's
     ``jit`` drops the unread full ones."""
-    _check_supported(cfg)
     x = _embed_tokens(params, cfg, batch["tokens"])
     x = _add_positional(params, cfg, x)
     cross_src = None

@@ -20,10 +20,13 @@ full-width arctic-480b client under AdamW, 11.6 GiB of old moments and
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.common import sharding as SH
 
 Params = Dict[str, torch.Tensor]
 
@@ -34,7 +37,15 @@ class Optimizer(NamedTuple):
 
 
 def global_norm(grads: Params) -> torch.Tensor:
-    """f32 global L2 norm over every leaf, summed in key order."""
+    """f32 global L2 norm over every leaf, summed in key order. Under an
+    active mesh of more than one rank (`common.sharding.use_mesh`, as the
+    sharded steps and the pod step run their update) ``grads`` are this
+    rank's blocks, and the norm is the whole gradient's: every distinct
+    entry the mesh's ranks hold, counted once
+    (`common.sharding.global_sum_of_squares`)."""
+    part = SH.active_partition()
+    if part is not None and math.prod(part.sizes.values()) > 1:
+        return torch.sqrt(SH.global_sum_of_squares(grads, part))
     return torch.sqrt(torch.stack(
         [g.float().square().sum() for g in grads.values()]).sum())
 

@@ -3,8 +3,10 @@
 held against on the card) against the Pallas kernel in interpret mode and
 its gradients, through ``ops.flash_attention``'s CPU route, against
 ``jax.grad`` of ``ref.flash_attention_ref`` — rows with no key in their
-band (T > S + window) included; and the layers around it — RoPE, the MLP
-and ``attention_apply`` — against ``repro.models.layers`` with the same
+band (T > S + window) included; the logit softcap against the
+reference's dense and query-block attention, which apply it (the Pallas
+kernel does not); and the layers around it — RoPE, the MLP and
+``attention_apply`` — against ``repro.models.layers`` with the same
 parameters. Inputs come from numpy seeds.
 
 Tolerances: the forward 2e-5 in f32 and 3e-2 in bf16, as
@@ -148,16 +150,92 @@ def test_cpu_route_counts_no_launch_and_kernel_refuses_cpu():
         FA.flash_attention_fwd_kernel(q, q, q)
 
 
+# the softcap cases: B, T, H, KV, d, mask kind, window; the reference's
+# two full-sequence forms, `attention_scores` with its mask and
+# `_blockwise_attention` over query blocks of 16 (T = 40 pads the last)
+SOFTCAP_CASES = [(2, 40, 4, 2, 16, "causal", 0), (1, 40, 4, 1, 32, "swa", 12),
+                 (2, 24, 2, 2, 16, "none", 0)]
+
+
+def _reference_attention(form, q, k, v, mask_kind, window, cap):
+    B, T = q.shape[:2]
+    S = k.shape[1]
+    if form == "blockwise":
+        return JL._blockwise_attention(q, k, v, mask_kind, window, cap,
+                                       block_q=16)
+    t, u = jnp.arange(T)[:, None], jnp.arange(S)[None, :]
+    mask = jnp.ones((T, S), bool)
+    if mask_kind != "none":
+        mask &= u <= t
+    if mask_kind == "swa":
+        mask &= u > t - window
+    return JL.attention_scores(q, k, v, mask[None, None, None], cap)
+
+
+@pytest.mark.parametrize("cap", [50.0, 5.0])
+@pytest.mark.parametrize("B,T,H,KV,d,mask_kind,window", SOFTCAP_CASES)
+def test_softcap_plain_matches_the_reference_forms(B, T, H, KV, d,
+                                                   mask_kind, window, cap):
+    """``flash_attention_plain`` with ``softcap`` c (the CPU route and the
+    card's float64 oracle) against the reference's dense
+    `attention_scores` and its query-block `_blockwise_attention`, each
+    capping c·tanh(s / c) before the mask: the output within 2e-5 and dq,
+    dk, dv of a random linear function of it within 1e-5 of each array's
+    largest entry (through ``ops.flash_attention``'s CPU route and
+    ``jax.grad``). Scores scaled ×4 so that c = 5 saturates tanh."""
+    q, k, v = _qkv(B, T, H, KV, d, seed=3)
+    q = q * 4.0
+    w = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
+    causal = mask_kind != "none"
+    win = window if mask_kind == "swa" else 0
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o = ops.flash_attention(*leaves, causal=causal, window=win, softcap=cap)
+    g_t = torch.autograd.grad((o * torch.from_numpy(w)).sum(), leaves)
+    plain = FA.flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                     causal=causal, window=win, softcap=cap)
+    assert torch.equal(plain, o.detach())
+    for form in ("dense", "blockwise"):
+        r = _reference_attention(form, *(jnp.asarray(a) for a in (q, k, v)),
+                                 mask_kind, win, cap)
+        np.testing.assert_allclose(o.detach().numpy(), np.asarray(r),
+                                   rtol=2e-5, atol=2e-5, err_msg=form)
+        g_j = jax.grad(lambda a, b, c: jnp.sum(_reference_attention(
+            form, a, b, c, mask_kind, win, cap) * w), argnums=(0, 1, 2))(
+                *(jnp.asarray(a) for a in (q, k, v)))
+        for name, a, b in zip(("dq", "dk", "dv"), g_t, g_j):
+            assert _rel(a.numpy(), b) < 1e-5, (form, name)
+    uncapped = FA.flash_attention_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal, window=win)
+    assert _rel(plain.numpy(), uncapped.numpy()) > 1e-3
+
+
 def test_logit_softcap_raises():
-    """logit_softcap raises naming its ROADMAP item. Cross attention,
-    ported since, runs in place of raising: ``kv_src`` of another length
-    (S = 6 against T = 4), every key visible, against
-    `repro.models.layers.attention_apply` on the same params within 2e-5."""
+    """(The name is from when the softcap raised; it runs now.)
+    ``attention_apply`` with ``logit_softcap`` c = 50 and 5 (GQA, sliding
+    window) against `repro.models.layers.attention_apply` on the same
+    params within 2e-5, the cap changing the output (inputs ×3, so that
+    the scores reach the cap). Cross attention runs too: ``kv_src`` of
+    another length (S = 6 against T = 4), every key visible, within 2e-5
+    of the reference."""
+    dims_kw = dict(d_model=32, num_heads=4, num_kv_heads=2, head_dim=8)
+    jp = JL.init_attention(jax.random.PRNGKey(2), JL.AttnDims(**dims_kw))
+    tp = {k: torch.from_numpy(np.array(v))
+          for k, v in flatten_with_paths(jp).items()}
+    x = 3 * np.random.default_rng(8).standard_normal((2, 20, 32)).astype(
+        np.float32)
+    t0 = TL.attention_apply(tp, TL.AttnDims(**dims_kw), torch.from_numpy(x),
+                            mask_kind="swa", window=8)
+    for cap in (50.0, 5.0):
+        r = JL.attention_apply(jp, JL.AttnDims(**dims_kw), jnp.asarray(x),
+                               mask_kind="swa", window=8, logit_softcap=cap)
+        t = TL.attention_apply(tp, TL.AttnDims(**dims_kw),
+                               torch.from_numpy(x), mask_kind="swa",
+                               window=8, logit_softcap=cap)
+        np.testing.assert_allclose(t.numpy(), np.asarray(r), rtol=2e-5,
+                                   atol=2e-5, err_msg=str(cap))
+        assert _rel(t.numpy(), t0.numpy()) > 1e-4, cap
     dims = TL.AttnDims(d_model=16, num_heads=2, num_kv_heads=2, head_dim=8)
     params = TL.init_attention(torch.Generator().manual_seed(0), dims)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.attention_apply(params, dims, torch.randn(1, 4, 16),
-                           logit_softcap=30.0)
     rng = np.random.default_rng(5)
     x = rng.standard_normal((1, 4, 16)).astype(np.float32)
     src = rng.standard_normal((1, 6, 16)).astype(np.float32)

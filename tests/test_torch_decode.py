@@ -307,14 +307,51 @@ def test_idle_lanes_cannot_push_out_a_live_lanes_pair():
 
 
 def test_softcap_decode_raises_naming_its_item():
+    """(The name is from when the softcap raised; it runs now.)
+    One decode step of `attention_decode` with ``logit_softcap`` c = 50
+    and 5 (the cap in the dense scores, before the mask) against the
+    reference's on the same params, a half-filled f32 cache of 8 slots
+    and two rows at position 5: y and the new cache within TOL of their
+    largest entries. At c = 5 tanh saturates on the larger scores."""
+    for cap in (50.0, 5.0):
+        _softcap_decode_matches_jax(cap)
+
+
+def _softcap_decode_matches_jax(cap):
+    from repro.models import layers as JL
     from repro_torch.models import layers as TL
 
-    dims = TL.AttnDims(d_model=16, num_heads=2, num_kv_heads=2, head_dim=8)
-    params = TL.init_attention(torch.Generator().manual_seed(0), dims)
-    cache = TL.init_kv_cache(1, 4, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2.5"):
-        TL.attention_decode(params, dims, torch.zeros(1, 1, 16), cache,
-                            logit_softcap=30.0)
+    dims = dict(d_model=32, num_heads=4, num_kv_heads=2, head_dim=16)
+    rng = np.random.default_rng(9)
+    params = {k: rng.standard_normal(v.shape).astype(np.float32) * 0.5
+              for k, v in TL.init_attention(
+                  torch.Generator().manual_seed(0),
+                  TL.AttnDims(**dims)).items()}
+    x = rng.standard_normal((2, 1, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 8, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    y_j, c_j = JL.attention_decode(
+        {n: jnp.asarray(a) for n, a in params.items()}, JL.AttnDims(**dims),
+        jnp.asarray(x), {"k": jnp.asarray(k), "v": jnp.asarray(v),
+                         "index": jnp.asarray(5, jnp.int32)},
+        logit_softcap=cap)
+    y, c = TL.attention_decode(
+        {n: torch.from_numpy(a) for n, a in params.items()},
+        TL.AttnDims(**dims), torch.from_numpy(x),
+        {"k": torch.from_numpy(k), "v": torch.from_numpy(v),
+         "index": torch.full((2,), 5, dtype=torch.int32)},
+        logit_softcap=cap)
+    assert _rel(y.numpy(), y_j) < TOL
+    for name in ("k", "v"):
+        assert _rel(c[name].numpy(), c_j[name]) < TOL, name
+    assert c["index"].tolist() == [6, 6]
+    # the cap changes the step
+    y0, _ = TL.attention_decode(
+        {n: torch.from_numpy(a) for n, a in params.items()},
+        TL.AttnDims(**dims), torch.from_numpy(x),
+        {"k": torch.from_numpy(k), "v": torch.from_numpy(v),
+         "index": torch.full((2,), 5, dtype=torch.int32)})
+    assert _rel(y.numpy(), y0.numpy()) > TOL
 
 
 def test_bundle_decodes_and_caches_default_to_bfloat16():

@@ -186,7 +186,7 @@ def _exchange_bytes(cfg, exchange: str, k: int = 32) -> int:
 
 
 @pytest.mark.parametrize("mode", ["record", "mhd", "multi_device"])
-def test_main_writes_a_record_and_refuses_the_multi_device_modes(
+def test_main_writes_a_record_in_each_mode(
         mode, tmp_path, monkeypatch):
     """``main`` writes a record; ``--step mhd`` writes one for each
     exchange, gemma3-12b cut in depth (the exchange does not depend on
@@ -294,8 +294,12 @@ def test_multi_pod_fsdp_runs_a_batch_its_ranks_do_not_divide(
     sequences do not split over the 2×16×16 mesh's 512 token shards:
     every rank computes the whole batch, as the reference's batch
     sharding replicates it, so rank 0's FLOPs equal the one-card count
-    (gemma3-12b cut in depth). A MoE arch refuses such a batch, naming
-    the reason (arctic-480b cut in depth)."""
+    (gemma3-12b cut in depth). The MoE archs count the same case
+    (arctic-480b and deepseek-v3 cut in depth): outside the expert region
+    every rank computes the whole batch, and the expert-parallel region
+    takes rank 0's block of the 256 · 4,096 tokens itself, so rank 0's
+    FLOPs lie below one card's, and the region's all-to-alls are
+    booked."""
     cut = dataclasses.replace(get_config("gemma3-12b"),
                               **depth_cut("gemma3-12b"))
     monkeypatch.setattr(DR, "get_config", lambda arch: cut)
@@ -309,12 +313,18 @@ def test_multi_pod_fsdp_runs_a_batch_its_ranks_do_not_divide(
     assert (rec["mesh"], rec["chips"]) == ("2x16x16", 512)
     assert rec["hlo_cost"]["flops"] == one["hlo_cost"]["flops"]
     assert rec["collective_bytes_raw"]["total"] > 0
-    moe = dataclasses.replace(get_config("arctic-480b"),
-                              **depth_cut("arctic-480b"))
-    monkeypatch.setattr(DR, "get_config", lambda arch: moe)
-    with pytest.raises(ValueError, match="replicated batch"):
-        DR.dryrun_one("arctic-480b", "train_4k", mesh="2x16x16",
-                      sharding="fsdp", verbose=False)
+    for arch in ("arctic-480b", "deepseek-v3-671b"):
+        moe = dataclasses.replace(get_config(arch), **depth_cut(arch))
+        monkeypatch.setattr(DR, "get_config", lambda a, moe=moe: moe)
+        one = DR.dryrun_one(arch, "train_4k", verbose=False)
+        assert DR.main(["--multi-pod", "--sharding", "fsdp", "--arch", arch,
+                        "--shape", "train_4k", "--out", str(tmp_path)]) == 0
+        rec = json.loads((tmp_path / f"{arch}__train_4k__2x16x16.json")
+                         .read_text())
+        assert rec["status"] == "ok" and rec["sharding"] == "fsdp", arch
+        assert (rec["mesh"], rec["chips"]) == ("2x16x16", 512)
+        assert 0 < rec["hlo_cost"]["flops"] < one["hlo_cost"]["flops"]
+        assert rec["collective_bytes_raw"]["all-to-all"] > 0, arch
 
 
 def test_fsdp_collective_bytes_in_closed_form():

@@ -457,7 +457,7 @@ LM_HETERO_PARITY_STEPS = 10
 _KERNEL_KEYS = {
     "ssd_scan": lambda x, dt, A, B, C, D, chunk: (
         (*x.shape, B.shape[-1]), chunk),
-    "flash_attention": lambda q, k, v, causal, window: (
+    "flash_attention": lambda q, k, v, causal, window, softcap=0.0: (
         (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3]),
         window),
     "topk_wire": lambda x, k: (*x.shape, k),

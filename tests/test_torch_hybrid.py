@@ -128,12 +128,40 @@ def test_params_npz_round_trip(model, tmp_path):
         assert np.array_equal(np.asarray(x), np.asarray(y))
 
 
-@pytest.mark.parametrize("field,value", [("attn_logit_softcap", 50.0)])
+@pytest.mark.parametrize("field,value", [("attn_logit_softcap", 50.0),
+                                         ("attn_logit_softcap", 5.0)])
 def test_unported_config_options_raise(field, value):
-    """softcap raises naming its ROADMAP item."""
+    """(The name is from when the softcap raised; it runs now.)
+    ``attn_logit_softcap`` c on reduced gemma3-12b (its sliding-window
+    and full layers capped, on the flash_attention path's CPU route)
+    against the reference's lm_loss and every gradient from the same
+    params, at the file's tolerances; the cap changes the loss. At c = 5
+    tanh saturates on the larger scores, so its derivative matters."""
     cfg = dataclasses.replace(get_reduced("gemma3-12b"), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TTF.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    jcfg = dataclasses.replace(jax_reduced("gemma3-12b"), **{field: value})
+    jp = jax.jit(lambda k: JTF.init_lm(k, jcfg))(jax.random.PRNGKey(0))
+    flat = {k: np.asarray(v) for k, v in JIO.flatten_with_paths(jp).items()}
+    tokens = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    (loss_j, _), g_j = jax.jit(jax.value_and_grad(
+        lambda p, b: JTF.lm_loss(p, jcfg, b), has_aux=True))(
+            jp, {"tokens": jnp.asarray(tokens)})
+    g_j = JIO.flatten_with_paths(g_j)
+    params = {k: v.requires_grad_() for k, v in
+              TIO.params_from_jax(flat, device="cpu").items()}
+    batch = {"tokens": torch.from_numpy(tokens)}
+    loss, _ = TTF.lm_loss(params, cfg, batch)
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=2e-5)
+    grads = dict(zip(params, torch.autograd.grad(
+        loss, list(params.values()), allow_unused=True,
+        materialize_grads=True)))
+    assert set(grads) == set(g_j)
+    for k, g in grads.items():
+        assert _rel(g.numpy(), g_j[k]) < 1e-4, k
+    plain = dataclasses.replace(cfg, **{field: None})
+    with torch.no_grad():
+        uncapped, _ = TTF.lm_loss(params, plain, batch)
+    assert abs(uncapped.item() - loss.item()) > 1e-6
 
 
 @pytest.mark.parametrize("field,value", [("mtp", True),

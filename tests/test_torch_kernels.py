@@ -337,7 +337,7 @@ def test_topk_wire_kernel_edges(cuda, name):
 
 
 @pytest.mark.cuda
-def test_triton_kernels_match_plain(cuda):
+def test_dist_ce_kernels_match_plain(cuda):
     s = torch.from_numpy(_logits(64, 1000, 12)).to(cuda)
     t = torch.from_numpy(_logits(64, 1000, 13)).to(cuda)
     out, ref_out = DCE.dist_ce_fwd_kernel(s, t), DCE.dist_ce_fwd_plain(s, t)
@@ -401,25 +401,31 @@ def test_emb_dist_refused_launch_raises(cuda, monkeypatch):
 
 
 def _check_flash_kernels(dev, B, T, S, H, KV, d, causal, window, dtype,
-                         tol):
+                         tol, softcap=0.0):
     """The forward (o and lse) and the three gradients against the plain
     version in float64, each as max|d| / max|plain|; the lse on the rows
-    with a key in their band, and <= -1e29 on the rows with none."""
+    with a key in their band, and <= -1e29 on the rows with none. Under a
+    ``softcap`` q is scaled by chip_smoke's SOFTCAP_Q_SCALE, so that the
+    scores reach the cap."""
     g = torch.Generator(device=dev).manual_seed(14)
     q = torch.randn(B, T, H, d, generator=g, device=dev)
+    if softcap:
+        q = q * CS.SOFTCAP_Q_SCALE
     k, v = (torch.randn(B, S, KV, d, generator=g, device=dev)
             for _ in range(2))
     do = torch.randn(B, T, H, d, generator=g, device=dev)
     q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
     o, lse = FA.flash_attention_fwd_kernel(q, k, v, causal=causal,
-                                           window=window)
+                                           window=window, softcap=softcap)
     grads = FA.flash_attention_bwd_kernel(q, k, v, o, lse, do,
-                                          causal=causal, window=window)
+                                          causal=causal, window=window,
+                                          softcap=softcap)
     leaves = [x.double().requires_grad_() for x in (q, k, v)]
-    o2 = FA.flash_attention_plain(*leaves, causal=causal, window=window)
+    o2 = FA.flash_attention_plain(*leaves, causal=causal, window=window,
+                                  softcap=softcap)
     grads2 = torch.autograd.grad(o2, leaves, do.double())
     lse2 = CS._flash_lse_plain(leaves[0].detach(), leaves[1].detach(),
-                               causal, window)
+                               causal, window, softcap)
     live = lse2 > -1e29
     assert bool((lse[~live] <= -1e29).all())
     for a, b in zip((o, lse[live], *grads), (o2, lse2[live], *grads2)):
@@ -446,6 +452,23 @@ def test_flash_attention_kernels_match_plain(cuda, B, T, S, H, KV, d, causal,
     T that is not a multiple of the forward's 128-row query tile."""
     _check_flash_kernels(cuda, B, T, S, H, KV, d, causal, window,
                          torch.float32, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [50.0, 5.0])
+@pytest.mark.parametrize("B,T,S,H,KV,d,causal,window", [
+    (2, 512, 512, 24, 8, 128, True, 0), (1, 300, 300, 8, 4, 128, True, 64),
+    (2, 70, 50, 4, 2, 64, False, 0), (1, 260, 100, 4, 2, 128, True, 32)])
+def test_flash_attention_softcap_kernels_match_plain(cuda, B, T, S, H, KV,
+                                                     d, causal, window,
+                                                     softcap):
+    """The kernels with a logit softcap c (the scaled scores capped to c
+    tanh(s / c) before the mask, dS times 1 - (capped / c)^2) against the
+    plain version in float64 at 1e-4 relative: the tp path's minitron-4b
+    shape, a sliding-window GQA case, non-causal S != T, and rows with no
+    key in their band; at c = 5 tanh saturates."""
+    _check_flash_kernels(cuda, B, T, S, H, KV, d, causal, window,
+                         torch.float32, 1e-4, softcap)
 
 
 @pytest.mark.cuda

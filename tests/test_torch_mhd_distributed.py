@@ -29,6 +29,21 @@ the JAX package's, on the CPU.
     replaced by one that rounds to bf16 in the input's dtype, as
     tests/test_torch_moe_a2a.py explains), its expert shards put back
     together by their specs;
+  * what the pod step once refused, against the reference's jitted step
+    on the same case: a private and a public batch of 3 rows on (pod 2,
+    data 2), which each pod's 2 token shards do not divide (every rank of
+    the pod computes them whole), and on (pod 1, data 2, model 2) under
+    ``"tp"``, where each model rank scores its block of the 45 public
+    positions' whole rows (23 and 22); ``max_public_positions`` with 2
+    token shards a pod, on (pod 2, data 2) at 10 of the 30 public
+    positions (the second shard keeps none, and scores, packs and
+    exchanges nothing), on (pod 2, model 2) under ``"fsdp"`` at 20 (the
+    shards keep 15 and 5) and on (pod 1, data 2, model 2) under ``"tp"``
+    at 20 (each shard's kept rows split over 'model');
+  * clipping by the global norm (SGD-momentum with ``grad_clip_norm`` 4,
+    which binds: the reference's norm of the stacked fleet's gradient
+    exceeds it at every step) on (pod 2) and on (pod 2, model 2) under
+    ``"tp"``: each rank clips its clients' blocks by the fleet's norm;
   * `make_mhd_train_step` against the reference's.
 """
 import dataclasses
@@ -76,6 +91,7 @@ ARCHS = ["mamba2-370m", "minitron-4b"]
 EXCHANGES = ["full", "topk"]
 STEPS, K, B, B_PUB, T, TOPK = 2, 2, 2, 2, 16, 8
 OPT = dict(name="sgd_momentum", init_lr=0.01, total_steps=10)
+CLIP_NORM = 4.0
 MHD = dict(nu_emb=1.0, nu_aux=3.0, num_aux_heads=2, delta=1)
 # world size -> (mesh shape, axes) of the multi-process runs
 MESHES = {2: ((2,), ("pod",)), 4: ((2, 2), ("pod", "data"))}
@@ -90,6 +106,24 @@ POD_MODEL_MESH = {4: ((2, 2), ("pod", "model"))}
 # not a ring: client 0 teaches 1 (its own pod at two pods) and 2 (the
 # other pod); 3 learns from 2 in its pod, 0 from 3 across
 GATHER = ((3,), (0,), (0,), (2,))
+# the cases the pod step once refused, and the clipping cases: name ->
+# (case() arguments, meshes, strategy); B_PUB · (T - 1) = 30 public
+# positions, 15 a token shard's block at 2 shards a pod
+POD_DATA = {4: ((2, 2), ("pod", "data"))}
+# one pod whose 2 data shards each split their rows' vocabulary over 2
+# model ranks under "tp"
+DATA_MODEL = {4: ((1, 2, 2), ("pod", "data", "model"))}
+REFUSED = {
+    "uneven": (dict(rows=3, pub_rows=3), POD_DATA, "tp"),
+    "uneven-tp": (dict(rows=3, pub_rows=3), DATA_MODEL, "tp"),
+    "capped": (dict(max_pub=10), POD_DATA, "tp"),
+    "capped-fsdp": (dict(max_pub=20), POD_MODEL_MESH, "fsdp"),
+    "capped-tp": (dict(max_pub=20), DATA_MODEL, "tp"),
+    "clip": (dict(opt=dict(OPT, grad_clip_norm=CLIP_NORM)),
+             {2: ((2,), ("pod",)), **POD_MODEL_MESH}, "tp")}
+# cases whose reference run is another's: the same params, batches and
+# configuration on another mesh
+SAME_REFERENCE = {"uneven-tp": "uneven", "capped-tp": "capped-fsdp"}
 
 
 def stacked_params(cfg, n: int, seed: int = 0) -> dict:
@@ -100,25 +134,29 @@ def stacked_params(cfg, n: int, seed: int = 0) -> dict:
     return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
 
 
-def batches(cfg, n: int, seed: int = 3) -> list:
+def batches(cfg, n: int, seed: int = 3, rows: int = B,
+            pub_rows: int = B_PUB) -> list:
     rng = np.random.default_rng(seed)
     return [{"private_tokens": torch.from_numpy(rng.integers(
-                0, cfg.vocab_size, (n, B, T)).astype(np.int32)),
+                0, cfg.vocab_size, (n, rows, T)).astype(np.int32)),
              "public_tokens": torch.from_numpy(rng.integers(
-                 0, cfg.vocab_size, (B_PUB, T)).astype(np.int32))}
+                 0, cfg.vocab_size, (pub_rows, T)).astype(np.int32))}
             for _ in range(STEPS)]
 
 
 def case(arch: str, exchange: str, n: int = K, neighbors=None,
-         moe_impl=None) -> dict:
+         moe_impl=None, rows: int = B, pub_rows: int = B_PUB,
+         max_pub: int = 0, opt: dict = OPT) -> dict:
     cfg = get_reduced(arch)
     if moe_impl:
         cfg = dataclasses.replace(cfg, moe_impl=moe_impl)
-    return {"cfg": cfg, "arch": arch, "moe_impl": moe_impl, "opt": OPT,
+    return {"cfg": cfg, "arch": arch, "moe_impl": moe_impl, "opt": opt,
             "mhd": MHD,
             "dist": dict(num_clients=n, exchange=exchange, topk=TOPK,
-                         neighbors=neighbors),
-            "params": stacked_params(cfg, n), "batches": batches(cfg, n),
+                         neighbors=neighbors,
+                         max_public_positions=max_pub),
+            "params": stacked_params(cfg, n),
+            "batches": batches(cfg, n, rows=rows, pub_rows=pub_rows),
             "mesh": MESHES}
 
 
@@ -136,7 +174,27 @@ def cases():
         out[name] = case("minitron-4b", "topk")
         out[name]["mesh"] = POD_MODEL_MESH
         out[name]["sharding"] = strategy
+    for name, (kw, meshes, strategy) in REFUSED.items():
+        out[name] = case("minitron-4b", "topk", **kw)
+        out[name]["mesh"] = meshes
+        out[name]["sharding"] = strategy
+        out[name]["record_rows"] = True
     return out
+
+
+def recording(opt):
+    """The reference's optimizer, its state also keeping the norm of the
+    gradient it was given (the stacked fleet's)."""
+    from repro.optim.optimizers import Optimizer, _global_norm
+
+    def update(g, s, p, t):
+        params, state = opt.update(
+            g, {k: v for k, v in s.items() if k != "norm"}, p, t)
+        return params, {**state, "norm": _global_norm(g)}
+
+    return Optimizer(init=lambda p: {**opt.init(p),
+                                     "norm": jnp.zeros((), jnp.float32)},
+                     update=update)
 
 
 MESH_REFERENCE = textwrap.dedent("""
@@ -231,7 +289,8 @@ def ranked(cases, tmp_path_factory):
 @pytest.fixture(scope="module")
 def reference(cases, ranked):
     """The reference's jitted step over each case's batches: (metrics a
-    step, the stacked params after)."""
+    step, the stacked params after); under ``"<name>:norms"`` the norm of
+    the gradient it clipped a step, for a clipping case."""
     out = {}
     for name, c in cases.items():
         if name == A2A:  # on its mesh in `ranked`'s subprocess
@@ -239,11 +298,13 @@ def reference(cases, ranked):
         if name in POD_MODEL:  # the same function as minitron-4b-topk's
             out[name] = out["minitron-4b-topk"]
             continue
+        if name in SAME_REFERENCE:
+            continue
         jopt = jax_optimizer(JOptimizerConfig(**c["opt"]))
-        d = c["dist"]
-        jdist = JMD.DistributedMHDConfig(
-            num_clients=d["num_clients"], exchange=d["exchange"],
-            topk=d["topk"], neighbors=d["neighbors"])
+        clip = c["opt"].get("grad_clip_norm")
+        if clip:
+            jopt = recording(jopt)
+        jdist = JMD.DistributedMHDConfig(**c["dist"])
         step = jax.jit(JMD.make_distributed_mhd_step(
             jax_bundle(jax_reduced(c["arch"])), jopt, JMHDConfig(**c["mhd"]),
             jdist))
@@ -251,13 +312,19 @@ def reference(cases, ranked):
                      for k, v in c["params"].items()})
         state = {"params": jp, "opt": jopt.init(jp),
                  "step": jnp.zeros((), jnp.int32)}
-        metrics = []
+        metrics, norms = [], []
         for b in c["batches"]:
             state, m = step(state, {k: jnp.asarray(v.numpy())
                                     for k, v in b.items()})
             metrics.append({k: float(v) for k, v in m.items()})
+            if clip:
+                norms.append(float(state["opt"]["norm"]))
+        if clip:
+            out[f"{name}:norms"] = norms
         out[name] = metrics, {k: np.asarray(v) for k, v in
                               JIO.flatten_with_paths(state["params"]).items()}
+    for name, same in SAME_REFERENCE.items():
+        out[name] = out[same]
     return out
 
 
@@ -514,3 +581,26 @@ def test_mhd_train_step_matches_the_reference(arch):
                                    atol=ATOL_PARAMS, err_msg=k)
     for k, v in teachers.items():
         assert torch.equal(v, frozen[k]), k
+
+
+@pytest.mark.parametrize("name,world", [(n, w) for n in REFUSED
+                                        for w in sorted(REFUSED[n][1])])
+def test_pod_step_runs_what_the_reference_runs(name, world, reference,
+                                               ranks_done):
+    """The cases the pod step once refused (uneven rows, capped public
+    positions over two token shards) and clipping by the fleet's norm,
+    across ranks against the reference's step on the same case. No rank
+    distilled on zero rows: at 10 of 30 capped positions the second token
+    shard of each pod scored no row at all. A clipping case's norm binds
+    at both steps."""
+    metrics, params = assembled(ranks_done[world], name)
+    hold(metrics, params, reference[name], f"{name} world {world}")
+    rows = {r: res[name]["distilled_rows"]
+            for r, res in ranks_done[world].items()}
+    assert all(n > 0 for calls in rows.values() for n in calls), rows
+    if name == "capped":
+        shard = {r: res[name]["coords"][0]
+                 for r, res in ranks_done[world].items()}
+        assert all(bool(rows[r]) == (shard[r] == 0) for r in rows), rows
+    if name == "clip":
+        assert min(reference["clip:norms"]) > CLIP_NORM

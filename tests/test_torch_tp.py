@@ -32,7 +32,16 @@ package's sharded step and the port's unsharded one, on the CPU.
     3 sequences a step on the 2×2 mesh under ``"fsdp"`` (4 token shards),
     which every rank computes whole, as the reference's batch sharding
     replicates it; held against the port's unsharded step and the
-    reference's run of the same case;
+    reference's run of the same case; and reduced arctic-480b on the
+    expert-parallel MoE at 3 sequences, whose a2a region takes each
+    rank's block of the 48 flattened tokens itself (the reference's
+    ``shard_map`` split), against the reference's run of the same case;
+  * clipping by the global norm (SGD-momentum with ``grad_clip_norm`` 4,
+    which binds: the reference's norm exceeds it at every step) for
+    reduced qwen2.5-32b and arctic-480b on the a2a MoE, on 2×2 under both
+    strategies: each rank's blocks clipped by the whole gradient's norm,
+    against the reference's run of the same case (and qwen2.5-32b's
+    against the port's unsharded step);
   * each rank holds exactly its blocks: every leaf's shape is the block
     shape of its `param_pspec` spec on the mesh, on the state and on
     `train_state_shapes`' meta state;
@@ -77,9 +86,13 @@ for _op in (torch.exp, torch.log, torch.sqrt, torch.tanh):
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 RTOL_METRICS, ATOL_PARAMS = 1e-4, 1e-5
 STEPS, B, T, T_AUDIO = 2, 4, 16, 24
-# a family entry that runs qwen2.5-32b on a batch of 3 rows, which the 4
-# token shards of 2x2 under "fsdp" do not divide
-UNEVEN, UNEVEN_B = "qwen2.5-32b@b3", 3
+# family entries that run qwen2.5-32b and arctic-480b (the a2a MoE) on a
+# batch of 3 rows, which the 4 token shards of 2x2 under "fsdp" do not
+# divide
+UNEVEN, UNEVEN_A2A, UNEVEN_B = "qwen2.5-32b@b3", "arctic-480b@b3", 3
+# family entries whose optimizer clips by the global norm, at a norm
+# their gradients exceed
+CLIP, CLIP_NORM = ("qwen2.5-32b@clip", "arctic-480b@clip"), 4.0
 
 
 def arch(family: str) -> str:
@@ -87,6 +100,15 @@ def arch(family: str) -> str:
 
 
 OPT = dict(name="sgd_momentum", init_lr=0.01, total_steps=10)
+OPT_CLIP = dict(OPT, grad_clip_norm=CLIP_NORM)
+
+
+def family_opt(family: str) -> dict:
+    return OPT_CLIP if family in CLIP else OPT
+
+
+def family_rows(family: str) -> int:
+    return UNEVEN_B if family.endswith("@b3") else B
 AXES = ("data", "model")
 MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2)}
 STRATEGIES = ["tp", "fsdp"]
@@ -94,11 +116,14 @@ STRATEGIES = ["tp", "fsdp"]
 FAMILIES = {"qwen2.5-32b": None, "gemma3-12b": None, "mamba2-370m": None,
             "zamba2-7b": None, "arctic-480b": "a2a",
             "deepseek-v3-671b": "a2a", "whisper-large-v3": None,
-            "llama-3.2-vision-90b": None, UNEVEN: None}
+            "llama-3.2-vision-90b": None, UNEVEN: None, UNEVEN_A2A: "a2a",
+            CLIP[0]: None, CLIP[1]: "a2a"}
 A2A = {f for f in FAMILIES if FAMILIES[f] == "a2a" or
        get_reduced(arch(f)).moe_impl == "a2a"}
-CASES = [(f, m, s) for f in FAMILIES if f != UNEVEN for m in MESHES
-         for s in STRATEGIES] + [(UNEVEN, "2x2", "fsdp")]
+CASES = [(f, m, s) for f in FAMILIES if "@" not in f for m in MESHES
+         for s in STRATEGIES] + [(UNEVEN, "2x2", "fsdp"),
+                                 (UNEVEN_A2A, "2x2", "fsdp")] + [
+    (f, "2x2", s) for f in CLIP for s in STRATEGIES]
 
 
 def case_name(family: str, mesh: str, strategy: str) -> str:
@@ -140,9 +165,9 @@ def reference_run(family: str, mesh: str, strategy: str):
     every other family the 2×2 run under "tp" (both strategies' sharded
     function is the unsharded one; qwen2.5-32b, the reference's own
     case, also runs under "fsdp"); None for the a2a at model 1 (its
-    scatter form, the unsharded function). The uneven batch's case is
-    held against its own run."""
-    if on_model_axis(family, mesh) or family == UNEVEN:
+    scatter form, the unsharded function). The uneven batches' and the
+    clipping cases are held against their own runs."""
+    if on_model_axis(family, mesh) or "@" in family:
         return case_name(family, mesh, strategy)
     if family in A2A:
         return None
@@ -186,7 +211,7 @@ def inputs():
         cfg = reduced(f)
         params = build_bundle(cfg).init(torch.Generator().manual_seed(0))
         out[f] = {"cfg": cfg, "params": params, "batches": family_batches(
-            cfg, rows=UNEVEN_B if f == UNEVEN else B)}
+            cfg, rows=family_rows(f))}
     return out
 
 
@@ -205,7 +230,8 @@ REFERENCE = textwrap.dedent("""
     from repro.launch.steps import make_train_step
     from repro.models import moe_a2a as A
     from repro.models.zoo import build_bundle
-    from repro.optim.optimizers import OptimizerConfig, make_optimizer
+    from repro.optim.optimizers import (Optimizer, OptimizerConfig,
+                                        _global_norm, make_optimizer)
 
     # the a2a's boundary rounding the cotangent to bf16 in its own dtype
     # (as written it returns bf16, which an f32 backward refuses;
@@ -249,6 +275,17 @@ REFERENCE = textwrap.dedent("""
             cfg = dataclasses.replace(cfg, moe_impl=c["moe_impl"])
         bundle = build_bundle(cfg)
         opt = make_optimizer(OptimizerConfig(**c["opt"]))
+        clip = c["opt"].get("grad_clip_norm")
+        if clip:
+            # the optimizer's state also keeps the norm of the gradient
+            # it was given, the whole sharded tree's
+            base = opt
+            opt = Optimizer(
+                init=lambda p: {**base.init(p),
+                                "norm": jnp.zeros((), jnp.float32)},
+                update=lambda g, s, p, t: (lambda r: (r[0], {
+                    **r[1], "norm": _global_norm(g)}))(base.update(
+                        g, {"momentum": s["momentum"]}, p, t)))
         params = nested({k[len(f) + 3:]: inp[k] for k in inp.files
                          if k.startswith(f"{f}/p/")})
         state = {"params": params, "opt": jax.tree.map(
@@ -260,6 +297,8 @@ REFERENCE = textwrap.dedent("""
         with jax.set_mesh(mesh):
             ps = SH.params_shardings(params, mesh)
             spec = {"params": ps, "opt": {"momentum": ps}, "step": P()}
+            if clip:
+                spec["opt"]["norm"] = P()
             batches = [{k[len(f"{f}/b{t}/"):]: inp[k]
                         for k in inp.files
                         if k.startswith(f"{f}/b{t}/")}
@@ -272,6 +311,9 @@ REFERENCE = textwrap.dedent("""
                 state, m = step(state, b)
                 for k, v in m.items():
                     out[f"{c['name']}/m{t}/{k}"] = np.asarray(v)
+                if clip:
+                    out[f"{c['name']}/n{t}"] = np.asarray(
+                        state["opt"]["norm"])
         for k, v in flatten_with_paths(state["params"]).items():
             out[f"{c['name']}/p/{k}"] = np.asarray(v)
     np.savez(sys.argv[3], **out)
@@ -299,8 +341,8 @@ def ranked(inputs, tmp_path_factory):
     todo.sort(key=lambda n: n.split("-1x2")[0].split("-2x2")[0] not in A2A)
     for i in range(REFERENCE_PROCESSES):
         cases = [{"name": n, "family": f, "moe_impl": FAMILIES[f],
-                  "mesh": list(MESHES[m]), "sharding": s, "opt": OPT,
-                  "steps": STEPS}
+                  "mesh": list(MESHES[m]), "sharding": s,
+                  "opt": family_opt(f), "steps": STEPS}
                  for n in todo[i::REFERENCE_PROCESSES]
                  for f, m, s in CASES if case_name(f, m, s) == n]
         (tmp / f"ref_{i}.json").write_text(json.dumps(cases))
@@ -315,7 +357,7 @@ def ranked(inputs, tmp_path_factory):
             if int(np.prod(MESHES[m])) == world:
                 todo[case_name(f, m, s)] = {
                     "cfg": inputs[f]["cfg"], "params": inputs[f]["params"],
-                    "batches": inputs[f]["batches"], "opt": OPT,
+                    "batches": inputs[f]["batches"], "opt": family_opt(f),
                     "mesh": (MESHES[m], AXES), "sharding": s,
                     "count": (f, m, s) == COUNTED}
         if world == 2:
@@ -340,7 +382,7 @@ def unsharded(inputs, ranked):
     out = {}
     for f, inp in inputs.items():
         bundle = build_bundle(inp["cfg"])
-        opt = make_optimizer(OptimizerConfig(**OPT))
+        opt = make_optimizer(OptimizerConfig(**family_opt(f)))
         params = {k: v.clone() for k, v in inp["params"].items()}
         state = {"params": params, "opt": opt.init(params), "step": 0}
         step = TSTEPS.make_train_step(bundle, opt)
@@ -354,10 +396,11 @@ def unsharded(inputs, ranked):
 
 @pytest.fixture(scope="module")
 def done(ranked):
-    """{"reference": {name: (metrics, params)}, world: {rank: {name:
-    result}}} once every process has ended."""
+    """{"reference": {name: (metrics, params)}, "norms": {name: the
+    reference's gradient norm a step, for the clipping cases}, world:
+    {rank: {name: result}}} once every process has ended."""
     runs, tmp = ranked
-    out = {"reference": {}}
+    out = {"reference": {}, "norms": {}}
     for s, proc in runs["reference"].items():
         try:
             _, err = proc.communicate(timeout=torch_ranks.TIMEOUT_S)
@@ -376,6 +419,9 @@ def done(ranked):
             params = {k[len(name) + 3:]: v for k, v in ref.items()
                       if k.startswith(f"{name}/p/")}
             out["reference"][name] = metrics, params
+            if f"{name}/n0" in ref:
+                out["norms"][name] = [float(ref[f"{name}/n{t}"])
+                                      for t in range(STEPS)]
     for world in (2, 4):
         torch_ranks.wait_ranks(runs[world])
         out[world] = {r: torch.load(str(tmp / f"out{world}.{r}"),
@@ -439,6 +485,8 @@ def test_sharded_train_step_matches(family, mesh, strategy, inputs,
     if ref is not None:
         hold(metrics, params, done["reference"][ref],
              f"{name} vs the reference's {ref}")
+    if family in CLIP:  # the clip binds at every step
+        assert min(done["norms"][ref]) > CLIP_NORM, done["norms"][ref]
     moved = [k for k in params
              if not torch.equal(params[k], inputs[family]["params"][k])]
     assert moved, name

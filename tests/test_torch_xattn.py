@@ -160,12 +160,25 @@ def test_cross_attention_matches_jax(case):
 
 
 def test_logit_softcap_still_raises_with_kv_src():
+    """(The name is from when the softcap raised; it runs now.)
+    ``logit_softcap`` with ``kv_src`` (S = 6 against T = 4, every key
+    visible) against `repro.models.layers.attention_apply` on the same
+    params within 2e-5."""
     dims = TL.AttnDims(d_model=16, num_heads=2, num_kv_heads=2, head_dim=8)
     params = TL.init_attention(torch.Generator().manual_seed(0), dims)
-    with pytest.raises(NotImplementedError, match="item 2.5"):
-        TL.attention_apply(params, dims, torch.randn(1, 4, 16),
-                           kv_src=torch.randn(1, 6, 16), mask_kind="none",
-                           logit_softcap=30.0)
+    rng = np.random.default_rng(6)
+    x = 3 * rng.standard_normal((1, 4, 16)).astype(np.float32)
+    src = 3 * rng.standard_normal((1, 6, 16)).astype(np.float32)
+    ref = JL.attention_apply(
+        {k: jnp.asarray(v.numpy()) for k, v in params.items()},
+        JL.AttnDims(d_model=16, num_heads=2, num_kv_heads=2, head_dim=8),
+        jnp.asarray(x), mask_kind="none", kv_src=jnp.asarray(src),
+        logit_softcap=30.0)
+    out = TL.attention_apply(params, dims, torch.from_numpy(x),
+                             kv_src=torch.from_numpy(src), mask_kind="none",
+                             logit_softcap=30.0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
 
 
 @pytest.mark.parametrize("T,D,tol", [(64, 128, ATOL), (448, 1280, ATOL),

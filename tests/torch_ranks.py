@@ -92,8 +92,9 @@ def pod_steps(rank, world, in_path, out_path):
     """Every case of ``in_path`` on this rank's block of the fleet: its
     params after the steps (each leaf its block by the sharding rules on
     its pod's axes, under the strategy the case names, "tp" by default),
-    each step's metrics, its clients, its coordinates in its pod and the
-    leaves' specs."""
+    each step's metrics, its clients, its coordinates in its pod, the
+    leaves' specs and, for a case with ``"record_rows"``, the rows of
+    each call of the distillation loss (`_distill_loss_one_client`)."""
     import torch
 
     from repro_torch.core import mhd_distributed as MD
@@ -119,10 +120,20 @@ def pod_steps(rank, world, in_path, out_path):
                                             dcfg, mesh)
         params = MD.local_params(c["params"], bundle, dcfg.num_clients, mesh)
         state = {"params": params, "opt": opt.init(params), "step": 0}
-        metrics = []
-        for batch in c["batches"]:
-            state, m = step(state, batch)
-            metrics.append({k: float(v) for k, v in m.items()})
+        metrics, rows = [], []
+        distill = MD._distill_loss_one_client
+        if c.get("record_rows"):
+            def recorded(student, *args):
+                rows.append(int(student["logits"].shape[0]))
+                return distill(student, *args)
+
+            MD._distill_loss_one_client = recorded
+        try:
+            for batch in c["batches"]:
+                state, m = step(state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+        finally:
+            MD._distill_loss_one_client = distill
         lay = MD.pod_layout(dcfg.num_clients, mesh)
         sizes = dict(zip(axes, shape))
         inner = {a: sizes[a] for a in lay.inner}
@@ -131,7 +142,8 @@ def pod_steps(rank, world, in_path, out_path):
                      "coords": tuple(int(mesh.get_local_rank(a))
                                      for a in lay.inner),
                      "sizes": inner,
-                     "specs": MD.pod_specs(bundle, mesh, lay)}
+                     "specs": MD.pod_specs(bundle, mesh, lay),
+                     "distilled_rows": rows}
         apply_sharding_strategy("tp")
     torch.save(out, f"{out_path}.{rank}")
 

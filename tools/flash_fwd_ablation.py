@@ -154,7 +154,8 @@ def build_all() -> dict:
         lib.flash_attention_fwd.argtypes = ([ctypes.c_int]
                                             + [ctypes.c_void_p] * 5
                                             + [ctypes.c_int] * 8
-                                            + [ctypes.c_void_p])
+                                            + [ctypes.c_float,
+                                               ctypes.c_void_p])
         libs[name] = lib
     return libs
 
@@ -179,7 +180,7 @@ def main() -> None:
             o, lse = outs[n]
             err = libs[n].flash_attention_fwd(
                 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), B, T, T, H, H, d, 1, 0, stream)
+                lse.data_ptr(), B, T, T, H, H, d, 1, 0, 0.0, stream)
             if err:
                 raise SystemExit(f"{n}: launch failed: cudaError {err}")
 
